@@ -18,10 +18,23 @@ when it fails:
    ``cloth_on_sphere(64, 3)``, the golden ``cloth-sphere-16`` bar, and the
    bench scene ``cloth_on_sphere(128, 4, drop=0.25)`` run once with zeroed
    launch counters (both kernels must launch) and then timed (median of 5
-   after the warm-up); also timed on ``cloth_on_sphere(384, 5)``.
+   after the warm-up); also timed on ``cloth_on_sphere(384, 5)``;
+5. kernel B's exact modes against the plain version on the candidates of
+   ``cloth_on_sphere(64, 3)``: per-query (equal hit sets, per-query TOIs
+   within 1e-7), per-query with ``max_iterations`` 10 and 100 (within
+   1e-7, expected bitwise), global with ``ms=1e-3`` and global with
+   ``max_iterations=1_000_000`` (the unbounded TOI);
+6. kernel A's box range on the bench scene: the ranged launches over
+   chunks of 2^15 boxes give the whole-range pair set and totals, and a
+   chunk budget of 64 retries to the exact total;
+7. the IPC path: ``ccd()``, ``fused_ccd(collisions=)`` and a 3-frame IPC
+   stepping loop (``ipc_ccd_strategy`` chunked and fused) on the bench
+   scene, the IPC refinement rig, the CUDA runs against the CPU runs on
+   ``cloth_on_sphere(64, 3)``, the launch counters of every new mode, and
+   the path's timings (median of 5 after a warm-up).
 
-The last lines are the kernels' JSON record, the ``nvidia-smi`` line, and
-``{"ok": true, "device": {...}}``.
+The last lines are the kernels' JSON record (one row per kernel and mode),
+the ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -32,6 +45,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 TOL = 1e-6
@@ -75,11 +89,43 @@ def alternate(plain, kernel, reps):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def host_cpu():
+    """The host's CPU from ``/proc/cpuinfo`` (``model name``; where a sandbox
+    reports it as unknown, the vendor, family and model numbers, or Arm's
+    implementer and part codes) with its clock, and the logical CPU count."""
+    import platform
+
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as fh:
+            for line in fh:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    model = fields.get("model name") or fields.get("Hardware") or "unknown"
+    if model == "unknown":
+        ids = [f"{k} {fields[k]}" for k in ("vendor_id", "cpu family", "model",
+                                            "CPU implementer", "CPU part") if k in fields]
+        model = ", ".join(ids) or platform.machine() or "unknown"
+    if "cpu MHz" in fields:
+        model += f", {fields['cpu MHz']} MHz"
+    return model, os.cpu_count()
+
+
+def max_abs(a, b):
+    """Largest |a - b| over two tensors of one shape (0.0 when empty)."""
+    return float((a - b).abs().max()) if a.numel() else 0.0
+
+
 def pair_keys(pairs, n):
     import torch
 
     p = pairs[: int(n)].to(torch.int64)
     return torch.sort(p[:, 0] * (1 << 32) + p[:, 1]).values
+
+
+T_START = time.perf_counter()
 
 
 def main():
@@ -109,11 +155,15 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+    cpu_model, cpu_count = host_cpu()
     emit(phase="device", kind=name, count=torch.cuda.device_count(),
-         nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
+         nvidia_smi=smi, host_cpu=cpu_model, host_cpu_count=cpu_count,
+         torch=torch.__version__, cuda=torch.version.cuda)
 
-    # ---- 1. build -------------------------------------------------------
+    # ---- 1. build: one nvcc per source, started together --------------------
     t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        list(pool.map(_build.build_library, ("sweep_ap", "solver")))
     for lib in ("sweep_ap", "solver"):
         _build.load_library(lib)
     ptxas = []
@@ -226,12 +276,14 @@ def main():
 
     bargs = (v0, v1, e, f)
     validate_mesh_inputs(*bargs)
-    sweep_ap.LAUNCHES = 0
-    solver.LAUNCHES = 0
+    zero_counts(sweep_ap, solver)
     res = fused_ccd(*bargs, device="cuda", validate=False)
     torch.cuda.synchronize()
     launches = {"sweep_pairs": sweep_ap.LAUNCHES, "solve_packed": solver.LAUNCHES}
+    main_modes = read_counts(sweep_ap, solver)
     check(all(n > 0 for n in launches.values()), f"main path skipped a kernel: {launches}")
+    check(main_modes["sweep_whole"] > 0 and main_modes["solve_global"] > 0,
+          f"main path skipped a kernel mode: {main_modes}")
     check(not bool(res.overflowed), "bench: overflowed")
     toi = float(res.toi)
     check(0.0 <= toi <= 1.0, f"bench: toi {toi} outside [0, 1]")
@@ -266,21 +318,336 @@ def main():
          vf_total=int(rb.vf_total), ee_total=int(rb.ee_total), toi=float(rb.toi),
          ms_per_frame_median=bms, ms_per_frame=btimes)
 
+    exact = phase_exact_modes(torch, dev, cloth_on_sphere, types, solver)
+    ranged = phase_box_range(torch, phases, sweep_ap)
+    ipc = phase_ipc_path(torch, dev, cloth_on_sphere, sweep_ap, solver)
+
     src = "scalable_ccd_tpu_torch/csrc/"
+    sweep = {"route": "cuda", "source": src + "sweep_ap.cu",
+             "replaces": "scalable_ccd_tpu/ops/pallas_sweep_ap.py:291"}
+    solve = {"route": "cuda", "source": src + "solver.cu",
+             "replaces": "scalable_ccd_tpu/ops/pallas_solver.py:114"}
     print(json.dumps({"kernels": [
-        {"name": "sweep_pairs", "route": "cuda", "source": src + "sweep_ap.cu",
-         "replaces": "scalable_ccd_tpu/ops/pallas_sweep_ap.py:291",
-         "launches": launches["sweep_pairs"], "max_abs_err": 0.0,
-         "ms": a_ms, "plain_ms": a_plain_ms},
-        {"name": "solve_packed", "route": "cuda", "source": src + "solver.cu",
-         "replaces": "scalable_ccd_tpu/ops/pallas_solver.py:114",
-         "launches": launches["solve_packed"], "max_abs_err": b_err,
-         "ms": b_ms, "plain_ms": b_plain_ms},
+        {"name": "sweep_pairs[whole]", **sweep, "launches": main_modes["sweep_whole"],
+         "max_abs_err": 0.0, "ms": a_ms, "plain_ms": a_plain_ms},
+        {"name": "sweep_pairs[range]", **sweep, "launches": ipc["sweep_range"],
+         "max_abs_err": 0.0, "ms": ranged["ms"], "plain_ms": ranged["plain_ms"]},
+        {"name": "solve_packed[global]", **solve, "launches": main_modes["solve_global"],
+         "max_abs_err": b_err, "ms": b_ms, "plain_ms": b_plain_ms},
+        {"name": "solve_packed[per_query]", **solve, "launches": ipc["solve_per_query"],
+         **exact["per_query"]},
+        {"name": "solve_packed[bounded]", **solve, "launches": ipc["solve_bounded"],
+         **exact["bounded"]},
     ]}))
+    emit(phase="done", wall_seconds=time.perf_counter() - T_START)
+    print(f"host: {cpu_model}, {cpu_count} CPUs")
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
+
+
+# ---- launch counters -------------------------------------------------------
+
+def zero_counts(sweep_ap, solver):
+    sweep_ap.LAUNCHES = 0
+    solver.LAUNCHES = 0
+    for counts in (sweep_ap.LAUNCHES_BY_MODE, solver.LAUNCHES_BY_MODE):
+        for k in counts:
+            counts[k] = 0
+
+
+def read_counts(sweep_ap, solver):
+    out = {f"sweep_{k}": v for k, v in sweep_ap.LAUNCHES_BY_MODE.items()}
+    out.update({f"solve_{k}": v for k, v in solver.LAUNCHES_BY_MODE.items()})
+    return out
+
+
+# ---- 5. kernel B's exact modes vs plain ----------------------------------------
+
+def phase_exact_modes(torch, dev, cloth_on_sphere, types, solver):
+    """Per-query, bounded and min-separation modes of kernel B against the
+    plain version on every candidate of cloth_on_sphere(64, 3), in batches
+    of 16,384.  Returns the JSON fields of the per_query and bounded rows."""
+    from scalable_ccd_tpu_torch.broad_phase import merge_two_lists, sort_boxes
+    from scalable_ccd_tpu_torch.geometry import (
+        build_edge_boxes,
+        build_face_boxes,
+        build_vertex_boxes,
+    )
+    from scalable_ccd_tpu_torch.ops import sweep_ap
+
+    sc = cloth_on_sphere(grid_n=64, sphere_subdiv=3)
+    v0 = torch.as_tensor(sc.vertices_t0, dtype=torch.float32, device=dev)
+    v1 = torch.as_tensor(sc.vertices_t1, dtype=torch.float32, device=dev)
+    e = torch.as_tensor(sc.edges, dtype=torch.int32, device=dev)
+    f = torch.as_tensor(sc.faces, dtype=torch.int32, device=dev)
+    vb = build_vertex_boxes(v0, v1)
+    vcat = types.concat_frames(v0, v1, torch.float32)
+    rows = {}
+    for is_vf in (True, False):
+        if is_vf:
+            sb = sort_boxes(merge_two_lists(vb, build_face_boxes(vb, f)))
+        else:
+            sb = sort_boxes(build_edge_boxes(vb, e))
+        budget = 1 << (4 * sb.n - 1).bit_length()
+        p, n, _, _ = sweep_ap.sweep_pairs_reference(sb, is_vf, budget)
+        pairs = p[: int(n)]
+        if is_vf:
+            q = types.gather_vf_queries(vcat, types.pack_face_table(vcat, f), pairs)
+        else:
+            q = types.gather_ee_queries(types.pack_edge_table(vcat, e), pairs)
+        rows[is_vf] = {ms: [r[s:s + BATCH].contiguous() for s in range(0, r.shape[0], BATCH)]
+                       for ms in (0.0, 1e-3)
+                       for r in [solver.pack_query_rows(q, is_vf, ms, TOL)]}
+
+    def run(fn, is_vf, ms=0.0, **kw):
+        toi = torch.ones((), dtype=torch.float32, device=dev)
+        checks, pqs = 0, []
+        for b in rows[is_vf][ms]:
+            valid = torch.ones((b.shape[0],), dtype=torch.bool, device=dev)
+            out = fn(b, valid, is_vf, toi, TOL, **kw)
+            toi = torch.minimum(toi, out[0])
+            checks += int(out[2])
+            if len(out) > 3:
+                pqs.append(out[3])
+        return toi, checks, (torch.cat(pqs) if pqs else None)
+
+    out = {}
+    for label, kw, ms in (("per_query", dict(per_query=True), 0.0),
+                          ("per_query_cap10", dict(per_query=True, max_iterations=10), 0.0),
+                          ("per_query_cap100", dict(per_query=True, max_iterations=100), 0.0),
+                          ("global_ms", {}, 1e-3),
+                          ("global_cap", dict(max_iterations=1_000_000), 0.0)):
+        errs, kms_sum, pms_sum, info = [], 0.0, 0.0, {}
+        for is_vf in (True, False):
+            ph = "vf" if is_vf else "ee"
+            tk, ck, pk = run(solver.solve_packed, is_vf, ms, **kw)
+            torch.cuda.synchronize()
+            tp, cp, pp = run(solver.solve_packed_reference, is_vf, ms, **kw)
+            err = abs(float(tk) - float(tp))
+            if pk is not None:
+                check(torch.equal(pk < 1, pp < 1), f"{label} {ph}: hit sets differ")
+                check(torch.equal(torch.isinf(pk), torch.isinf(pp)), f"{label} {ph}: inf rows differ")
+                fin = torch.isfinite(pp)
+                err = max(err, max_abs(pk[fin], pp[fin]))
+                info[ph + "_hits"] = int((pk < 1).sum())
+                info[ph + "_bitwise"] = bool(torch.equal(pk, pp))
+            check(err <= 1e-7, f"{label} {ph}: kernel vs plain differ by {err}")
+            if label == "global_cap":
+                tu, cu, _ = run(solver.solve_packed, is_vf)
+                check(float(tk) == float(tu), f"{label} {ph}: capped {float(tk)} vs unbounded {float(tu)}")
+                info[ph + "_unbounded_checks"] = cu
+            kms, pms = alternate(lambda: run(solver.solve_packed_reference, is_vf, ms, **kw),
+                                 lambda: run(solver.solve_packed, is_vf, ms, **kw), 1)
+            errs.append(err)
+            kms_sum, pms_sum = kms_sum + kms, pms_sum + pms
+            info.update({ph + "_toi": float(tk), ph + "_checks": ck, ph + "_plain_checks": cp,
+                         ph + "_queries": sum(b.shape[0] for b in rows[is_vf][ms])})
+        out[label] = {"max_abs_err": max(errs), "ms": kms_sum, "plain_ms": pms_sum}
+        emit(phase="kernel_b_mode", mode=label, **out[label], **info)
+    bounded = [out[k] for k in ("per_query_cap10", "per_query_cap100", "global_cap")]
+    return {
+        "per_query": out["per_query"],
+        "bounded": {"max_abs_err": max(b["max_abs_err"] for b in bounded),
+                    "ms": sum(b["ms"] for b in bounded),
+                    "plain_ms": sum(b["plain_ms"] for b in bounded)},
+    }
+
+
+# ---- 6. kernel A's box range ---------------------------------------------------
+
+def phase_box_range(torch, phases, sweep_ap):
+    """Ranged launches over chunks of 2^15 sorted boxes against the
+    whole-range set, and the chunk cursor's budget retry."""
+    import importlib
+
+    sweep_chunks = importlib.import_module("scalable_ccd_tpu_torch.pipeline.ccd").sweep_chunks
+    chunk = 1 << 15
+    kms_sum = pms_sum = 0.0
+    for ph, (two, sb) in phases.items():
+        budget = 1 << (4 * sb.n - 1).bit_length()
+        whole = sweep_ap.sweep_pairs(sb, two, budget)
+        ranges = [(b0, min(b0 + chunk, sb.n)) for b0 in range(0, sb.n, chunk)]
+        keys, total = [], 0
+        for rng in ranges:
+            p, n, n_true, ovf = sweep_ap.sweep_pairs(sb, two, budget, box_range=rng)
+            check(not bool(ovf), f"range {ph} {rng}: overflowed")
+            keys.append(pair_keys(p, n))
+            total += int(n_true)
+        keys = torch.sort(torch.cat(keys)).values
+        check(total == int(whole[2]), f"range {ph}: total {total} vs whole {int(whole[2])}")
+        check(torch.equal(keys, pair_keys(whole[0], whole[1])), f"range {ph}: union differs")
+        got, counts = [], []
+        for pairs, count in sweep_chunks(sb, two, chunk, 64):
+            got.append(pair_keys(pairs, count))
+            counts.append(count)
+        check(sum(counts) == total and max(counts) > 64,
+              f"range {ph}: budget-64 chunks gave {counts}, want total {total}")
+        check(torch.equal(torch.sort(torch.cat(got)).values, keys), f"range {ph}: retried set differs")
+        kms, pms = alternate(
+            lambda: [sweep_ap.sweep_pairs_reference(sb, two, budget, box_range=r) for r in ranges],
+            lambda: [sweep_ap.sweep_pairs(sb, two, budget, box_range=r) for r in ranges], 3)
+        kms_sum, pms_sum = kms_sum + kms, pms_sum + pms
+        emit(phase="kernel_a_range", which=ph, chunks=len(ranges), pairs=total,
+             budget64_chunk_counts=counts, ms=kms, plain_ms=pms)
+    return {"ms": kms_sum, "plain_ms": pms_sum}
+
+
+# ---- 7. the IPC path ----------------------------------------------------------------
+
+def ipc_loop(scene, device, impls, frames=3):
+    """The IPC stepping loop of examples/ipc_loop.py: per frame, the plain
+    fused TOI at ms=0 and ipc_ccd_strategy with each impl; the vertices
+    advance by the chunked TOI (numpy f64 on the host, so every device sees
+    the same positions)."""
+    import numpy as np
+
+    from scalable_ccd_tpu_torch import CCDStats, fused_ccd, ipc_ccd_strategy
+
+    v = np.asarray(scene.vertices_t0, np.float64)
+    target = np.asarray(scene.vertices_t1, np.float64)
+    out = []
+    for _ in range(frames):
+        args = (v, target, scene.edges, scene.faces)
+        row = {"toi_ms0": float(fused_ccd(*args, device=device).toi)}
+        for impl in impls:
+            st = CCDStats()
+            row[impl] = ipc_ccd_strategy(*args, min_distance=1e-3, max_iterations=1_000_000,
+                                         tolerance=1e-6, impl=impl, stats=st, device=device)
+            row[impl + "_refinements"] = st.ipc_refinements
+        out.append(row)
+        v = v + row[impls[0]] * (target - v)
+    return out
+
+
+def check_ipc_frames(frames, label):
+    for k, fr in enumerate(frames):
+        for impl in ("chunked", "fused"):
+            check(0.0 <= fr[impl] <= fr["toi_ms0"],
+                  f"{label} frame {k}: {impl} toi {fr[impl]} outside [0, {fr['toi_ms0']}]")
+        if fr["chunked_refinements"] == 0 and fr["fused_refinements"] == 0:
+            check(abs(fr["chunked"] - fr["fused"]) <= 1e-7,
+                  f"{label} frame {k}: chunked {fr['chunked']} vs fused {fr['fused']}")
+
+
+def same_hits(a, b, label):
+    a, b = sorted(a), sorted(b)
+    check([h[:2] for h in a] == [h[:2] for h in b], f"{label}: hit sets differ")
+    err = max((abs(x[2] - y[2]) for x, y in zip(a, b)), default=0.0)
+    check(err <= 1e-7, f"{label}: per-pair TOIs differ by {err}")
+    return err
+
+
+def phase_ipc_path(torch, dev, cloth_on_sphere, sweep_ap, solver):
+    import numpy as np
+
+    from scalable_ccd_tpu_torch import CCDConfig, CCDStats, MemoryConfig, ccd, fused_ccd
+    from scalable_ccd_tpu_torch import ipc_ccd_strategy
+    from scalable_ccd_tpu_torch.geometry import edges_from_faces
+
+    bench = cloth_on_sphere(grid_n=128, sphere_subdiv=4, drop=0.25)
+    bargs = tuple(torch.as_tensor(a, dtype=dt, device=dev) for a, dt in (
+        (bench.vertices_t0, torch.float32), (bench.vertices_t1, torch.float32),
+        (bench.edges, torch.int32), (bench.faces, torch.int32)))
+
+    # the slice's path, with zeroed counters: ccd(), collisions, IPC frames
+    zero_counts(sweep_ap, solver)
+    st = CCDStats()
+    toi_c = ccd(*bargs, device=dev, stats=st)
+    hits_f, hits_c = [], []
+    res_f = fused_ccd(*bargs, device=dev, collisions=hits_f)
+    toi_cc = ccd(*bargs, device=dev, collisions=hits_c)
+    frames = ipc_loop(bench, dev, ("chunked", "fused"))
+    torch.cuda.synchronize()
+    counts = read_counts(sweep_ap, solver)
+    for k in ("sweep_range", "solve_global", "solve_per_query", "solve_bounded"):
+        check(counts[k] > 0, f"IPC path launched no {k}: {counts}")
+
+    fused = fused_ccd(*bargs, device=dev)
+    check(abs(toi_c - float(fused.toi)) <= 1e-7, f"ccd toi {toi_c} vs fused {float(fused.toi)}")
+    check((st.vf_candidates, st.ee_candidates) == (int(fused.vf_total), int(fused.ee_total)),
+          f"ccd candidates {st.vf_candidates}/{st.ee_candidates} vs fused totals")
+    err = same_hits(hits_f, hits_c, "bench collisions fused vs ccd")
+    check(min(t for *_, t in hits_f) == float(res_f.toi) and abs(toi_cc - float(res_f.toi)) <= 1e-7,
+          "bench collisions: min hit toi differs from toi")
+    check_ipc_frames(frames, "bench IPC")
+    emit(phase="ipc_bench", ccd_toi=toi_c, fused_toi=float(fused.toi),
+         vf_candidates=st.vf_candidates, ee_candidates=st.ee_candidates,
+         hits=len(hits_f), collisions_toi=float(res_f.toi), hit_toi_max_err=err,
+         frames=frames, launches=counts)
+
+    # the IPC refinement rig (tests/test_pipeline.py:175-228, f32, rig at x=5)
+    tri = np.array([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0]])
+    v0p, v1p, fp, nv = [], [], [], 0
+    for cx in (0.0, 10.0, 20.0, 30.0):
+        v0p += [tri + [cx, 0.0, 0.0], tri + [cx, 0.0, 0.12]]
+        v1p += [tri + [cx, 0.0, 0.0], tri + [cx, 0.0, 0.09]]
+        fp += [np.arange(3) + nv, np.arange(3) + nv + 3]
+        nv += 6
+    rig0 = np.concatenate([tri, [[0.25, 0.25, 0.01]]]) + [5.0, 0.0, 0.0]
+    rig1 = rig0.copy()
+    rig1[3, 2] -= 0.03
+    rfaces = np.stack(fp + [np.arange(3) + nv]).astype(np.int32)
+    rcfg = CCDConfig(memory=MemoryConfig(box_chunk_size=8, pair_chunk_size=1 << 12,
+                                         query_buckets=(1 << 10,)))
+    rst = CCDStats()
+    rtoi = ipc_ccd_strategy(np.concatenate(v0p + [rig0]), np.concatenate(v1p + [rig1]),
+                            edges_from_faces(rfaces), rfaces, min_distance=0.05,
+                            config=rcfg, stats=rst, device=dev)
+    check(rst.ipc_refinements == 1 and abs(rtoi - 0.8 / 3.0) <= 1e-3 * 0.8 / 3.0,
+          f"rig: {rst.ipc_refinements} refinements, toi {rtoi}")
+    emit(phase="ipc_rig", toi=rtoi, ipc_refinements=rst.ipc_refinements)
+
+    # CUDA against CPU on cloth_on_sphere(64, 3)
+    mid = cloth_on_sphere(grid_n=64, sphere_subdiv=3)
+    margs = (mid.vertices_t0, mid.vertices_t1, mid.edges, mid.faces)
+    sg, sc = CCDStats(), CCDStats()
+    tg, tc = ccd(*margs, device=dev, stats=sg), ccd(*margs, device="cpu", stats=sc)
+    check(abs(tg - tc) <= 1e-7 and (sg.vf_candidates, sg.ee_candidates)
+          == (sc.vf_candidates, sc.ee_candidates), f"grid-64 ccd: cuda {tg} vs cpu {tc}")
+    hg, hc = [], []
+    ccd(*margs, device=dev, collisions=hg)
+    ccd(*margs, device="cpu", collisions=hc)
+    herr = same_hits(hg, hc, "grid-64 collisions cuda vs cpu")
+    fg = ipc_loop(mid, dev, ("chunked", "fused"))
+    fg2 = ipc_loop(mid, dev, ("fused",))
+    fc = ipc_loop(mid, "cpu", ("chunked", "fused"))
+    check_ipc_frames(fg, "grid-64 IPC")
+    for k, (a, b, c) in enumerate(zip(fg, fc, fg2)):
+        for impl in ("chunked", "fused"):
+            check(abs(a[impl] - b[impl]) <= 1e-7
+                  and a[impl + "_refinements"] == b[impl + "_refinements"],
+                  f"grid-64 IPC frame {k} {impl}: cuda {a[impl]} vs cpu {b[impl]}")
+        check(a["fused"] == c["fused"], f"grid-64 IPC frame {k}: fused not repeatable")
+    emit(phase="ipc_grid64", ccd_toi=tg, cpu_ccd_toi=tc, hits=len(hg), hit_toi_max_err=herr,
+         frames_cuda=fg, frames_cpu=fc)
+
+    # timings on the bench scene, median of 5 after a warm-up
+    def timed(fn, reps=5):
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times), times
+
+    kw = dict(min_distance=1e-3, max_iterations=1_000_000, tolerance=1e-6, device=dev,
+              validate=False)
+    timings = {
+        "ipc_frame_chunked": timed(lambda: ipc_ccd_strategy(*bargs, **kw)),
+        "ipc_frame_fused": timed(lambda: ipc_ccd_strategy(*bargs, impl="fused", **kw)),
+        "fused_collisions": timed(lambda: fused_ccd(*bargs, device=dev, validate=False,
+                                                    collisions=[])),
+        "ccd": timed(lambda: ccd(*bargs, device=dev, validate=False)),
+    }
+    emit(phase="ipc_timing", scene="cloth_on_sphere(128, 4, drop=0.25)",
+         **{k + "_ms_median": v[0] for k, v in timings.items()},
+         **{k + "_ms": v[1] for k, v in timings.items()})
+    return counts
 
 
 if __name__ == "__main__":

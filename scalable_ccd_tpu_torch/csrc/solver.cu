@@ -1,9 +1,9 @@
 // Kernel B: tight-inclusion root finder, one depth-first search per thread.
 //
-// Replaces: scalable_ccd_tpu/ops/pallas_solver.py, _solver_kernel (global
-// mode, launched by _find_roots_packed), itself the TPU form of the
-// reference's ccd_kernel (src/scalable_ccd/cuda/narrow_phase/root_finder.cu:
-// 277-370).
+// Replaces: scalable_ccd_tpu/ops/pallas_solver.py, _solver_kernel (global,
+// per_query and max_iterations modes, launched by _find_roots_packed),
+// itself the TPU form of the reference's ccd_kernel
+// (src/scalable_ccd/cuda/narrow_phase/root_finder.cu:277-370).
 //
 // What bounds it on an H100: f32 arithmetic and divergence.  One domain
 // evaluation is ~300 separately rounded flops (the residual F at 8 corners
@@ -18,11 +18,42 @@
 // bound is reconstructed on unwind as 2*hi - lo or 2*lo - hi, exact because
 // every bound is a dyadic k/2^m with m <= 24 per dimension.  64 levels fit
 // in eight 32-bit registers.  Past 64 levels or 24 splits of one dimension
-// the domain is accepted conservatively and the overflow flag is set.  The
-// running TOI is one device float, seeded with toi_init, read at every
-// evaluation and lowered with atomicMin on its int bits (valid for
-// non-negative floats; the reference's atomic_min_float.cuh).  checks are
-// summed and overflow or-ed per warp, then once per warp with atomics.
+// the domain is accepted conservatively and the overflow flag is set.
+// checks are summed and overflow or-ed per warp, then once per warp with
+// atomics.
+//
+// Modes (template PER_QUERY, runtime max_iterations):
+// - global (the TPU kernel's default mode): the running TOI is one device
+//   float, seeded with toi_init, read at every evaluation and lowered with
+//   atomicMin on its int bits (valid for non-negative floats; the
+//   reference's atomic_min_float.cuh).
+// - per_query (TPU per_query=True, the reference's TOI_PER_QUERY build):
+//   each thread prunes, and culls t-split siblings, only against its own
+//   register TOI, which starts at +inf, not toi_init.  Nothing is shared
+//   during the search, so each per-query TOI is exact and independent of
+//   the other threads; every thread writes its TOI (+inf for invalid rows
+//   and rows without contact) to the per-query plane, then one atomicMin
+//   folds it into the global TOI.  Bounded by the same arithmetic, but with
+//   far more evaluations than global mode: nothing prunes across queries.
+// - bounded (TPU max_iterations >= 0): the thread's evaluation count is
+//   compared BEFORE it is incremented, and a domain past the cap is dropped,
+//   never accepted; dropped evaluations count too (pallas_solver.py:
+//   233-237, the reference's root_finder.cu:289,303-305).  A cap bounds the
+//   work of the deepest thread, so a warp ends sooner; it costs one compare
+//   per evaluation.  With per_query the result is deterministic and follows
+//   the plain lockstep DFS (narrow_phase/root_finder.py:dfs_lockstep) bit
+//   for bit: both explore child1 first and enter a pending sibling on
+//   unwind.  In global mode the domains a binding cap drops depend on when
+//   other threads lower the shared TOI, so the result can change from run to
+//   run (as on the TPU); the plain version then counts as the JAX queue
+//   solver does, and the two agree wherever the cap does not bind.
+//
+// Runaway guard: a thread stops after max_steps evaluations and accepts its
+// earliest unexplored time conservatively (overflow set).  max_steps is
+// kMaxSteps (2^20) in unbounded modes; with a cap it is raised to at least
+// max_iterations + 2 * kDepth + 2, past the last evaluation a capped search
+// can make (the cap, then one dropped evaluation per pending sibling), so
+// the cap always applies before the guard.
 //
 // Must be compiled with -fmad=false: the unwind, the midpoints and the error
 // filter assume separately rounded multiplies and adds (no FMA contraction),
@@ -103,15 +134,18 @@ __device__ __forceinline__ void corners_minmax(const float (&p)[24],
   }
 }
 
-template <bool IS_VF, bool ALLOW_ZERO>
+template <bool IS_VF, bool ALLOW_ZERO, bool PER_QUERY>
 __global__ void solve_kernel(const float* __restrict__ cols,
                              const unsigned char* __restrict__ valid, int Q,
-                             float co_tol, float* toi,
+                             float co_tol, long long max_iterations,
+                             long long max_steps, float* toi,
+                             float* __restrict__ pq_out,
                              unsigned long long* __restrict__ checks_out,
                              int* __restrict__ ovf_out) {
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
   unsigned long long checks = 0;
   int ovf = 0;
+  float tpq = INFINITY;  // per_query: this query's own running TOI
   if (q < Q && valid[q]) {
     float p[24];
 #pragma unroll
@@ -132,15 +166,19 @@ __global__ void solve_kernel(const float* __restrict__ cols,
     unsigned dimcnt = 0u;  // 8-bit split counters: dims 0/1/2 at bits 0/8/16
     bool cur = true;       // the current domain is still to be evaluated
     float pend_min = INFINITY;  // lower bound of every pending sibling
-    long long steps = 0;
 
-    while ((cur || sp > 0) && steps < kMaxSteps) {
-      ++steps;
+    // checks counts this thread's evaluations, so it is also the step count
+    while ((cur || sp > 0) && (long long)checks < max_steps) {
       if (cur) {
-        // every accept lowers *toi first, so this read covers this query's own
-        const float bound = *(volatile float*)toi;
+        // global: every accept lowers *toi first, so this read covers this
+        // query's own accepts
+        const float bound = PER_QUERY ? tpq : *(volatile float*)toi;
         const float min_t = lo[0];
-        const bool pruned = min_t >= bound;
+        // bounded: the pre-increment count is compared, and a domain past
+        // the cap is dropped, not accepted
+        const bool pruned =
+            min_t >= bound ||
+            (max_iterations >= 0 && (long long)checks > max_iterations);
         ++checks;
         float cmin[3], cmax[3];
         corners_minmax<IS_VF>(p, lo, hi, cmin, cmax);
@@ -177,7 +215,12 @@ __global__ void solve_kernel(const float* __restrict__ cols,
           ovf = 1;
           accept = true;  // conservative accept
         }
-        if (accept) atomic_min_nonneg(toi, min_t);
+        if (accept) {
+          if (PER_QUERY)
+            tpq = fminf(tpq, min_t);
+          else
+            atomic_min_nonneg(toi, min_t);
+        }
         if (want && !full) {
           bool push2;
           if (IS_VF) {
@@ -227,9 +270,17 @@ __global__ void solve_kernel(const float* __restrict__ cols,
     }
     if (cur || sp > 0) {
       // runaway guard: accept the earliest unexplored time conservatively
-      atomic_min_nonneg(toi, cur ? fminf(lo[0], pend_min) : pend_min);
+      const float left = cur ? fminf(lo[0], pend_min) : pend_min;
+      if (PER_QUERY)
+        tpq = fminf(tpq, left);
+      else
+        atomic_min_nonneg(toi, left);
       ovf = 1;
     }
+  }
+  if (PER_QUERY && q < Q) {
+    pq_out[q] = tpq;
+    if (tpq < INFINITY) atomic_min_nonneg(toi, tpq);
   }
   // one atomic per warp
 #pragma unroll
@@ -243,30 +294,63 @@ __global__ void solve_kernel(const float* __restrict__ cols,
   }
 }
 
+template <bool IS_VF, bool ALLOW_ZERO, bool PER_QUERY>
+void launch(int blocks, int threads, cudaStream_t s, const float* c,
+            const unsigned char* v, int Q, float co_tol, long long max_iter,
+            long long max_steps, float* t, float* pq, unsigned long long* k,
+            int* o) {
+  solve_kernel<IS_VF, ALLOW_ZERO, PER_QUERY><<<blocks, threads, 0, s>>>(
+      c, v, Q, co_tol, max_iter, max_steps, t, pq, k, o);
+}
+
+template <bool IS_VF, bool ALLOW_ZERO>
+void launch_mode(int per_query, int blocks, int threads, cudaStream_t s,
+                 const float* c, const unsigned char* v, int Q, float co_tol,
+                 long long max_iter, long long max_steps, float* t, float* pq,
+                 unsigned long long* k, int* o) {
+  if (per_query)
+    launch<IS_VF, ALLOW_ZERO, true>(blocks, threads, s, c, v, Q, co_tol,
+                                    max_iter, max_steps, t, pq, k, o);
+  else
+    launch<IS_VF, ALLOW_ZERO, false>(blocks, threads, s, c, v, Q, co_tol,
+                                     max_iter, max_steps, t, pq, k, o);
+}
+
 }  // namespace
 
+// per_tq: nonzero selects per-query mode, which writes `per_query_toi`
+// (Q floats); max_iterations < 0 means unbounded.
 extern "C" int sccd_solve_packed(const void* cols, const void* valid, int Q,
-                                 int is_vf, int allow_zero_toi, float co_tol,
-                                 void* toi, void* checks, void* overflow,
-                                 void* stream) {
+                                 int is_vf, int allow_zero_toi, int per_query,
+                                 long long max_iterations, float co_tol,
+                                 void* toi, void* per_query_toi, void* checks,
+                                 void* overflow, void* stream) {
   const int threads = 128;
   const int blocks = (Q + threads - 1) / threads;
+  long long max_steps = kMaxSteps;
+  if (max_iterations >= 0 && max_iterations + 2 * kDepth + 2 > max_steps)
+    max_steps = max_iterations + 2 * kDepth + 2;
   auto s = (cudaStream_t)stream;
   auto c = (const float*)cols;
   auto v = (const unsigned char*)valid;
   auto t = (float*)toi;
+  auto pq = (float*)per_query_toi;
   auto k = (unsigned long long*)checks;
   auto o = (int*)overflow;
   if (is_vf) {
     if (allow_zero_toi)
-      solve_kernel<true, true><<<blocks, threads, 0, s>>>(c, v, Q, co_tol, t, k, o);
+      launch_mode<true, true>(per_query, blocks, threads, s, c, v, Q, co_tol,
+                              max_iterations, max_steps, t, pq, k, o);
     else
-      solve_kernel<true, false><<<blocks, threads, 0, s>>>(c, v, Q, co_tol, t, k, o);
+      launch_mode<true, false>(per_query, blocks, threads, s, c, v, Q, co_tol,
+                               max_iterations, max_steps, t, pq, k, o);
   } else {
     if (allow_zero_toi)
-      solve_kernel<false, true><<<blocks, threads, 0, s>>>(c, v, Q, co_tol, t, k, o);
+      launch_mode<false, true>(per_query, blocks, threads, s, c, v, Q, co_tol,
+                               max_iterations, max_steps, t, pq, k, o);
     else
-      solve_kernel<false, false><<<blocks, threads, 0, s>>>(c, v, Q, co_tol, t, k, o);
+      launch_mode<false, false>(per_query, blocks, threads, s, c, v, Q, co_tol,
+                                max_iterations, max_steps, t, pq, k, o);
   }
   return (int)cudaGetLastError();
 }

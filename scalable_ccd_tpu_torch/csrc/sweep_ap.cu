@@ -1,8 +1,9 @@
 // Kernel A: sorted-sweep broad phase with direct pair emission.
 //
 // Replaces: scalable_ccd_tpu/ops/pallas_sweep_ap.py, _sweep_kernel (pairs
-// emission, launched by pallas_sweep_pairs), itself the TPU form of the
-// reference's sweep kernel (src/scalable_ccd/cuda/broad_phase/sweep.cu:101-182).
+// emission, launched by pallas_sweep_pairs, with its tile0/n_tiles a-side
+// range), itself the TPU form of the reference's sweep kernel
+// (src/scalable_ccd/cuda/broad_phase/sweep.cu:101-182).
 //
 // What bounds it on an H100: memory latency and divergence, not arithmetic.
 // Each candidate slot costs a handful of compares against ~36 bytes of
@@ -23,6 +24,13 @@
 // is not.  Making the kernel fast (tiling partners through shared memory,
 // warp-aggregated appends, balancing long runs) is later work.
 //
+// Box range (the TPU kernel's tile0/n_tiles, in boxes instead of 1024-box
+// tiles): only sorted boxes i in [box_lo, box_hi) start a run, one thread
+// each; partners still cover the whole array, so the union over ranges that
+// cover [0, n) is exactly the whole-range pair set.  This is the chunk
+// cursor of the chunked ccd() (the reference's thread_start_box_id,
+// broad_phase.cu:121-224).  An empty range launches nothing.
+//
 // Plain C interface, bound with ctypes (ops/sweep_ap.py).
 
 #include <cuda_runtime.h>
@@ -34,10 +42,11 @@ __global__ void sweep_pairs_kernel(
     const float* __restrict__ major_min, const float* __restrict__ major_max,
     const float2* __restrict__ minor_min, const float2* __restrict__ minor_max,
     const int* __restrict__ vertex_ids, const int* __restrict__ element_id,
-    int n, int is_two_lists, int2* __restrict__ pairs, long long budget,
+    int n, int box_lo, int box_hi, int is_two_lists,
+    int2* __restrict__ pairs, long long budget,
     unsigned long long* __restrict__ n_true) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  const int i = box_lo + blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= box_hi) return;
   const float a_reach = major_max[i];
   const float2 a_lo = minor_min[i];
   const float2 a_hi = minor_max[i];
@@ -73,15 +82,17 @@ __global__ void sweep_pairs_kernel(
 extern "C" int sccd_sweep_pairs(const void* major_min, const void* major_max,
                                 const void* minor_min, const void* minor_max,
                                 const void* vertex_ids, const void* element_id,
-                                int n, int is_two_lists, void* pairs,
-                                long long budget, void* n_true, void* stream) {
+                                int n, int box_lo, int box_hi,
+                                int is_two_lists, void* pairs, long long budget,
+                                void* n_true, void* stream) {
+  if (box_hi <= box_lo) return 0;
   const int threads = 256;
-  const int blocks = (n + threads - 1) / threads;
+  const int blocks = (box_hi - box_lo + threads - 1) / threads;
   sweep_pairs_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const float*)major_min, (const float*)major_max,
       (const float2*)minor_min, (const float2*)minor_max,
-      (const int*)vertex_ids, (const int*)element_id, n, is_two_lists,
-      (int2*)pairs, budget, (unsigned long long*)n_true);
+      (const int*)vertex_ids, (const int*)element_id, n, box_lo, box_hi,
+      is_two_lists, (int2*)pairs, budget, (unsigned long long*)n_true);
   return (int)cudaGetLastError();
 }
 

@@ -4,18 +4,21 @@ CCD has no weights; its state is the scene and the intermediate structures
 (boxes, sorted boxes, queries).  These helpers turn values of the JAX
 package, handed over as numpy arrays (``np.asarray`` of each field), into
 this port's tensors, and the port's values back into numpy, so that a
-single stage can be run on identical input in both packages.  Nothing here
+single stage can be run on identical input in both packages, and turn a
+JAX ``CCDConfig`` into the port's (:func:`config_from_jax`).  Nothing here
 imports jax: the JAX-side values only need to convert with ``np.asarray``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from scalable_ccd_tpu_torch.broad_phase.sweep import SortedBoxes
+from scalable_ccd_tpu_torch.config import CCDConfig, MemoryConfig
 from scalable_ccd_tpu_torch.geometry.aabb import AABBs
 from scalable_ccd_tpu_torch.narrow_phase.types import CCDQueries
 
@@ -25,6 +28,7 @@ __all__ = [
     "from_numpy_boxes",
     "from_numpy_queries",
     "to_numpy",
+    "config_from_jax",
 ]
 
 
@@ -76,3 +80,14 @@ def to_numpy(value):
     if torch.is_tensor(value):
         return value.detach().cpu().numpy()
     return type(value)(*[to_numpy(v) for v in value])
+
+
+def config_from_jax(cfg):
+    """A JAX ``CCDConfig`` or ``MemoryConfig`` as the port's dataclass of
+    the same name, field by field (``dataclasses.fields``); the port's
+    ``ccd()`` then rejects the values it lacks."""
+    cls = CCDConfig if any(f.name == "memory" for f in dataclasses.fields(cfg)) else MemoryConfig
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cls)}
+    if cls is CCDConfig:
+        kw["memory"] = config_from_jax(cfg.memory)
+    return cls(**kw)

@@ -17,6 +17,10 @@ child of a t-split only if it can beat the running TOI; for VF the second
 child of a u- or v-split only if ``u + v <= 1`` stays reachable.  The caps of
 the JAX kernel hold too: a domain 64 splits deep, or split 24 times in one
 dimension, is accepted conservatively and flags overflow.
+
+:func:`dfs_lockstep` is the plain per-query depth-first search in kernel
+B's exploration order, which per-query bounded results depend on (the JAX
+package's ``find_roots``, ``narrow_phase/root_finder.py:142``).
 """
 
 from __future__ import annotations
@@ -27,7 +31,14 @@ import torch
 
 from scalable_ccd_tpu_torch.narrow_phase.types import CCDQueries, domain_corners
 
-__all__ = ["inclusion", "BisectStep", "bisect_step", "MAX_DEPTH", "DIM_CAP"]
+__all__ = [
+    "inclusion",
+    "BisectStep",
+    "bisect_step",
+    "dfs_lockstep",
+    "MAX_DEPTH",
+    "DIM_CAP",
+]
 
 #: stack levels of the kernel's value-free stack
 MAX_DEPTH = 64
@@ -96,3 +107,71 @@ def bisect_step(q: CCDQueries, lo, hi, tol, err, ms, co_tol, bound,
     else:
         push2 = (split != 0) | (mid <= bound)
     return BisectStep(accept, do_split, push2 & do_split, split, mid, overflow)
+
+
+def dfs_lockstep(q: CCDQueries, tol, err, ms, valid, co_tol, toi_init,
+                 is_vf: bool, allow_zero_toi: bool, max_iterations: int):
+    """Per-query depth-first bisection, all queries in lockstep, each
+    pruned only against its own TOI.
+
+    Every round each query with work left pops its stack top, evaluates it
+    with :func:`bisect_step`, and pushes child2 (if kept) under child1, so
+    child1 is explored first and a pending sibling is entered on unwind:
+    kernel B's order, which bounded results depend on.  A query's evaluation
+    count is compared before it is incremented; past ``max_iterations``
+    (``>= 0``) a domain is dropped, never accepted.  A query that evaluates
+    N domains takes N rounds, so the plain version is meant for small caps
+    and small inputs.  Returns ``(toi, overflow, checks, per_query_toi)``
+    with ``toi = min(toi_init, per-query TOIs)``; ``per_query_toi`` is +inf
+    for invalid rows and rows without contact.
+    """
+    dev, dt = tol.device, tol.dtype
+    n = valid.shape[0]
+    depth_cap = MAX_DEPTH + 2  # one pending sibling per level, plus the top
+    s_lo = torch.zeros((n, depth_cap, 3), dtype=dt, device=dev)
+    s_hi = torch.zeros((n, depth_cap, 3), dtype=dt, device=dev)
+    s_hi[:, 0] = 1.0
+    s_depth = torch.zeros((n, depth_cap), dtype=torch.int32, device=dev)
+    s_cnt = torch.zeros((n, depth_cap, 3), dtype=torch.int32, device=dev)
+    size = valid.to(torch.int64)
+    inf = torch.full((), float("inf"), dtype=dt, device=dev)
+    tpq = torch.full((n,), float("inf"), dtype=dt, device=dev)
+    checks = torch.zeros((n,), dtype=torch.int64, device=dev)
+    ovf = torch.zeros((), dtype=torch.bool, device=dev)
+    while True:
+        act = torch.nonzero(size > 0).flatten()
+        if act.numel() == 0:
+            break
+        top = size[act] - 1
+        lo, hi = s_lo[act, top], s_hi[act, top]
+        depth, cnt = s_depth[act, top], s_cnt[act, top]
+        size[act] = top
+        pre = checks[act]
+        checks[act] = pre + 1
+        # a dropped domain is pruned: no bound lies below -inf
+        bound = torch.where(pre > max_iterations, -inf, tpq[act])
+        qa = CCDQueries(*[f[act] for f in q])
+        st = bisect_step(qa, lo, hi, tol[act], err[act], ms[act], co_tol, bound,
+                         depth, cnt, is_vf, allow_zero_toi)
+        acc_t = torch.where(st.accept, lo[:, 0], inf)
+        tpq[act] = torch.minimum(tpq[act], acc_t)
+        ovf |= st.overflow.any()
+
+        onehot = torch.nn.functional.one_hot(st.split, 3).to(torch.bool)
+        mid = st.mid[:, None]
+        c_depth = depth + 1
+        c_cnt = cnt + onehot.to(torch.int32)
+        for keep, c_lo, c_hi in (
+            (st.push2, torch.where(onehot, mid, lo), hi),  # child2 below
+            (st.do_split, lo, torch.where(onehot, mid, hi)),  # child1 on top
+        ):
+            rows, at = act[keep], size[act][keep]
+            s_lo[rows, at] = c_lo[keep]
+            s_hi[rows, at] = c_hi[keep]
+            s_depth[rows, at] = c_depth[keep]
+            s_cnt[rows, at] = c_cnt[keep]
+            size[rows] = at + 1
+    toi = torch.as_tensor(toi_init, dtype=dt, device=dev).reshape(())
+    if n:
+        toi = torch.minimum(toi, tpq.amin())
+    return toi, ovf, checks.sum(), tpq

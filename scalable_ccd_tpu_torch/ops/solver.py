@@ -1,13 +1,19 @@
 """Narrow-phase solver: kernel B (``csrc/solver.cu``) and its plain twin.
 
 Replaces the JAX package's per-query depth-first solver kernel
-(``scalable_ccd_tpu/ops/pallas_solver.py:_solver_kernel``, global mode,
-launched by ``_find_roots_packed``).  Both versions here solve packed query
-rows (:func:`pack_query_rows`) for the earliest time of impact, pruned
-against one running TOI seeded with ``toi_init``, with the acceptance, cull
-and cap rules of :mod:`scalable_ccd_tpu_torch.narrow_phase.root_finder`.
-Only the global mode is ported; the JAX kernel's per-query, bounded
-iteration and round-limit modes are not.
+(``scalable_ccd_tpu/ops/pallas_solver.py:_solver_kernel``, launched by
+``_find_roots_packed``) in its global, ``per_query`` and ``max_iterations``
+modes.  Both versions here solve packed query rows (:func:`pack_query_rows`)
+for the earliest time of impact with the acceptance, cull and cap rules of
+:mod:`scalable_ccd_tpu_torch.narrow_phase.root_finder`:
+
+- global: pruned against one running TOI seeded with ``toi_init``;
+- per-query: each query prunes only against its own TOI, which starts at
+  +inf, and the call also returns every query's exact TOI;
+- bounded (``max_iterations >= 0``): a domain past a query's check cap is
+  dropped, never accepted; combinable with either of the above.
+
+The JAX kernel's ``round_limit`` mode (staged escalation) is not ported.
 
 :func:`solve_packed` runs the CUDA kernel on CUDA tensors and the plain
 version on CPU tensors; any other device raises.  Nothing falls back.
@@ -19,7 +25,7 @@ import ctypes
 
 import torch
 
-from scalable_ccd_tpu_torch.narrow_phase.root_finder import bisect_step
+from scalable_ccd_tpu_torch.narrow_phase.root_finder import bisect_step, dfs_lockstep
 from scalable_ccd_tpu_torch.narrow_phase.types import (
     CCDQueries,
     compute_tolerance,
@@ -32,17 +38,23 @@ __all__ = [
     "solve_packed",
     "solve_packed_reference",
     "LAUNCHES",
+    "LAUNCHES_BY_MODE",
     "ROW_WIDTH",
 ]
 
 #: kernel launches made by :func:`solve_packed` in this process
 LAUNCHES = 0
 
+#: the same launches by mode: "global" (neither per-query nor bounded),
+#: "per_query" and "bounded"; a per-query bounded launch counts in both
+LAUNCHES_BY_MODE = {"global": 0, "per_query": 0, "bounded": 0}
+
 #: floats per packed query row: 8 endpoints, tol (3), err (3), ms
 ROW_WIDTH = 31
 
-#: domains the plain solver evaluates per round (the JAX queue solver's
-#: largest tile)
+#: most domains the plain solver evaluates per round (the JAX queue solver's
+#: largest tile); a round takes at most max(queries, 256) of them, as in the
+#: JAX queue solver, so that few queries search nearly depth first
 _TILE = 1 << 16
 
 
@@ -71,8 +83,9 @@ def _bind(lib):
     fn = lib.sccd_solve_packed
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     lib.sccd_solver_error_string.argtypes = [ctypes.c_int]
@@ -81,8 +94,9 @@ def _bind(lib):
 
 
 def solve_packed(qrows, valid, is_vf: bool, toi_init, tolerance,
-                 allow_zero_toi: bool = True):
-    """Earliest TOI of the valid rows of ``qrows``, global mode.
+                 allow_zero_toi: bool = True, per_query: bool = False,
+                 max_iterations: int = -1):
+    """Earliest TOI of the valid rows of ``qrows``.
 
     ``qrows`` is ``(Q, 31)`` f32 (:func:`pack_query_rows`), ``valid`` a
     ``(Q,)`` bool mask, ``toi_init`` the running TOI (a float or a 0-d
@@ -90,13 +104,20 @@ def solve_packed(qrows, valid, is_vf: bool, toi_init, tolerance,
     ``(toi, overflow, checks)``: ``toi = min(toi_init, earliest accepted
     time)``; ``overflow`` is set where a conservative accept was taken (the
     TOI stays valid, possibly early); ``checks`` (int64) counts domain
-    evaluations.
+    evaluations, dropped ones included.
+
+    ``per_query`` prunes each query only against its own TOI and appends
+    a fourth output, the ``(Q,)`` f32 per-query TOIs (+inf for invalid rows
+    and rows without contact); ``toi`` is then ``min(toi_init, min of
+    them)``.  ``max_iterations >= 0`` drops a query's domains once its
+    evaluation count, taken before the increment, exceeds the cap.
     """
     global LAUNCHES
     dev = qrows.device
     if dev.type == "cpu":
         return solve_packed_reference(
-            qrows, valid, is_vf, toi_init, tolerance, allow_zero_toi
+            qrows, valid, is_vf, toi_init, tolerance, allow_zero_toi,
+            per_query, max_iterations,
         )
     if dev.type != "cuda":
         raise ValueError(f"solve_packed: unsupported device {dev}")
@@ -120,61 +141,101 @@ def solve_packed(qrows, valid, is_vf: bool, toi_init, tolerance,
     toi = torch.as_tensor(toi_init, dtype=torch.float32, device=dev).reshape(1) + 0.0
     checks = torch.zeros((1,), dtype=torch.int64, device=dev)
     ovf = torch.zeros((1,), dtype=torch.int32, device=dev)
+    pq = torch.full((Q,), float("inf"), dtype=torch.float32, device=dev) if per_query else None
     if Q > 0:
         lib = load_library("solver")
         fn = _bind(lib)
         with torch.cuda.device(dev):
             rc = fn(
                 cols.data_ptr(), valid.data_ptr(), Q, int(bool(is_vf)),
-                int(bool(allow_zero_toi)), float(tolerance), toi.data_ptr(),
-                checks.data_ptr(), ovf.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream,
+                int(bool(allow_zero_toi)), int(bool(per_query)),
+                int(max_iterations), float(tolerance), toi.data_ptr(),
+                pq.data_ptr() if per_query else None, checks.data_ptr(),
+                ovf.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
             )
         if rc != 0:
             msg = lib.sccd_solver_error_string(rc).decode()
             raise RuntimeError(f"solver kernel launch failed: {msg}")
         LAUNCHES += 1
-    return toi[0], ovf[0] != 0, checks[0]
+        if per_query:
+            LAUNCHES_BY_MODE["per_query"] += 1
+        if max_iterations >= 0:
+            LAUNCHES_BY_MODE["bounded"] += 1
+        if not per_query and max_iterations < 0:
+            LAUNCHES_BY_MODE["global"] += 1
+    out = (toi[0], ovf[0] != 0, checks[0])
+    return out + (pq,) if per_query else out
 
 
 def solve_packed_reference(qrows, valid, is_vf: bool, toi_init, tolerance,
-                           allow_zero_toi: bool = True):
-    """Plain PyTorch twin of kernel B, on any device.
-
-    A vectorised frontier bisection in the manner of the JAX package's queue
-    solver (``narrow_phase/bfs.py``): a stack of domains, each carrying its
-    query id, depth and per-dimension split counts; every round pops the top
-    ``_TILE`` domains, applies :func:`bisect_step` against the running TOI,
-    and pushes the children back with the earlier-time child on top.  The
-    stack grows as needed (no queue capacity, so no spill accepts); the
-    depth and per-dimension caps are the kernel's.  Same outputs as
+                           allow_zero_toi: bool = True, per_query: bool = False,
+                           max_iterations: int = -1):
+    """Plain PyTorch twin of kernel B, on any device; same outputs as
     :func:`solve_packed`.
+
+    Per-query bounded calls (``per_query`` and ``max_iterations >= 0``) run
+    the lockstep depth-first search :func:`scalable_ccd_tpu_torch.
+    narrow_phase.root_finder.dfs_lockstep`, whose exploration order is the
+    kernel's, so their per-query TOIs equal the kernel's.  Every other call
+    runs a vectorised frontier bisection in the manner of the JAX package's
+    queue solver (``narrow_phase/bfs.py``): a stack of domains, each
+    carrying its query id, depth and per-dimension split counts; every round
+    pops the top ``min(max(Q, 256), _TILE)`` domains, applies
+    :func:`bisect_step` against the running TOI (global) or each domain's
+    query TOI (``per_query``), and pushes the children back with the
+    earlier-time child on top.  The stack grows as needed (no queue
+    capacity, so no spill accepts); the depth and per-dimension caps are the
+    kernel's.  Unbounded results do not depend on the exploration order.  A
+    global bounded call counts each query's evaluations as the JAX queue
+    solver does (the domains of one query popped in one round all see the
+    count from before the round); where the cap binds, the kernel's result
+    depends on when its threads lower the shared TOI and no plain version
+    can reproduce it, and where it does not bind both give the unbounded TOI.
     """
     dev = qrows.device
     dt = torch.float32
-    toi = torch.as_tensor(toi_init, dtype=dt, device=dev).reshape(()).clone()
     co_tol = torch.as_tensor(tolerance, dtype=dt, device=dev)
+    valid = valid.to(torch.bool)
+    if per_query and max_iterations >= 0:
+        q, tol, err, ms = _unpack(qrows)
+        return dfs_lockstep(q, tol, err, ms, valid, co_tol, toi_init, is_vf,
+                            allow_zero_toi, max_iterations)
+    toi = torch.as_tensor(toi_init, dtype=dt, device=dev).reshape(()).clone()
+    n_rows = qrows.shape[0]
+    tpq = torch.full((n_rows,), float("inf"), dtype=dt, device=dev)
+    qchecks = torch.zeros((n_rows,), dtype=torch.int64, device=dev)
     ovf = torch.zeros((), dtype=torch.bool, device=dev)
     checks = 0
-    qid = torch.nonzero(valid.to(torch.bool)).flatten()
+    qid = torch.nonzero(valid).flatten()
     n0 = qid.shape[0]
     lo = torch.zeros((n0, 3), dtype=dt, device=dev)
     hi = torch.ones((n0, 3), dtype=dt, device=dev)
     depth = torch.zeros((n0,), dtype=torch.int32, device=dev)
     dimcnt = torch.zeros((n0, 3), dtype=torch.int32, device=dev)
     inf = torch.full((), float("inf"), dtype=dt, device=dev)
+    tile = min(max(n_rows, 256), _TILE)
     while qid.shape[0] > 0:
         count = qid.shape[0]
-        top = max(count - _TILE, 0)
+        top = max(count - tile, 0)
         p_lo, p_hi, p_q = lo[top:], hi[top:], qid[top:]
         p_depth, p_cnt = depth[top:], dimcnt[top:]
         q, tol, err, ms = _unpack(qrows[p_q])
+        bound = tpq[p_q] if per_query else toi.expand(p_q.shape)
+        if max_iterations >= 0:
+            # pre-round counts; a dropped domain is pruned (no bound < -inf)
+            pre = qchecks[p_q]
+            qchecks.index_add_(0, p_q, torch.ones_like(pre))
+            bound = torch.where(pre > max_iterations, -inf, bound)
         st = bisect_step(
-            q, p_lo, p_hi, tol, err, ms, co_tol, toi, p_depth, p_cnt,
+            q, p_lo, p_hi, tol, err, ms, co_tol, bound, p_depth, p_cnt,
             is_vf, allow_zero_toi,
         )
         checks += count - top
-        toi = torch.minimum(toi, torch.where(st.accept, p_lo[:, 0], inf).amin())
+        acc_t = torch.where(st.accept, p_lo[:, 0], inf)
+        if per_query:
+            tpq.scatter_reduce_(0, p_q, acc_t, "amin")
+        else:
+            toi = torch.minimum(toi, acc_t.amin())
         ovf |= st.overflow.any()
 
         onehot = torch.nn.functional.one_hot(st.split, 3).to(torch.bool)
@@ -192,4 +253,9 @@ def solve_packed_reference(qrows, valid, is_vf: bool, toi_init, tolerance,
         qid = torch.cat([qid[:top], two(p_q)[keep]])
         depth = torch.cat([depth[:top], two(c_depth)[keep]])
         dimcnt = torch.cat([dimcnt[:top], two(c_cnt)[keep]])
-    return toi, ovf, torch.tensor(checks, dtype=torch.int64, device=dev)
+    checks = torch.tensor(checks, dtype=torch.int64, device=dev)
+    if not per_query:
+        return toi, ovf, checks
+    if n_rows:
+        toi = torch.minimum(toi, tpq.amin())
+    return toi, ovf, checks, tpq

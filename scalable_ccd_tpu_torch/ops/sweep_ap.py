@@ -2,8 +2,9 @@
 
 Replaces the JAX package's all-pairs subtile sweep kernel
 (``scalable_ccd_tpu/ops/pallas_sweep_ap.py:_sweep_kernel``, launched by
-``pallas_sweep_pairs``).  Both versions here compute the same pair set: for
-each sorted box ``i``, every later box ``j`` with
+``pallas_sweep_pairs``, with its ``tile0``/``n_tiles`` a-side range).  Both
+versions here compute the same pair set: for each sorted box ``i`` (of a
+box range, when one is given), every later box ``j`` with
 ``major_min[j] <= major_max[i]`` that passes
 :func:`scalable_ccd_tpu_torch.broad_phase.sweep.pair_filters`, emitted
 already decoded in the reference convention (one-list ``(min, max)``,
@@ -26,10 +27,14 @@ from scalable_ccd_tpu_torch.broad_phase.sweep import (
 )
 from scalable_ccd_tpu_torch.ops._build import load_library
 
-__all__ = ["sweep_pairs", "sweep_pairs_reference", "LAUNCHES"]
+__all__ = ["sweep_pairs", "sweep_pairs_reference", "LAUNCHES", "LAUNCHES_BY_MODE"]
 
 #: kernel launches made by :func:`sweep_pairs` in this process
 LAUNCHES = 0
+
+#: the same launches by mode: "whole" (every box starts a run) and "range"
+#: (a ``box_range`` was given)
+LAUNCHES_BY_MODE = {"whole": 0, "range": 0}
 
 #: fill of the pair buffer rows past ``n_pairs`` in the plain version
 _SENTINEL = -(2**31) + 1
@@ -38,8 +43,8 @@ _SENTINEL = -(2**31) + 1
 def _bind(lib):
     fn = lib.sccd_sweep_pairs
     fn.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     lib.sccd_sweep_error_string.argtypes = [ctypes.c_int]
@@ -73,10 +78,23 @@ def _check_boxes(sb: SortedBoxes):
         raise ValueError(f"sweep_pairs: {n} boxes exceed the int32 index range")
 
 
-def sweep_pairs(sorted_boxes: SortedBoxes, is_two_lists: bool, budget: int):
+def _resolve_range(box_range, n):
+    if box_range is None:
+        return 0, n
+    b0, b1 = (int(b) for b in box_range)
+    if not 0 <= b0 <= n or b1 < b0:
+        raise ValueError(f"box_range {box_range} is not a range of the {n} boxes")
+    return b0, min(b1, n)
+
+
+def sweep_pairs(sorted_boxes: SortedBoxes, is_two_lists: bool, budget: int,
+                box_range=None):
     """All candidate pairs of a sorted box set.
 
-    Returns ``(pairs, n_pairs, n_true, overflow)``: ``pairs`` is a
+    ``box_range = (b0, b1)`` keeps the pairs whose earlier sorted box lies
+    in ``[b0, b1)`` (``b1`` is clipped to the box count); partners are
+    still taken from the whole array, so the union over ranges that cover
+    every box is the whole set.  Returns ``(pairs, n_pairs, n_true, overflow)``: ``pairs`` is a
     ``(budget, 2)`` int32 buffer whose first ``n_pairs`` rows are the
     surviving pairs; ``n_true`` (int64) is the exact survivor count even
     past the budget; ``overflow`` is ``n_true > budget``.  The three scalars
@@ -89,7 +107,9 @@ def sweep_pairs(sorted_boxes: SortedBoxes, is_two_lists: bool, budget: int):
     global LAUNCHES
     dev = sorted_boxes.major_min.device
     if dev.type == "cpu":
-        return sweep_pairs_reference(sorted_boxes, is_two_lists, budget)
+        return sweep_pairs_reference(
+            sorted_boxes, is_two_lists, budget, box_range=box_range
+        )
     if dev.type != "cuda":
         raise ValueError(f"sweep_pairs: unsupported device {dev}")
     _check_boxes(sorted_boxes)
@@ -97,7 +117,8 @@ def sweep_pairs(sorted_boxes: SortedBoxes, is_two_lists: bool, budget: int):
     pairs = torch.empty((budget, 2), dtype=torch.int32, device=dev)
     n_true = torch.zeros((1,), dtype=torch.int64, device=dev)
     n = sorted_boxes.n
-    if n > 0:
+    b0, b1 = _resolve_range(box_range, n)
+    if b1 > b0:
         fn = _bind(load_library("sweep_ap"))
         sb = sorted_boxes
         with torch.cuda.device(dev):
@@ -105,22 +126,24 @@ def sweep_pairs(sorted_boxes: SortedBoxes, is_two_lists: bool, budget: int):
                 sb.major_min.data_ptr(), sb.major_max.data_ptr(),
                 sb.minor_min.data_ptr(), sb.minor_max.data_ptr(),
                 sb.vertex_ids.data_ptr(), sb.element_id.data_ptr(),
-                n, int(bool(is_two_lists)), pairs.data_ptr(), budget,
+                n, b0, b1, int(bool(is_two_lists)), pairs.data_ptr(), budget,
                 n_true.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
             )
         if rc != 0:
             msg = load_library("sweep_ap").sccd_sweep_error_string(rc)
             raise RuntimeError(f"sweep_ap kernel launch failed: {msg.decode()}")
         LAUNCHES += 1
+        LAUNCHES_BY_MODE["whole" if box_range is None else "range"] += 1
     n_true = n_true[0]
     return pairs, torch.clamp(n_true, max=budget), n_true, n_true > budget
 
 
 def sweep_pairs_reference(
     sorted_boxes: SortedBoxes, is_two_lists: bool, budget: int,
-    chunk_slots: int = 1 << 22,
+    chunk_slots: int = 1 << 22, box_range=None,
 ):
-    """Plain PyTorch twin of kernel A, on any device.
+    """Plain PyTorch twin of kernel A, on any device; ``box_range`` as in
+    :func:`sweep_pairs`.
 
     Run lengths come from one ``searchsorted`` over the sorted lower bounds
     (``count_major_runs`` of the JAX package); the pre-filter slot space
@@ -132,10 +155,12 @@ def sweep_pairs_reference(
     dev = sb.major_min.device
     budget = int(budget)
     n = sb.n
+    r0, r1 = _resolve_range(box_range, n)
     found = []
-    if n > 0:
-        reach = torch.searchsorted(sb.major_min, sb.major_max, right=True)
-        k = (reach - torch.arange(n, device=dev) - 1).clamp_(min=0)
+    if r1 > r0:
+        reach = torch.searchsorted(sb.major_min, sb.major_max[r0:r1], right=True)
+        k = torch.zeros((n,), dtype=reach.dtype, device=dev)
+        k[r0:r1] = (reach - torch.arange(r0, r1, device=dev) - 1).clamp_(min=0)
         cum = torch.cumsum(k, 0)
         total = int(cum[-1])
         cuts = torch.arange(

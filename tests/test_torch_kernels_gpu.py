@@ -9,7 +9,7 @@ file imports no jax, so it also runs where only PyTorch is installed:
 import pytest
 import torch
 
-from scalable_ccd_tpu_torch import fused_ccd
+from scalable_ccd_tpu_torch import CCDStats, ccd, fused_ccd, ipc_ccd_strategy
 from scalable_ccd_tpu_torch.broad_phase import merge_two_lists, sort_boxes
 from scalable_ccd_tpu_torch.geometry import aabb, scenes
 from scalable_ccd_tpu_torch.interop import from_numpy_scene
@@ -87,6 +87,99 @@ def test_solver_kernel_equals_plain(cuda, is_vf):
     seed = float(toi_p) * 0.5
     toi_s, _, _ = solver.solve_packed(rows, valid, is_vf, seed, TOL)
     assert float(toi_s) == pytest.approx(seed, rel=1e-6)
+
+
+def _rows(device, is_vf, ms=0.0):
+    """Packed rows of every candidate of the scene, and a mask with every
+    seventh row invalid."""
+    s = from_numpy_scene(_scene(), device)
+    pairs, n, _, _ = sweep_ap.sweep_pairs_reference(_sorted(device, is_vf), is_vf, 1 << 16)
+    pairs = pairs[: int(n)]
+    vcat = types.concat_frames(s.vertices_t0, s.vertices_t1, torch.float32)
+    if is_vf:
+        q = types.gather_vf_queries(vcat, types.pack_face_table(vcat, s.faces), pairs)
+    else:
+        q = types.gather_ee_queries(types.pack_edge_table(vcat, s.edges), pairs)
+    rows = solver.pack_query_rows(q, is_vf, ms, TOL)
+    valid = torch.ones((rows.shape[0],), dtype=torch.bool, device=device)
+    valid[::7] = False
+    return rows, valid
+
+
+@pytest.mark.parametrize("is_vf", [True, False])
+@pytest.mark.parametrize("cap", [-1, 10, 100])
+def test_solver_kernel_per_query_equals_plain(cuda, is_vf, cap):
+    """Per-query mode, unbounded and bounded: the same per-query TOIs
+    (bounded ones follow the same depth-first order, so bitwise)."""
+    rows, valid = _rows(cuda, is_vf)
+    before = dict(solver.LAUNCHES_BY_MODE)
+    toi_k, _, _, pq_k = solver.solve_packed(rows, valid, is_vf, 0.5, TOL, per_query=True,
+                                            max_iterations=cap)
+    torch.cuda.synchronize()
+    assert solver.LAUNCHES_BY_MODE["per_query"] == before["per_query"] + 1
+    assert solver.LAUNCHES_BY_MODE["bounded"] == before["bounded"] + (cap >= 0)
+    toi_p, _, _, pq_p = solver.solve_packed_reference(rows, valid, is_vf, 0.5, TOL,
+                                                      per_query=True, max_iterations=cap)
+    assert torch.equal(pq_k < 1, pq_p < 1) and torch.equal(torch.isinf(pq_k), torch.isinf(pq_p))
+    assert torch.isinf(pq_k[~valid]).all()
+    fin = torch.isfinite(pq_p)
+    if fin.any():
+        assert float((pq_k[fin] - pq_p[fin]).abs().max()) <= 1e-7
+    if cap >= 0:
+        assert torch.equal(pq_k, pq_p)
+    assert float(toi_k) == pytest.approx(float(toi_p), abs=1e-7)
+    assert float(toi_k) == min(0.5, float(pq_k.min()))
+
+
+@pytest.mark.parametrize("is_vf", [True, False])
+def test_solver_kernel_min_separation_and_idle_cap(cuda, is_vf):
+    """Global mode with ms > 0 equals the plain version; a cap that never
+    binds gives the unbounded TOI."""
+    rows, valid = _rows(cuda, is_vf, ms=1e-3)
+    toi_k, _, _ = solver.solve_packed(rows, valid, is_vf, 1.0, TOL)
+    toi_p, _, _ = solver.solve_packed_reference(rows, valid, is_vf, 1.0, TOL)
+    assert float(toi_k) == pytest.approx(float(toi_p), abs=1e-7)
+    toi_b, _, checks_b = solver.solve_packed(rows, valid, is_vf, 1.0, TOL,
+                                             max_iterations=1_000_000)
+    assert float(toi_b) == float(toi_k) and int(checks_b) > 0
+
+
+@pytest.mark.parametrize("two_lists", [True, False])
+def test_sweep_kernel_box_range_union_is_whole(cuda, two_lists):
+    sb = _sorted(cuda, two_lists)
+    whole = sweep_ap.sweep_pairs(sb, two_lists, 1 << 16)
+    before = sweep_ap.LAUNCHES_BY_MODE["range"]
+    got, total, chunks = set(), 0, 0
+    for b0 in range(0, sb.n, 37):
+        p, n, n_true, ovf = sweep_ap.sweep_pairs(sb, two_lists, 1 << 14, box_range=(b0, b0 + 37))
+        assert not bool(ovf)
+        part = _set(p, n)
+        assert not part & got
+        got |= part
+        total += int(n_true)
+        chunks += 1
+    assert sweep_ap.LAUNCHES_BY_MODE["range"] == before + chunks
+    assert got == _set(whole[0], whole[1]) and total == int(whole[2]) > 0
+    launches = sweep_ap.LAUNCHES
+    empty = sweep_ap.sweep_pairs(sb, two_lists, 16, box_range=(5, 5))
+    assert int(empty[2]) == 0 and sweep_ap.LAUNCHES == launches
+
+
+def test_ccd_and_ipc_cuda_equal_cpu(cuda):
+    s = _scene()
+    args = (s.vertices_t0, s.vertices_t1, s.edges, s.faces)
+    gs, cs = CCDStats(), CCDStats()
+    assert ccd(*args, device=cuda, stats=gs) == pytest.approx(ccd(*args, stats=cs), abs=1e-7)
+    assert (gs.vf_candidates, gs.ee_candidates) == (cs.vf_candidates, cs.ee_candidates)
+    hg, hc = [], []
+    ccd(*args, device=cuda, collisions=hg)
+    fused_ccd(*args, collisions=hc)
+    assert [(a, b) for a, b, _ in sorted(hg)] == [(a, b) for a, b, _ in sorted(hc)]
+    assert max(abs(x[2] - y[2]) for x, y in zip(sorted(hg), sorted(hc))) <= 1e-7
+    for impl in ("chunked", "fused"):
+        kw = dict(min_distance=1e-3, impl=impl)
+        assert ipc_ccd_strategy(*args, device=cuda, **kw) == pytest.approx(
+            ipc_ccd_strategy(*args, **kw), abs=1e-7)
 
 
 def test_fused_cuda_equals_cpu(cuda):
