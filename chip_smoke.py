@@ -7,7 +7,8 @@ each printed as one JSON line, each stopping the run with a non-zero exit
 when it fails:
 
 0. the device, and ``nvidia-smi``'s name and power limit of the card;
-1. build both CUDA kernels from ``scalable_ccd_tpu_torch/csrc/`` with nvcc;
+1. build the three CUDA kernels from ``scalable_ccd_tpu_torch/csrc/`` with
+   nvcc, one process per source, all started together;
 2. kernel A (sweep) against its plain PyTorch version on the bench scene's
    sorted VF and EE boxes: equal pair sets and totals, and a budget of 64
    that overflows with the exact total;
@@ -31,7 +32,46 @@ when it fails:
    stepping loop (``ipc_ccd_strategy`` chunked and fused) on the bench
    scene, the IPC refinement rig, the CUDA runs against the CPU runs on
    ``cloth_on_sphere(64, 3)``, the launch counters of every new mode, and
-   the path's timings (median of 5 after a warm-up).
+   the path's timings (median of 5 after a warm-up);
+8. congestion on grid-600 (``cloth_on_sphere(600, 4)``, 1,085,284 VF
+   boxes): the bucket-ordered sort, kernel A ``any_order`` against its
+   plain version (equal pair sets and totals) and against kernel A on the
+   major sort (equal sets, also against the plain version there), both
+   kernel variants and both plain versions timed;
+9. kernel A' (records) against its plain version on the bench scene and on
+   grid-600, in both orderings: equal record multisets and counts, its
+   pair total equal to kernel A's, its decoded pairs equal to kernel A's,
+   a budget of 64 that overflows with exact totals; A' plus the full
+   decode timed against kernel A;
+10. kernel B ``round_limit`` 128 against its plain version on the bench
+    candidates: seeded with the final TOI the unfinished rows and checks
+    are equal; from a cold start the ladder gives the unbounded TOI
+    bitwise; then kernel B global and ``round_limit`` 128 against their
+    plain versions on grid-600's first four batches per phase (the plain
+    ``any_order`` sweep's row order): the cold global TOI within 1e-7, and
+    seeded with it the unfinished rows and checks equal;
+11. the congested main path: ``fused_ccd(..., device="cuda")`` at its
+    defaults on grid-600 (auto must resolve to the congestion ordering, the
+    batch ladder and no presample) with zeroed launch counters, against
+    ``bucket_minor=False, escalate_rounds=-1``, then timed in turns with
+    that run and with the ordering alone (``escalate_rounds=-1``); the same with
+    ``sweep_impl="records"``; the bench scene at the new defaults (frame
+    pool) against ``escalate_rounds=-1``, both timed; grid-1000 timed once.
+
+Each kernel row carries its bound: the least time the card could take,
+the larger of the bytes the call must move over 3.35 TB/s (the H100 SXM's
+HBM3 rate) and its operations over the card's peak rate for their type.
+The sweeps move 40 bytes per box in (and under ``any_order`` 4 per box and
+8 per partner row of planes), 8 per pair or 32 per record out; they do
+compares, at most one instruction per lane per clock, 33.5e12 per second
+(half the 67 TFLOP/s f32 rate, which counts an FMA as two operations): 5
+per candidate slot of the major sort (the stop and four minor tests), and
+under ``any_order`` 7 per slot that the walk tests (the stop, both major
+directions, four minor tests) and 2 per partner-row union it reads, counted
+from this run's ``fwd_min``, row unions and run lengths.  The solver moves
+125 bytes per query row in and does about 300 f32 operations per domain
+evaluation, over 67 TFLOP/s.  No single PyTorch call computes a sweep or a
+root search, so ``library_ms`` is null.
 
 The last lines are the kernels' JSON record (one row per kernel and mode),
 the ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -50,6 +90,26 @@ from concurrent.futures import ThreadPoolExecutor
 REPO = os.path.dirname(os.path.abspath(__file__))
 TOL = 1e-6
 BATCH = 1 << 14
+LIBS = ("sweep_ap", "sweep_records", "solver")
+
+#: the H100 SXM's HBM3 bytes/s and f32 operations/s outside the tensor cores
+#: (an FMA counted as two operations)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+#: lane instructions/s: an SM issues at most one instruction per lane per
+#: clock, half the f32 rate's count, so a compare goes at most this fast
+INSTR_PER_S = F32_OPS_PER_S / 2
+#: bytes one sorted box holds (major min/max, two minor intervals, three
+#: vertex ids, the element id), one pair row, one record, one query row
+#: with its valid byte
+BOX_BYTES, PAIR_BYTES, RECORD_BYTES, ROW_BYTES = 40, 8, 32, 31 * 4 + 1
+#: compares of one candidate slot of the major sort (the stop test and four
+#: minor compares), of one slot of the any_order walk (the stop, both major
+#: directions, four minor) and of one partner-row union test; f32
+#: operations of one domain evaluation (csrc/solver.cu)
+OPS_PER_SLOT, OPS_PER_ANY_SLOT, OPS_PER_ROW_TEST, OPS_PER_CHECK = 5, 7, 2, 300
+#: partners per row of the any_order row-skip planes (ops/sweep_ap.py ROW)
+PARTNER_ROW = 128
 
 
 def emit(**fields):
@@ -113,6 +173,85 @@ def host_cpu():
     return model, os.cpu_count()
 
 
+def bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
+    """``bound_ms`` and ``bound_by`` of a call that must move ``nbytes``
+    and do ``ops`` operations at a peak of ``ops_per_s``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def add_bounds(a, b):
+    """The bound of two calls made one after the other."""
+    ms = a["bound_ms"] + b["bound_ms"]
+    return {"bound_ms": ms, "bound_by": a["bound_by"] if a["bound_ms"] >= b["bound_ms"]
+            else b["bound_by"]}
+
+
+def major_slots(sb):
+    """Candidate slots of boxes sorted by ``major_min``: the partners each
+    box's major interval reaches, the work any sorted sweep must test."""
+    import torch
+
+    reach = torch.searchsorted(sb.major_min, sb.major_max, right=True)
+    return int((reach - torch.arange(sb.n, device=reach.device) - 1).clamp(min=0).sum())
+
+
+def any_order_work(sb, planes, chunk=1 << 24):
+    """``(slots, row_tests)`` of kernel A's ``any_order`` walk over ``sb``:
+    box ``i``'s run is ``[i + 1, reach)``, ``reach`` the first position
+    whose ``fwd_min`` exceeds ``major_max[i]``; the walk tests each
+    128-box partner row the run touches against box ``i``'s minor-0
+    interval, and the run's slots only in the rows that pass.  Expanded
+    over (box, row) in chunks of about ``chunk`` entries, as
+    ``sweep_positions`` expands slots."""
+    import torch
+
+    n = sb.n
+    dev = sb.major_min.device
+    start = torch.arange(1, n + 1, device=dev)
+    end = torch.maximum(torch.searchsorted(planes.fwd_min, sb.major_max, right=True), start)
+    r0 = start // PARTNER_ROW
+    nrows = torch.where(end > start, (end - 1) // PARTNER_ROW - r0 + 1, 0)
+    cum = torch.cumsum(nrows, 0)
+    row_tests = int(cum[-1])
+    cuts = torch.arange(chunk, max(row_tests, chunk), chunk, device=dev)
+    bounds = [0] + torch.searchsorted(cum, cuts, right=True).tolist() + [n]
+    lo, hi = sb.minor_min[:, 0], sb.minor_max[:, 0]
+    slots = 0
+    for b0, b1 in zip(bounds[:-1], bounds[1:]):
+        k = nrows[b0:b1]
+        i = torch.repeat_interleave(torch.arange(b0, b1, device=dev), k)
+        if i.numel() == 0:
+            continue
+        first = torch.repeat_interleave(torch.cumsum(k, 0) - k, k)
+        row = r0[i] + torch.arange(i.numel(), device=dev) - first
+        span = (torch.minimum((row + 1) * PARTNER_ROW, end[i])
+                - torch.maximum(row * PARTNER_ROW, start[i]))
+        hit = (planes.row_umin[row] <= hi[i]) & (planes.row_umax[row] >= lo[i])
+        slots += int((span * hit).sum())
+    return slots, row_tests
+
+
+def sweep_bound(sb_major, out_bytes):
+    return bound(sb_major.n * BOX_BYTES + out_bytes, major_slots(sb_major) * OPS_PER_SLOT,
+                 INSTR_PER_S)
+
+
+def any_order_bound(sb, planes, work, out_bytes):
+    """The bound of an ``any_order`` sweep of ``sb`` whose walk does
+    ``work = any_order_work(sb, planes)``."""
+    slots, row_tests = work
+    in_bytes = sb.n * (BOX_BYTES + 4) + 8 * planes.row_umin.shape[0]
+    return bound(in_bytes + out_bytes, slots * OPS_PER_ANY_SLOT + row_tests * OPS_PER_ROW_TEST,
+                 INSTR_PER_S)
+
+
+def solve_bound(queries, checks, out_bytes=0):
+    return bound(queries * ROW_BYTES + out_bytes, checks * OPS_PER_CHECK)
+
+
 def max_abs(a, b):
     """Largest |a - b| over two tensors of one shape (0.0 when empty)."""
     return float((a - b).abs().max()) if a.numel() else 0.0
@@ -147,7 +286,7 @@ def main():
     )
     from scalable_ccd_tpu_torch.geometry.scenes import cloth_on_sphere
     from scalable_ccd_tpu_torch.narrow_phase import types
-    from scalable_ccd_tpu_torch.ops import _build, solver, sweep_ap
+    from scalable_ccd_tpu_torch.ops import _build, solver, sweep_ap, sweep_records
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -162,12 +301,12 @@ def main():
 
     # ---- 1. build: one nvcc per source, started together --------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        list(pool.map(_build.build_library, ("sweep_ap", "solver")))
-    for lib in ("sweep_ap", "solver"):
+    with ThreadPoolExecutor(max_workers=len(LIBS)) as pool:
+        list(pool.map(_build.build_library, LIBS))
+    for lib in LIBS:
         _build.load_library(lib)
     ptxas = []
-    for lib in ("sweep_ap", "solver"):
+    for lib in LIBS:
         log = _build.build_library(lib).with_suffix(".log")
         ptxas += [l.strip() for l in log.read_text().splitlines() if "registers" in l or "spill" in l]
     emit(phase="build", seconds=time.perf_counter() - t0,
@@ -187,6 +326,7 @@ def main():
 
     # ---- 2. kernel A vs plain ---------------------------------------------
     a_ms = a_plain_ms = 0.0
+    a_bound = bound(0, 0)
     cand = {}
     for ph, (two, sb) in phases.items():
         budget = 1 << (4 * sb.n - 1).bit_length()
@@ -206,6 +346,7 @@ def main():
             lambda: sweep_ap.sweep_pairs(sb, two, budget), 3,
         )
         a_ms, a_plain_ms = a_ms + kms, a_plain_ms + pms
+        a_bound = add_bounds(a_bound, sweep_bound(sb, int(p[2]) * PAIR_BYTES))
         cand[ph] = p[0][: int(p[1])]  # sweep order: identical input for both solvers
         emit(phase="kernel_a", which=ph, boxes=sb.n, pairs=int(p[2]), equal=True,
              overflow_64_exact=True, ms=kms, plain_ms=pms)
@@ -214,6 +355,8 @@ def main():
     vcat = types.concat_frames(v0, v1, torch.float32)
     b_ms = b_plain_ms = 0.0
     b_err = 0.0
+    b_bound = bound(0, 0)
+    bench_rows = {}
     for ph, (is_vf, _) in phases.items():
         pairs = cand[ph]
         if is_vf:
@@ -242,6 +385,8 @@ def main():
         kms, pms = alternate(lambda: run(solver.solve_packed_reference),
                              lambda: run(solver.solve_packed), 2)
         b_ms, b_plain_ms, b_err = b_ms + kms, b_plain_ms + pms, max(b_err, err)
+        b_bound = add_bounds(b_bound, solve_bound(rows.shape[0], int(ck)))
+        bench_rows[is_vf] = (batches, valids, float(tk))
         emit(phase="kernel_b", which=ph, queries=rows.shape[0], batches=len(batches),
              toi=float(tk), plain_toi=float(tp), abs_err=err, checks=int(ck),
              plain_checks=int(cp), overflow=bool(ok_), plain_overflow=bool(op_),
@@ -282,7 +427,8 @@ def main():
     launches = {"sweep_pairs": sweep_ap.LAUNCHES, "solve_packed": solver.LAUNCHES}
     main_modes = read_counts(sweep_ap, solver)
     check(all(n > 0 for n in launches.values()), f"main path skipped a kernel: {launches}")
-    check(main_modes["sweep_whole"] > 0 and main_modes["solve_global"] > 0,
+    # the bench scene's defaults: the major sort and the frame straggler pool
+    check(main_modes["sweep_whole"] > 0 and main_modes["solve_round_limit"] > 0,
           f"main path skipped a kernel mode: {main_modes}")
     check(not bool(res.overflowed), "bench: overflowed")
     toi = float(res.toi)
@@ -322,22 +468,39 @@ def main():
     ranged = phase_box_range(torch, phases, sweep_ap)
     ipc = phase_ipc_path(torch, dev, cloth_on_sphere, sweep_ap, solver)
 
+    grid600 = scene_on(torch, dev, cloth_on_sphere(grid_n=600, sphere_subdiv=4))
+    congestion = phase_congestion(torch, grid600, sweep_ap)
+    records = phase_records(torch, bargs, congestion["sorted"], sweep_ap, sweep_records)
+    escalation = phase_escalation(torch, dev, bench_rows, solver)
+    phase_grid_solver(torch, dev, grid600, congestion["sample"], types, solver)
+    congested = phase_congested_main(torch, dev, grid600, bargs, cloth_on_sphere, res)
+
     src = "scalable_ccd_tpu_torch/csrc/"
     sweep = {"route": "cuda", "source": src + "sweep_ap.cu",
-             "replaces": "scalable_ccd_tpu/ops/pallas_sweep_ap.py:291"}
+             "replaces": "scalable_ccd_tpu/ops/pallas_sweep_ap.py:291", "library_ms": None}
+    recs = {"route": "cuda", "source": src + "sweep_records.cu",
+            "replaces": "scalable_ccd_tpu/ops/pallas_sweep_ap.py:1356", "library_ms": None}
     solve = {"route": "cuda", "source": src + "solver.cu",
-             "replaces": "scalable_ccd_tpu/ops/pallas_solver.py:114"}
+             "replaces": "scalable_ccd_tpu/ops/pallas_solver.py:114", "library_ms": None}
     print(json.dumps({"kernels": [
         {"name": "sweep_pairs[whole]", **sweep, "launches": main_modes["sweep_whole"],
-         "max_abs_err": 0.0, "ms": a_ms, "plain_ms": a_plain_ms},
+         "max_abs_err": 0.0, "ms": a_ms, "plain_ms": a_plain_ms, **a_bound},
         {"name": "sweep_pairs[range]", **sweep, "launches": ipc["sweep_range"],
-         "max_abs_err": 0.0, "ms": ranged["ms"], "plain_ms": ranged["plain_ms"]},
+         "max_abs_err": 0.0, "ms": ranged["ms"], "plain_ms": ranged["plain_ms"], **a_bound},
+        {"name": "sweep_pairs[any_order]", **sweep,
+         "launches": congested["counts"]["sweep_any_order"], **congestion["row"]},
+        {"name": "sweep_records[sorted]", **recs,
+         "launches": congested["records_bench_counts"]["records_sorted"], **records["sorted"]},
+        {"name": "sweep_records[any_order]", **recs,
+         "launches": congested["records_counts"]["records_any_order"], **records["any_order"]},
         {"name": "solve_packed[global]", **solve, "launches": main_modes["solve_global"],
-         "max_abs_err": b_err, "ms": b_ms, "plain_ms": b_plain_ms},
+         "max_abs_err": b_err, "ms": b_ms, "plain_ms": b_plain_ms, **b_bound},
         {"name": "solve_packed[per_query]", **solve, "launches": ipc["solve_per_query"],
          **exact["per_query"]},
         {"name": "solve_packed[bounded]", **solve, "launches": ipc["solve_bounded"],
          **exact["bounded"]},
+        {"name": "solve_packed[round_limit]", **solve,
+         "launches": congested["counts"]["solve_round_limit"], **escalation},
     ]}))
     emit(phase="done", wall_seconds=time.perf_counter() - T_START)
     print(f"host: {cpu_model}, {cpu_count} CPUs")
@@ -349,18 +512,24 @@ def main():
 
 # ---- launch counters -------------------------------------------------------
 
-def zero_counts(sweep_ap, solver):
-    sweep_ap.LAUNCHES = 0
-    solver.LAUNCHES = 0
-    for counts in (sweep_ap.LAUNCHES_BY_MODE, solver.LAUNCHES_BY_MODE):
-        for k in counts:
-            counts[k] = 0
+def _counted_modules():
+    from scalable_ccd_tpu_torch.ops import solver, sweep_ap, sweep_records
+
+    return {"sweep": sweep_ap, "records": sweep_records, "solve": solver}
 
 
-def read_counts(sweep_ap, solver):
-    out = {f"sweep_{k}": v for k, v in sweep_ap.LAUNCHES_BY_MODE.items()}
-    out.update({f"solve_{k}": v for k, v in solver.LAUNCHES_BY_MODE.items()})
-    return out
+def zero_counts(*_):
+    """Set every kernel's launch counts to 0."""
+    for mod in _counted_modules().values():
+        mod.LAUNCHES = 0
+        for k in mod.LAUNCHES_BY_MODE:
+            mod.LAUNCHES_BY_MODE[k] = 0
+
+
+def read_counts(*_):
+    """Every kernel's launches by mode, as ``{"<kernel>_<mode>": n}``."""
+    return {f"{name}_{k}": v for name, mod in _counted_modules().items()
+            for k, v in mod.LAUNCHES_BY_MODE.items()}
 
 
 # ---- 5. kernel B's exact modes vs plain ----------------------------------------
@@ -420,6 +589,7 @@ def phase_exact_modes(torch, dev, cloth_on_sphere, types, solver):
                           ("global_ms", {}, 1e-3),
                           ("global_cap", dict(max_iterations=1_000_000), 0.0)):
         errs, kms_sum, pms_sum, info = [], 0.0, 0.0, {}
+        bnd = bound(0, 0)
         for is_vf in (True, False):
             ph = "vf" if is_vf else "ee"
             tk, ck, pk = run(solver.solve_packed, is_vf, ms, **kw)
@@ -442,16 +612,22 @@ def phase_exact_modes(torch, dev, cloth_on_sphere, types, solver):
                                  lambda: run(solver.solve_packed, is_vf, ms, **kw), 1)
             errs.append(err)
             kms_sum, pms_sum = kms_sum + kms, pms_sum + pms
+            n_q = sum(b.shape[0] for b in rows[is_vf][ms])
             info.update({ph + "_toi": float(tk), ph + "_checks": ck, ph + "_plain_checks": cp,
-                         ph + "_queries": sum(b.shape[0] for b in rows[is_vf][ms])})
-        out[label] = {"max_abs_err": max(errs), "ms": kms_sum, "plain_ms": pms_sum}
+                         ph + "_queries": n_q})
+            # a per-query call also writes one f32 TOI per row
+            bnd = add_bounds(bnd, solve_bound(n_q, ck, 4 * n_q if pk is not None else 0))
+        out[label] = {"max_abs_err": max(errs), "ms": kms_sum, "plain_ms": pms_sum, **bnd}
         emit(phase="kernel_b_mode", mode=label, **out[label], **info)
     bounded = [out[k] for k in ("per_query_cap10", "per_query_cap100", "global_cap")]
+    bnd = bound(0, 0)
+    for b in bounded:
+        bnd = add_bounds(bnd, b)
     return {
         "per_query": out["per_query"],
         "bounded": {"max_abs_err": max(b["max_abs_err"] for b in bounded),
                     "ms": sum(b["ms"] for b in bounded),
-                    "plain_ms": sum(b["plain_ms"] for b in bounded)},
+                    "plain_ms": sum(b["plain_ms"] for b in bounded), **bnd},
     }
 
 
@@ -648,6 +824,398 @@ def phase_ipc_path(torch, dev, cloth_on_sphere, sweep_ap, solver):
          **{k + "_ms_median": v[0] for k, v in timings.items()},
          **{k + "_ms": v[1] for k, v in timings.items()})
     return counts
+
+
+# ---- 8. congestion on grid-600 ----------------------------------------------------
+
+def scene_on(torch, dev, scene):
+    """``(v0, v1, edges, faces)`` of ``scene`` on ``dev`` (f32, int32)."""
+    return tuple(torch.as_tensor(a, dtype=dt, device=dev) for a, dt in (
+        (scene.vertices_t0, torch.float32), (scene.vertices_t1, torch.float32),
+        (scene.edges, torch.int32), (scene.faces, torch.int32)))
+
+
+def phase_boxes(args):
+    """``{phase: (two_lists, unsorted boxes)}`` of a scene on the card."""
+    from scalable_ccd_tpu_torch.broad_phase import merge_two_lists
+    from scalable_ccd_tpu_torch.geometry import (
+        build_edge_boxes,
+        build_face_boxes,
+        build_vertex_boxes,
+    )
+
+    v0, v1, e, f = args
+    vb = build_vertex_boxes(v0, v1)
+    return {"vf": (True, merge_two_lists(vb, build_face_boxes(vb, f))),
+            "ee": (False, build_edge_boxes(vb, e))}
+
+
+def timed_once(fn):
+    """``(fn(), ms)``, timed with CUDA events."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def pow2ceil(n):
+    return 1 << (max(int(n), 1) - 1).bit_length()
+
+
+def phase_congestion(torch, args, sweep_ap):
+    """The bucket-ordered sort of grid-600 and kernel A ``any_order`` on it,
+    against its plain version and against kernel A on the major sort."""
+    from scalable_ccd_tpu_torch.broad_phase import sort_boxes
+
+    out = {"sorted": {}, "sample": {}}
+    kms_sum = pms_sum = 0.0
+    bnd = bound(0, 0)
+    for ph, (two, boxes) in phase_boxes(args).items():
+        (bucket, major), sort_ms = timed_once(
+            lambda: (sort_boxes(boxes, bucket_minor=True), sort_boxes(boxes)))
+        planes = sweep_ap.partner_planes(bucket)
+        n_true = int(sweep_ap.sweep_pairs(major, two, 64)[2])
+        budget = pow2ceil(n_true)
+        k = sweep_ap.sweep_pairs(bucket, two, budget, any_order=True, planes=planes)
+        w = sweep_ap.sweep_pairs(major, two, budget)
+        p, plain_ms = timed_once(
+            lambda: sweep_ap.sweep_pairs_reference(bucket, two, budget, any_order=True,
+                                                   planes=planes))
+        pw, plain_major_ms = timed_once(
+            lambda: sweep_ap.sweep_pairs_reference(major, two, budget))
+        check(not any(bool(x[3]) for x in (k, w, p, pw)), f"congestion {ph}: overflowed")
+        check(int(k[2]) == int(p[2]) == int(w[2]) == int(pw[2]) == n_true,
+              f"congestion {ph}: totals {int(k[2])} / plain {int(p[2])} / major {int(w[2])}"
+              f" / plain major {int(pw[2])}")
+        keys = pair_keys(k[0], k[1])
+        check(keys.numel() == torch.unique(keys).numel(), f"congestion {ph}: duplicate pairs")
+        check(torch.equal(keys, pair_keys(p[0], p[1])), f"congestion {ph}: plain pair set differs")
+        check(torch.equal(keys, pair_keys(w[0], w[1])), f"congestion {ph}: major-sort set differs")
+        check(torch.equal(keys, pair_keys(pw[0], pw[1])),
+              f"congestion {ph}: plain major-sort set differs")
+        check(bool((bucket.major_min[1:] < bucket.major_min[:-1]).any()),
+              f"congestion {ph}: the bucket ordering is the major sort")
+        # turns: major, any_order, any_order, major
+        kms, wms = alternate(
+            lambda: sweep_ap.sweep_pairs(major, two, budget),
+            lambda: sweep_ap.sweep_pairs(bucket, two, budget, any_order=True, planes=planes), 3)
+        kms_sum, pms_sum = kms_sum + kms, pms_sum + plain_ms
+        work = any_order_work(bucket, planes)
+        ph_bound = any_order_bound(bucket, planes, work, n_true * PAIR_BYTES)
+        bnd = add_bounds(bnd, ph_bound)
+        out["sorted"][ph] = (two, boxes, bucket, major, planes, budget, work)
+        # the first four narrow batches, in the plain sweep's row order
+        out["sample"][ph] = p[0][: min(int(p[1]), 4 * BATCH)]
+        emit(phase="congestion", scene="cloth_on_sphere(600, 4)", which=ph, boxes=bucket.n,
+             pairs=n_true, major_slots=major_slots(major), any_order_slots=work[0],
+             any_order_row_tests=work[1], sort_both_ms=sort_ms,
+             any_order_ms=kms, major_sort_ms=wms, plain_any_order_ms=plain_ms,
+             plain_major_sort_ms=plain_major_ms, bound_ms=ph_bound["bound_ms"],
+             bound_by=ph_bound["bound_by"], equal=True)
+    out["row"] = {"max_abs_err": 0.0, "ms": kms_sum, "plain_ms": pms_sum, **bnd}
+    return out
+
+
+# ---- 9. kernel A' (records) ----------------------------------------------------
+
+def record_rows(rec, n_rec):
+    """Records in a canonical order (each (row, partner) holds one record)."""
+    import torch
+
+    r = rec[: int(n_rec)].to(torch.int64)
+    return rec[: int(n_rec)][torch.argsort(r[:, 5] * (1 << 32) + r[:, 4])]
+
+
+def phase_records(torch, bench_args, grid_sorted, sweep_ap, sweep_records):
+    """Kernel A' against its plain version, kernel A and the decode, on the
+    bench scene and grid-600 in both orderings."""
+    from scalable_ccd_tpu_torch.broad_phase import sort_boxes
+
+    cases = []
+    for ph, (two, boxes) in phase_boxes(bench_args).items():
+        bucket = sort_boxes(boxes, bucket_minor=True)
+        major = sort_boxes(boxes)
+        budget = pow2ceil(int(sweep_ap.sweep_pairs(major, two, 64)[2]))
+        planes = sweep_ap.partner_planes(bucket)
+        cases.append(("bench", ph, two, major, bucket, planes, budget,
+                      any_order_work(bucket, planes)))
+    for ph, (two, _, bucket, major, planes, budget, work) in grid_sorted.items():
+        cases.append(("grid600", ph, two, major, bucket, planes, budget, work))
+    rows = {"sorted": [0.0, 0.0, bound(0, 0)], "any_order": [0.0, 0.0, bound(0, 0)]}
+    for scene, ph, two, major, bucket, planes, budget, work in cases:
+        for order, sb in (("sorted", major), ("any_order", bucket)):
+            ao = order == "any_order"
+            kw = dict(any_order=ao, planes=planes if ao else None)
+            k = sweep_records.sweep_records(sb, two, budget, **kw)
+            a = sweep_ap.sweep_pairs(sb, two, budget, **kw)
+            p, plain_ms = timed_once(
+                lambda: sweep_records.sweep_records_reference(sb, two, budget, 0, **kw))
+            label = f"records {scene} {ph} {order}"
+            check(not bool(k[3]) and not bool(p[3]), f"{label}: overflowed")
+            n_rec, n_pairs = int(k[1]), int(k[2])
+            check((n_rec, n_pairs) == (int(p[1]), int(p[2])),
+                  f"{label}: counts {n_rec}/{n_pairs} vs plain {int(p[1])}/{int(p[2])}")
+            check(n_pairs == int(a[2]), f"{label}: {n_pairs} pairs vs kernel A {int(a[2])}")
+            check(torch.equal(record_rows(k[0], n_rec), record_rows(p[0], n_rec)),
+                  f"{label}: record multisets differ")
+
+            def decode_all(rec=k[0], n_rec=n_rec, n_pairs=n_pairs, sb=sb):
+                cum = sweep_records.records_pair_prefix(rec, n_rec)
+                return sweep_records.decode_records_range(sb, rec, cum, 0, n_pairs, 0, two)[0]
+
+            dec = decode_all()
+            check(torch.equal(pair_keys(dec, n_pairs), pair_keys(a[0], a[1])),
+                  f"{label}: decoded pairs differ from kernel A's")
+            small = sweep_records.sweep_records(sb, two, 64, **kw)
+            check(bool(small[3]) and (int(small[1]), int(small[2])) == (n_rec, n_pairs),
+                  f"{label}: budget 64 did not overflow with exact totals")
+            rec_ms, a_ms = alternate(
+                lambda: sweep_ap.sweep_pairs(sb, two, budget, **kw),
+                lambda: sweep_records.sweep_records(sb, two, budget, **kw), 3)
+            dec_ms, _ = alternate(
+                lambda: sweep_ap.sweep_pairs(sb, two, budget, **kw),
+                lambda: (sweep_records.sweep_records(sb, two, budget, **kw), decode_all()), 1)
+            if ao:
+                case_bound = any_order_bound(bucket, planes, work, n_rec * RECORD_BYTES)
+            else:
+                case_bound = sweep_bound(major, n_rec * RECORD_BYTES)
+            if (scene, order) in (("bench", "sorted"), ("grid600", "any_order")):
+                row = rows[order]
+                row[0] += rec_ms
+                row[1] += plain_ms
+                row[2] = add_bounds(row[2], case_bound)
+            emit(phase="records", scene=scene, which=ph, order=order, records=n_rec,
+                 pairs=n_pairs, pairs_per_record=n_pairs / max(n_rec, 1), equal=True,
+                 overflow_64_exact=True, records_ms=rec_ms, records_and_decode_ms=dec_ms,
+                 kernel_a_ms=a_ms, plain_ms=plain_ms, bound_ms=case_bound["bound_ms"],
+                 bound_by=case_bound["bound_by"])
+    return {order: {"max_abs_err": 0.0, "ms": r[0], "plain_ms": r[1], **r[2]}
+            for order, r in rows.items()}
+
+
+# ---- 10. kernel B's round limit --------------------------------------------------
+
+def phase_escalation(torch, dev, bench_rows, solver):
+    """Kernel B ``round_limit`` 128 against the plain lockstep DFS on the
+    bench candidates in batches of 16,384: seeded with the final TOI the
+    unfinished rows and checks are equal; from a cold start the ladder gives
+    the unbounded TOI bitwise."""
+    limit = 128
+    kms_sum = pms_sum = 0.0
+    bnd = bound(0, 0)
+    for is_vf, (batches, valids, final) in bench_rows.items():
+        ph = "vf" if is_vf else "ee"
+        seed = torch.tensor(final, dtype=torch.float32, device=dev)
+        unfin = checks = 0
+
+        def seeded(fn):
+            return [fn(b, v, is_vf, seed, TOL, round_limit=limit) for b, v in zip(batches, valids)]
+
+        ks, kms = timed_once(lambda: seeded(solver.solve_packed))
+        ps, pms = timed_once(lambda: seeded(solver.solve_packed_reference))
+        for i, (k, p) in enumerate(zip(ks, ps)):
+            check(torch.equal(k[3], p[3]), f"round_limit {ph} batch {i}: unfinished rows differ")
+            check(int(k[2]) == int(p[2]), f"round_limit {ph} batch {i}: checks {int(k[2])} "
+                  f"vs plain {int(p[2])}")
+            check(float(k[0]) == float(p[0]) == final, f"round_limit {ph} batch {i}: toi moved")
+            unfin, checks = unfin + int(k[3].sum()), checks + int(k[2])
+
+        def cold(fn):
+            toi = torch.ones((), dtype=torch.float32, device=dev)
+            for b, v in zip(batches, valids):
+                toi = torch.minimum(toi, fn(b, v, is_vf, toi, TOL)[0])
+            return toi
+
+        ladder = float(cold(lambda *a: solver.solve_escalated(*a, round_limit=limit)))
+        check(ladder == final, f"round_limit {ph}: ladder toi {ladder} vs unbounded {final}")
+        esc_ms, one_ms = alternate(
+            lambda: cold(solver.solve_packed),
+            lambda: cold(lambda *a: solver.solve_escalated(*a, round_limit=limit)), 1)
+        kms_sum, pms_sum = kms_sum + kms, pms_sum + pms
+        n_q = sum(b.shape[0] for b in batches)
+        bnd = add_bounds(bnd, solve_bound(n_q, checks, n_q))
+        emit(phase="escalation", which=ph, round_limit=limit, queries=n_q, unfinished=unfin,
+             seeded_checks=checks, round_limit_ms=kms, plain_ms=pms, ladder_toi=ladder,
+             unbounded_toi=final, ladder_ms=esc_ms, unbounded_ms=one_ms)
+    return {"max_abs_err": 0.0, "ms": kms_sum, "plain_ms": pms_sum, **bnd}
+
+
+def phase_grid_solver(torch, dev, args, samples, types, solver):
+    """Kernel B global and ``round_limit`` 128 against the plain versions on
+    grid-600's first four batches of 16,384 candidates per phase: from a
+    cold start the global TOIs agree within 1e-7; seeded with that TOI the
+    round-limited pass's unfinished rows and checks are equal."""
+    limit = 128
+    v0, v1, e, f = args
+    vcat = types.concat_frames(v0, v1, torch.float32)
+    for ph, pairs in samples.items():
+        is_vf = ph == "vf"
+        if is_vf:
+            q = types.gather_vf_queries(vcat, types.pack_face_table(vcat, f), pairs)
+        else:
+            q = types.gather_ee_queries(types.pack_edge_table(vcat, e), pairs)
+        rows = solver.pack_query_rows(q, is_vf, 0.0, TOL)
+        batches = [rows[s:s + BATCH].contiguous() for s in range(0, rows.shape[0], BATCH)]
+        valids = [torch.ones((b.shape[0],), dtype=torch.bool, device=dev) for b in batches]
+
+        def cold(fn):
+            toi = torch.ones((), dtype=torch.float32, device=dev)
+            checks = 0
+            for b, v in zip(batches, valids):
+                t, _, c = fn(b, v, is_vf, toi, TOL)
+                toi, checks = torch.minimum(toi, t), checks + c
+            return toi, checks
+
+        (tk, ck), (tp, _) = cold(solver.solve_packed), cold(solver.solve_packed_reference)
+        err = abs(float(tk) - float(tp))
+        check(err <= 1e-7, f"grid-600 kernel B {ph}: toi {float(tk)} vs plain {float(tp)}")
+        g_ms, g_plain_ms = alternate(lambda: cold(solver.solve_packed_reference),
+                                     lambda: cold(solver.solve_packed), 1)
+        seed = torch.tensor(float(tk), dtype=torch.float32, device=dev)
+
+        def seeded(fn):
+            return [fn(b, v, is_vf, seed, TOL, round_limit=limit) for b, v in zip(batches, valids)]
+
+        ks, r_ms = timed_once(lambda: seeded(solver.solve_packed))
+        ps, r_plain_ms = timed_once(lambda: seeded(solver.solve_packed_reference))
+        unfin = checks = 0
+        for i, (k, p) in enumerate(zip(ks, ps)):
+            check(torch.equal(k[3], p[3]), f"grid-600 round_limit {ph} batch {i}: unfinished differ")
+            check(int(k[2]) == int(p[2]), f"grid-600 round_limit {ph} batch {i}: checks "
+                  f"{int(k[2])} vs plain {int(p[2])}")
+            check(float(k[0]) == float(p[0]) == float(tk),
+                  f"grid-600 round_limit {ph} batch {i}: toi moved")
+            unfin, checks = unfin + int(k[3].sum()), checks + int(k[2])
+        n_q = rows.shape[0]
+        gb, rb = solve_bound(n_q, int(ck)), solve_bound(n_q, checks, n_q)
+        emit(phase="grid600_solver", which=ph, queries=n_q, batches=len(batches),
+             toi=float(tk), plain_toi=float(tp), abs_err=err, checks=int(ck),
+             global_ms=g_ms, global_plain_ms=g_plain_ms, global_bound_ms=gb["bound_ms"],
+             global_bound_by=gb["bound_by"], unfinished=unfin, seeded_checks=checks,
+             round_limit_ms=r_ms, round_limit_plain_ms=r_plain_ms,
+             round_limit_bound_ms=rb["bound_ms"], round_limit_bound_by=rb["bound_by"])
+
+
+# ---- 11. the congested main path ---------------------------------------------------
+
+def wall_ms(fn, reps):
+    """Median and list of ``reps`` host-clock times of ``fn`` ending in a
+    synchronize."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times), times
+
+
+def phase_congested_main(torch, dev, grid600, bench_args, cloth_on_sphere, bench_res):
+    """``fused_ccd`` at its defaults on grid-600 and on the bench scene,
+    against the plain ordering without escalation, with the launch
+    counters; records on both; grid-1000 timed once."""
+    from scalable_ccd_tpu_torch import fused_ccd
+    from scalable_ccd_tpu_torch.pipeline.fused import Knobs, resolve_knobs
+
+    def same(a, b, label):
+        err = abs(float(a.toi) - float(b.toi))
+        check(not bool(a.overflowed) and not bool(b.overflowed), f"{label}: overflowed")
+        check(err <= 1e-7, f"{label}: toi {float(a.toi)} vs {float(b.toi)}")
+        check((int(a.vf_total), int(a.ee_total)) == (int(b.vf_total), int(b.ee_total)),
+              f"{label}: pair totals differ")
+        return err
+
+    n_vf = grid600[0].shape[0] + grid600[3].shape[0]
+    n_ee = grid600[2].shape[0]
+    knobs = resolve_knobs(n_vf, n_ee)
+    emit(phase="congested_knobs", scene="cloth_on_sphere(600, 4)", vf_boxes=n_vf,
+         ee_boxes=n_ee, **knobs._asdict())
+    check(knobs == Knobs(True, 128, "batch", False, False, "pairs"),
+          f"grid-600: auto resolved to {knobs}")
+    run = lambda args, **kw: fused_ccd(*args, device=dev, validate=False, **kw)  # noqa: E731
+
+    zero_counts()
+    res = run(grid600)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts["sweep_any_order"] > 0 and counts["solve_round_limit"] > 0,
+          f"grid-600 main path skipped a new kernel mode: {counts}")
+    ref = run(grid600, bucket_minor=False, escalate_rounds=-1)
+    err = same(res, ref, "grid-600 defaults vs plain ordering unbounded")
+    # in turns: defaults, plain ordering unbounded, congestion ordering
+    # unbounded (the ordering alone), defaults
+    ms, times = wall_ms(lambda: run(grid600), 3)
+    ref_ms, ref_times = wall_ms(lambda: run(grid600, bucket_minor=False, escalate_rounds=-1), 3)
+    ord_ms, ord_times = wall_ms(lambda: run(grid600, escalate_rounds=-1), 3)
+    ms2, times2 = wall_ms(lambda: run(grid600), 3)
+    emit(phase="main_grid600", toi=float(res.toi), plain_toi=float(ref.toi), abs_err=err,
+         bitwise=float(res.toi) == float(ref.toi), vf_total=int(res.vf_total),
+         ee_total=int(res.ee_total), total_checks=int(res.total_checks),
+         plain_checks=int(ref.total_checks), solver_capped=bool(res.solver_capped),
+         launches=counts, ms_per_frame_median=[ms, ms2], ms_per_frame=times + times2,
+         plain_ordering_unbounded_ms_median=ref_ms, plain_ordering_unbounded_ms=ref_times,
+         congestion_ordering_unbounded_ms_median=ord_ms,
+         congestion_ordering_unbounded_ms=ord_times)
+
+    zero_counts()
+    rec = run(grid600, sweep_impl="records")
+    torch.cuda.synchronize()
+    records_counts = read_counts()
+    check(records_counts["records_any_order"] > 0 and records_counts["solve_round_limit"] > 0,
+          f"grid-600 records path skipped a kernel mode: {records_counts}")
+    same(rec, res, "grid-600 records vs pairs")
+    rms, rtimes = wall_ms(lambda: run(grid600, sweep_impl="records"), 3)
+    emit(phase="main_grid600_records", toi=float(rec.toi), launches=records_counts,
+         ms_per_frame_median=rms, ms_per_frame=rtimes)
+
+    # the bench scene at the new defaults (frame pool) against one unbounded pass
+    bref = run(bench_args, escalate_rounds=-1)
+    berr = same(bench_res, bref, "bench defaults vs escalate_rounds=-1")
+    zero_counts()
+    brec = run(bench_args, sweep_impl="records")
+    torch.cuda.synchronize()
+    records_bench_counts = read_counts()
+    check(records_bench_counts["records_sorted"] > 0,
+          f"bench records path skipped kernel A': {records_bench_counts}")
+    same(brec, bench_res, "bench records vs pairs")
+    b_ms, b_times = wall_ms(lambda: run(bench_args), 5)
+    o_ms, o_times = wall_ms(lambda: run(bench_args, escalate_rounds=-1), 5)
+    b2_ms, b2_times = wall_ms(lambda: run(bench_args), 5)
+    emit(phase="main_bench_escalation", toi=float(bench_res.toi), unbounded_toi=float(bref.toi),
+         abs_err=berr, frame_pool_ms_median=[b_ms, b2_ms], frame_pool_ms=b_times + b2_times,
+         unbounded_ms_median=o_ms, unbounded_ms=o_times)
+
+    out = {"counts": counts, "records_counts": records_counts,
+           "records_bench_counts": records_bench_counts}
+    if time.perf_counter() - T_START < 420:
+        t = time.perf_counter()
+        grid1000 = scene_on(torch, dev, cloth_on_sphere(grid_n=1000, sphere_subdiv=4))
+        scene_s = time.perf_counter() - t
+        first, first_ms = None, 0.0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        first = run(grid1000)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t) * 1e3
+        check(not bool(first.overflowed) and 0.0 <= float(first.toi) <= 1.0,
+              "grid-1000: bad result")
+        g_ms, _ = wall_ms(lambda: run(grid1000), 1)
+        emit(phase="main_grid1000", scene="cloth_on_sphere(1000, 4)",
+             vf_boxes=grid1000[0].shape[0] + grid1000[3].shape[0], toi=float(first.toi),
+             vf_total=int(first.vf_total), ee_total=int(first.ee_total),
+             first_ms=first_ms, ms_per_frame=g_ms, scene_build_s=scene_s)
+    else:
+        emit(phase="main_grid1000", skipped="the script had run 420 s")
+    return out
 
 
 if __name__ == "__main__":

@@ -54,14 +54,23 @@ class SortedBoxes(NamedTuple):
 _MINOR_AXES = {0: (1, 2), 1: (0, 2), 2: (0, 1)}
 
 
-def sort_boxes(boxes: AABBs, axis=0) -> SortedBoxes:
+def sort_boxes(boxes: AABBs, axis=0, bucket_minor: bool = False) -> SortedBoxes:
     """Sort boxes along ``axis`` (0/1/2, or ``"auto"`` for the axis of largest
     box-center variance) and split into major/minor arrays.
 
     The key is ``major_min`` and the sort is stable, so ties keep input order
     exactly as the JAX package's ``jnp.argsort`` does (which also orders
-    ``-0.0`` and ``0.0`` as equal).  The congestion ordering
-    (``bucket_minor``) of the JAX package is not part of this port.
+    ``-0.0`` and ``0.0`` as equal).
+
+    ``bucket_minor`` is the congestion ordering (JAX ``sort_boxes``,
+    ``broad_phase/sweep.py:171-200``): the minor axis of wider center spread
+    moves into slot 0, and the key becomes ``bucket + frac``, one f32 per
+    box, where ``bucket`` quantizes ``major_min`` by 4x the mean major extent
+    and ``frac`` is the box's position along minor axis 0.  Thousands of
+    near-equal-major boxes of a congested scene then order coherently along
+    the minor axis, which makes the sweep's row skip fire.  ``major_min`` is
+    no longer sorted, so only the kernel sweeps with ``any_order`` may read
+    such boxes (:mod:`scalable_ccd_tpu_torch.ops.sweep_ap`).
     """
     if axis == "auto":
         var = torch.var(boxes.min + boxes.max, dim=0, correction=0)
@@ -76,7 +85,22 @@ def sort_boxes(boxes: AABBs, axis=0) -> SortedBoxes:
         major_max = boxes.max[:, axis]
         minor_min = boxes.min[:, [m0, m1]]
         minor_max = boxes.max[:, [m0, m1]]
-    order = torch.sort(major_min, stable=True).indices
+    key = major_min
+    if bucket_minor:
+        # the key and the row unions use minor axis 0: put the wider-spread
+        # minor there (the minor filters are symmetric in the two axes)
+        mvar = torch.var(minor_min + minor_max, dim=0, correction=0)
+        if bool(mvar[1] > mvar[0]):
+            minor_min, minor_max = minor_min.flip(1), minor_max.flip(1)
+        extent = torch.clamp(major_max - major_min, min=0.0).mean()
+        q = torch.where(extent > 0, 4.0 * extent, torch.ones_like(extent))
+        bucket = torch.floor(major_min / q)
+        m0 = minor_min[:, 0]
+        mlo = m0.min()
+        mspan = torch.clamp(m0.max() - mlo, min=1e-30)
+        frac = torch.clamp((m0 - mlo) / mspan, 0.0, 1.0 - 1e-7)
+        key = (bucket - bucket.min()) + frac
+    order = torch.sort(key, stable=True).indices
     return SortedBoxes(
         major_min=major_min[order].contiguous(),
         major_max=major_max[order].contiguous(),

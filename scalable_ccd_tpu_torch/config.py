@@ -13,7 +13,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
-__all__ = ["CCDConfig", "MemoryConfig", "DEFAULT_CONFIG", "check_supported"]
+__all__ = [
+    "CCDConfig",
+    "MemoryConfig",
+    "DEFAULT_CONFIG",
+    "check_supported",
+    "normalize_round_limits",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,9 +105,10 @@ class CCDConfig:
     #: (kernel B), so only "auto"
     solver: str = "auto"
 
-    #: staged escalation of the TPU solver: -2 (auto) and -1 run one
-    #: unbounded pass here; a limit >= 0 waits for ROADMAP item 3
-    escalate_rounds: int = -2
+    #: staged escalation of the solver's global solves: -2 (auto: 128
+    #: rounds without an iteration cap, else off), -1 (off), a round limit
+    #: >= 0, or a strictly ascending ladder of limits
+    escalate_rounds: object = -2
 
     #: read only by the JAX package's "dfs" solver; kept so that
     #: configurations carry over
@@ -117,6 +124,24 @@ class CCDConfig:
 DEFAULT_CONFIG = CCDConfig()
 
 
+def normalize_round_limits(round_limit) -> tuple:
+    """``round_limit`` as a tuple of bounded-pass limits: ``None`` or a
+    negative int -> ``()`` (one unbounded pass), an int ``>= 0`` -> one
+    bounded stage, a tuple or list -> a ladder, which must be non-negative
+    and strictly ascending (``_normalize_round_limits``, JAX
+    ``pallas_solver.py:724-742``)."""
+    if round_limit is None:
+        return ()
+    if isinstance(round_limit, (tuple, list)):
+        limits = tuple(int(r) for r in round_limit)
+        if any(r < 0 for r in limits):
+            raise ValueError(f"negative round limit in ladder {limits!r}")
+        if any(a >= b for a, b in zip(limits, limits[1:])):
+            raise ValueError(f"escalation ladder must be strictly ascending: {limits!r}")
+        return limits
+    return (int(round_limit),) if round_limit >= 0 else ()
+
+
 def check_supported(config: CCDConfig) -> None:
     """Raise ``ValueError`` for a value that picks something the port does
     not have."""
@@ -130,12 +155,7 @@ def check_supported(config: CCDConfig) -> None:
             f"precision={config.precision!r} is not ported: only 'f32' "
             "(the compensated mode is ROADMAP item 5)"
         )
-    esc = config.escalate_rounds
-    if not (isinstance(esc, int) and esc < 0):
-        raise ValueError(
-            f"escalate_rounds={esc!r} is not ported: staged escalation is "
-            "ROADMAP item 3 (use -2 or -1)"
-        )
+    normalize_round_limits(config.escalate_rounds)  # a bad ladder raises
     for name in ("solver", "broad_impl"):
         value = getattr(config, name)
         if value != "auto":

@@ -1,8 +1,8 @@
 // Kernel B: tight-inclusion root finder, one depth-first search per thread.
 //
 // Replaces: scalable_ccd_tpu/ops/pallas_solver.py, _solver_kernel (global,
-// per_query and max_iterations modes, launched by _find_roots_packed),
-// itself the TPU form of the reference's ccd_kernel
+// per_query, max_iterations and round_limit modes, launched by
+// _find_roots_packed), itself the TPU form of the reference's ccd_kernel
 // (src/scalable_ccd/cuda/narrow_phase/root_finder.cu:277-370).
 //
 // What bounds it on an H100: f32 arithmetic and divergence.  One domain
@@ -22,7 +22,7 @@
 // checks are summed and overflow or-ed per warp, then once per warp with
 // atomics.
 //
-// Modes (template PER_QUERY, runtime max_iterations):
+// Modes (template PER_QUERY, runtime max_iterations and round_limit):
 // - global (the TPU kernel's default mode): the running TOI is one device
 //   float, seeded with toi_init, read at every evaluation and lowered with
 //   atomicMin on its int bits (valid for non-negative floats; the
@@ -47,13 +47,24 @@
 //   other threads lower the shared TOI, so the result can change from run to
 //   run (as on the TPU); the plain version then counts as the JAX queue
 //   solver does, and the two agree wherever the cap does not bind.
+// - round_limit (TPU round_limit >= 0, the staged-escalation pass; global
+//   mode only): a thread stops after round_limit rounds and, if it is still
+//   mid-search, writes unfin[q] = 1 instead of accepting: it neither lowers
+//   the TOI nor sets overflow, and the caller re-solves it from scratch
+//   (ops/solver.py:solve_escalated).  Rounds are counted as the TPU kernel's
+//   while loop counts them (pallas_solver.py:392-397): one round evaluates
+//   the current domain, if any, and then unwinds at most two levels of a
+//   finished one, so a round can evaluate nothing.  In the other modes the
+//   unwind runs to the next pending sibling in one round; the result is the
+//   same, only the loop count differs.  Every thread writes its unfin byte.
 //
 // Runaway guard: a thread stops after max_steps evaluations and accepts its
 // earliest unexplored time conservatively (overflow set).  max_steps is
 // kMaxSteps (2^20) in unbounded modes; with a cap it is raised to at least
 // max_iterations + 2 * kDepth + 2, past the last evaluation a capped search
 // can make (the cap, then one dropped evaluation per pending sibling), so
-// the cap always applies before the guard.
+// the cap always applies before the guard.  With a round limit it is raised
+// past the limit (a round evaluates at most once), so the guard never fires.
 //
 // Must be compiled with -fmad=false: the unwind, the midpoints and the error
 // filter assume separately rounded multiplies and adds (no FMA contraction),
@@ -138,13 +149,15 @@ template <bool IS_VF, bool ALLOW_ZERO, bool PER_QUERY>
 __global__ void solve_kernel(const float* __restrict__ cols,
                              const unsigned char* __restrict__ valid, int Q,
                              float co_tol, long long max_iterations,
-                             long long max_steps, float* toi,
-                             float* __restrict__ pq_out,
+                             long long round_limit, long long max_steps,
+                             float* toi, float* __restrict__ pq_out,
+                             unsigned char* __restrict__ unfin_out,
                              unsigned long long* __restrict__ checks_out,
                              int* __restrict__ ovf_out) {
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
   unsigned long long checks = 0;
   int ovf = 0;
+  unsigned char unfin = 0;
   float tpq = INFINITY;  // per_query: this query's own running TOI
   if (q < Q && valid[q]) {
     float p[24];
@@ -167,8 +180,13 @@ __global__ void solve_kernel(const float* __restrict__ cols,
     bool cur = true;       // the current domain is still to be evaluated
     float pend_min = INFINITY;  // lower bound of every pending sibling
 
+    // unwind levels per round: two in round_limit mode, else all of them
+    const int levels = round_limit >= 0 ? 2 : kDepth + 1;
+    long long rounds = 0;
     // checks counts this thread's evaluations, so it is also the step count
-    while ((cur || sp > 0) && (long long)checks < max_steps) {
+    while ((cur || sp > 0) && (long long)checks < max_steps &&
+           (round_limit < 0 || rounds < round_limit)) {
+      ++rounds;
       if (cur) {
         // global: every accept lowers *toi first, so this read covers this
         // query's own accepts
@@ -243,7 +261,7 @@ __global__ void solve_kernel(const float* __restrict__ cols,
         cur = false;
       }
       // unwind finished levels until a pending sibling is entered
-      while (!cur && sp > 0) {
+      for (int lv = 0; lv < levels && !cur && sp > 0; ++lv) {
         const unsigned m = path[0] & 15u;
         const int dim = (int)(m & kDimMask);
         const bool side_hi = (m & kSideHi) != 0u;
@@ -268,7 +286,9 @@ __global__ void solve_kernel(const float* __restrict__ cols,
         }
       }
     }
-    if (cur || sp > 0) {
+    if ((cur || sp > 0) && round_limit >= 0) {
+      unfin = 1;  // out of rounds: left to the caller's re-solve
+    } else if (cur || sp > 0) {
       // runaway guard: accept the earliest unexplored time conservatively
       const float left = cur ? fminf(lo[0], pend_min) : pend_min;
       if (PER_QUERY)
@@ -282,6 +302,7 @@ __global__ void solve_kernel(const float* __restrict__ cols,
     pq_out[q] = tpq;
     if (tpq < INFINITY) atomic_min_nonneg(toi, tpq);
   }
+  if (unfin_out != nullptr && q < Q) unfin_out[q] = unfin;
   // one atomic per warp
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -297,60 +318,74 @@ __global__ void solve_kernel(const float* __restrict__ cols,
 template <bool IS_VF, bool ALLOW_ZERO, bool PER_QUERY>
 void launch(int blocks, int threads, cudaStream_t s, const float* c,
             const unsigned char* v, int Q, float co_tol, long long max_iter,
-            long long max_steps, float* t, float* pq, unsigned long long* k,
-            int* o) {
+            long long round_limit, long long max_steps, float* t, float* pq,
+            unsigned char* u, unsigned long long* k, int* o) {
   solve_kernel<IS_VF, ALLOW_ZERO, PER_QUERY><<<blocks, threads, 0, s>>>(
-      c, v, Q, co_tol, max_iter, max_steps, t, pq, k, o);
+      c, v, Q, co_tol, max_iter, round_limit, max_steps, t, pq, u, k, o);
 }
 
 template <bool IS_VF, bool ALLOW_ZERO>
 void launch_mode(int per_query, int blocks, int threads, cudaStream_t s,
                  const float* c, const unsigned char* v, int Q, float co_tol,
-                 long long max_iter, long long max_steps, float* t, float* pq,
+                 long long max_iter, long long round_limit,
+                 long long max_steps, float* t, float* pq, unsigned char* u,
                  unsigned long long* k, int* o) {
   if (per_query)
     launch<IS_VF, ALLOW_ZERO, true>(blocks, threads, s, c, v, Q, co_tol,
-                                    max_iter, max_steps, t, pq, k, o);
+                                    max_iter, round_limit, max_steps, t, pq,
+                                    u, k, o);
   else
     launch<IS_VF, ALLOW_ZERO, false>(blocks, threads, s, c, v, Q, co_tol,
-                                     max_iter, max_steps, t, pq, k, o);
+                                     max_iter, round_limit, max_steps, t, pq,
+                                     u, k, o);
 }
 
 }  // namespace
 
-// per_tq: nonzero selects per-query mode, which writes `per_query_toi`
-// (Q floats); max_iterations < 0 means unbounded.
+// per_query: nonzero selects per-query mode, which writes `per_query_toi`
+// (Q floats); max_iterations < 0 means unbounded; round_limit >= 0 (global
+// mode only, no cap) writes `unfin` (Q bytes).
 extern "C" int sccd_solve_packed(const void* cols, const void* valid, int Q,
                                  int is_vf, int allow_zero_toi, int per_query,
-                                 long long max_iterations, float co_tol,
-                                 void* toi, void* per_query_toi, void* checks,
-                                 void* overflow, void* stream) {
+                                 long long max_iterations,
+                                 long long round_limit, float co_tol,
+                                 void* toi, void* per_query_toi, void* unfin,
+                                 void* checks, void* overflow, void* stream) {
+  if (round_limit >= 0 && (per_query || max_iterations >= 0 || !unfin))
+    return (int)cudaErrorInvalidValue;
   const int threads = 128;
   const int blocks = (Q + threads - 1) / threads;
   long long max_steps = kMaxSteps;
   if (max_iterations >= 0 && max_iterations + 2 * kDepth + 2 > max_steps)
     max_steps = max_iterations + 2 * kDepth + 2;
+  if (round_limit >= 0 && round_limit + 1 > max_steps)
+    max_steps = round_limit + 1;
   auto s = (cudaStream_t)stream;
   auto c = (const float*)cols;
   auto v = (const unsigned char*)valid;
   auto t = (float*)toi;
   auto pq = (float*)per_query_toi;
+  auto u = (unsigned char*)unfin;
   auto k = (unsigned long long*)checks;
   auto o = (int*)overflow;
   if (is_vf) {
     if (allow_zero_toi)
       launch_mode<true, true>(per_query, blocks, threads, s, c, v, Q, co_tol,
-                              max_iterations, max_steps, t, pq, k, o);
+                              max_iterations, round_limit, max_steps, t, pq,
+                              u, k, o);
     else
       launch_mode<true, false>(per_query, blocks, threads, s, c, v, Q, co_tol,
-                               max_iterations, max_steps, t, pq, k, o);
+                               max_iterations, round_limit, max_steps, t, pq,
+                               u, k, o);
   } else {
     if (allow_zero_toi)
       launch_mode<false, true>(per_query, blocks, threads, s, c, v, Q, co_tol,
-                               max_iterations, max_steps, t, pq, k, o);
+                               max_iterations, round_limit, max_steps, t, pq,
+                               u, k, o);
     else
       launch_mode<false, false>(per_query, blocks, threads, s, c, v, Q, co_tol,
-                                max_iterations, max_steps, t, pq, k, o);
+                                max_iterations, round_limit, max_steps, t, pq,
+                                u, k, o);
   }
   return (int)cudaGetLastError();
 }

@@ -5,7 +5,8 @@ CCD has no weights; its state is the scene and the intermediate structures
 package, handed over as numpy arrays (``np.asarray`` of each field), into
 this port's tensors, and the port's values back into numpy, so that a
 single stage can be run on identical input in both packages, and turn a
-JAX ``CCDConfig`` into the port's (:func:`config_from_jax`).  Nothing here
+JAX ``CCDConfig`` into the port's (:func:`config_from_jax`) and JAX
+``fused_ccd`` options into the port's (:func:`fused_kwargs_from_jax`).  Nothing here
 imports jax: the JAX-side values only need to convert with ``np.asarray``.
 """
 
@@ -29,7 +30,15 @@ __all__ = [
     "from_numpy_queries",
     "to_numpy",
     "config_from_jax",
+    "fused_kwargs_from_jax",
 ]
+
+#: JAX ``sweep_impl`` values and the port's emission of the same pair set:
+#: the record layouts place the same records on the TPU
+_SWEEP_IMPL = {
+    "xla": "pairs", "pallas_ap": "pairs", "pallas_rec": "records",
+    "pallas_sparse": "records", "pallas_mxu": "records", "pallas_mxu16": "records",
+}
 
 
 class Scene(NamedTuple):
@@ -91,3 +100,24 @@ def config_from_jax(cfg):
     if cls is CCDConfig:
         kw["memory"] = config_from_jax(cfg.memory)
     return cls(**kw)
+
+
+def fused_kwargs_from_jax(**kwargs) -> dict:
+    """JAX ``fused_ccd`` options as the port's: ``escalate_rounds``,
+    ``escalate_pool`` and ``bucket_minor`` carry over as they are (``None``
+    and ``"auto"`` mean auto in both), and ``sweep_impl`` maps to
+    ``"pairs"`` (``xla``, ``pallas_ap``) or ``"records"`` (the record
+    layouts).  Options that choose between the JAX package's own
+    implementations (``solver``, ``narrow_order``, ``presample``, ...) have
+    no counterpart and raise ``ValueError``."""
+    out = {}
+    for name, value in kwargs.items():
+        if name in ("escalate_rounds", "escalate_pool", "bucket_minor"):
+            out[name] = value
+        elif name == "sweep_impl":
+            if value not in _SWEEP_IMPL:
+                raise ValueError(f"unknown JAX sweep_impl {value!r}")
+            out[name] = _SWEEP_IMPL[value]
+        else:
+            raise ValueError(f"fused_ccd option {name!r} has no counterpart in the port")
+    return out

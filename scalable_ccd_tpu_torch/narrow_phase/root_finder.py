@@ -110,22 +110,36 @@ def bisect_step(q: CCDQueries, lo, hi, tol, err, ms, co_tol, bound,
 
 
 def dfs_lockstep(q: CCDQueries, tol, err, ms, valid, co_tol, toi_init,
-                 is_vf: bool, allow_zero_toi: bool, max_iterations: int):
-    """Per-query depth-first bisection, all queries in lockstep, each
-    pruned only against its own TOI.
+                 is_vf: bool, allow_zero_toi: bool, max_iterations: int = -1,
+                 round_limit: int = -1):
+    """Depth-first bisection of every query, all queries in lockstep.
 
     Every round each query with work left pops its stack top, evaluates it
     with :func:`bisect_step`, and pushes child2 (if kept) under child1, so
     child1 is explored first and a pending sibling is entered on unwind:
-    kernel B's order, which bounded results depend on.  A query's evaluation
-    count is compared before it is incremented; past ``max_iterations``
-    (``>= 0``) a domain is dropped, never accepted.  A query that evaluates
-    N domains takes N rounds, so the plain version is meant for small caps
-    and small inputs.  Returns ``(toi, overflow, checks, per_query_toi)``
-    with ``toi = min(toi_init, per-query TOIs)``; ``per_query_toi`` is +inf
-    for invalid rows and rows without contact.
+    kernel B's order, which bounded results depend on.
+
+    Per-query mode (``round_limit < 0``): each query prunes only against its
+    own TOI.  A query's evaluation count is compared before it is
+    incremented; past ``max_iterations`` (``>= 0``) a domain is dropped,
+    never accepted.  A query that evaluates N domains takes N rounds, so the
+    plain version is meant for small caps and small inputs.  Returns
+    ``(toi, overflow, checks, per_query_toi)`` with ``toi = min(toi_init,
+    per-query TOIs)``; ``per_query_toi`` is +inf for invalid rows and rows
+    without contact.
+
+    Round-limited global mode (``round_limit >= 0``, no cap): every query
+    prunes against one TOI seeded with ``toi_init`` and lowered after each
+    round, and rounds are counted as kernel B's value-free stack takes
+    them: after a domain that does not split, the kernel unwinds one level
+    per popped parent plus one to enter the next sibling, two levels per
+    round, so a query whose next domain is ``U`` levels away spends
+    ``ceil((U - 2) / 2)`` rounds without evaluating.  The search stops after
+    ``round_limit`` rounds; returns ``(toi, overflow, checks, unfin)``,
+    ``unfin`` marking the queries still mid-search.
     """
     dev, dt = tol.device, tol.dtype
+    rounds_mode = round_limit >= 0
     n = valid.shape[0]
     depth_cap = MAX_DEPTH + 2  # one pending sibling per level, plus the top
     s_lo = torch.zeros((n, depth_cap, 3), dtype=dt, device=dev)
@@ -138,23 +152,42 @@ def dfs_lockstep(q: CCDQueries, tol, err, ms, valid, co_tol, toi_init,
     tpq = torch.full((n,), float("inf"), dtype=dt, device=dev)
     checks = torch.zeros((n,), dtype=torch.int64, device=dev)
     ovf = torch.zeros((), dtype=torch.bool, device=dev)
-    while True:
-        act = torch.nonzero(size > 0).flatten()
-        if act.numel() == 0:
-            break
+    toi = torch.as_tensor(toi_init, dtype=dt, device=dev).reshape(())
+    delay = torch.zeros((n,), dtype=torch.int64, device=dev)  # rounds of unwinding left
+    rounds = 0
+    while not (rounds_mode and rounds >= round_limit):
+        if rounds_mode:
+            if not bool(((size > 0) | (delay > 0)).any()):
+                break
+            rounds += 1
+            waiting = delay > 0
+            delay -= waiting.to(torch.int64)
+            act = torch.nonzero((size > 0) & ~waiting).flatten()
+            if act.numel() == 0:
+                continue
+        else:
+            act = torch.nonzero(size > 0).flatten()
+            if act.numel() == 0:
+                break
         top = size[act] - 1
         lo, hi = s_lo[act, top], s_hi[act, top]
         depth, cnt = s_depth[act, top], s_cnt[act, top]
         size[act] = top
         pre = checks[act]
         checks[act] = pre + 1
-        # a dropped domain is pruned: no bound lies below -inf
-        bound = torch.where(pre > max_iterations, -inf, tpq[act])
+        if rounds_mode:
+            bound = toi.expand(act.shape)
+        else:
+            # a dropped domain is pruned: no bound lies below -inf
+            bound = torch.where(pre > max_iterations, -inf, tpq[act])
         qa = CCDQueries(*[f[act] for f in q])
         st = bisect_step(qa, lo, hi, tol[act], err[act], ms[act], co_tol, bound,
                          depth, cnt, is_vf, allow_zero_toi)
         acc_t = torch.where(st.accept, lo[:, 0], inf)
-        tpq[act] = torch.minimum(tpq[act], acc_t)
+        if rounds_mode:
+            toi = torch.minimum(toi, acc_t.amin())
+        else:
+            tpq[act] = torch.minimum(tpq[act], acc_t)
         ovf |= st.overflow.any()
 
         onehot = torch.nn.functional.one_hot(st.split, 3).to(torch.bool)
@@ -171,7 +204,16 @@ def dfs_lockstep(q: CCDQueries, tol, err, ms, valid, co_tol, toi_init,
             s_depth[rows, at] = c_depth[keep]
             s_cnt[rows, at] = c_cnt[keep]
             size[rows] = at + 1
-    toi = torch.as_tensor(toi_init, dtype=dt, device=dev).reshape(())
+        if rounds_mode:
+            # unwind distance from a finished domain to the next sibling on
+            # the stack (or to the root when there is none)
+            left = size[act]
+            nxt = s_depth[act, (left - 1).clamp(min=0)].to(torch.int64)
+            d = depth.to(torch.int64)
+            unwind = torch.where(left > 0, d - nxt + 1, d)
+            delay[act] = torch.where(st.do_split, 0, (unwind - 1).clamp(min=0) // 2)
+    if rounds_mode:
+        return toi, ovf, checks.sum(), (size > 0) | (delay > 0)
     if n:
         toi = torch.minimum(toi, tpq.amin())
     return toi, ovf, checks.sum(), tpq

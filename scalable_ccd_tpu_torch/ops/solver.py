@@ -2,18 +2,28 @@
 
 Replaces the JAX package's per-query depth-first solver kernel
 (``scalable_ccd_tpu/ops/pallas_solver.py:_solver_kernel``, launched by
-``_find_roots_packed``) in its global, ``per_query`` and ``max_iterations``
-modes.  Both versions here solve packed query rows (:func:`pack_query_rows`)
-for the earliest time of impact with the acceptance, cull and cap rules of
+``_find_roots_packed``) in its global, ``per_query``, ``max_iterations``
+and ``round_limit`` modes.  Both versions here solve packed query rows
+(:func:`pack_query_rows`) for the earliest time of impact with the
+acceptance, cull and cap rules of
 :mod:`scalable_ccd_tpu_torch.narrow_phase.root_finder`:
 
 - global: pruned against one running TOI seeded with ``toi_init``;
 - per-query: each query prunes only against its own TOI, which starts at
   +inf, and the call also returns every query's exact TOI;
 - bounded (``max_iterations >= 0``): a domain past a query's check cap is
-  dropped, never accepted; combinable with either of the above.
+  dropped, never accepted; combinable with either of the above;
+- ``round_limit >= 0`` (global mode only): each query stops after that many
+  rounds of its search and, if still mid-search, is reported in an
+  ``unfin`` plane instead of being accepted.
 
-The JAX kernel's ``round_limit`` mode (staged escalation) is not ported.
+:func:`solve_escalated` is the staged escalation built on the last mode
+(JAX ``_normalize_round_limits`` and ``_escalate_ladder``,
+``pallas_solver.py:724-811``): one bounded pass, then the unfinished rows,
+pooled in their original order, solved again from scratch and pruned by the
+first pass's TOI, stage by stage of a ladder of limits, the last stage
+unbounded.  Its TOI is the unbounded TOI bitwise unless a conservative
+accept fired (``overflow``).
 
 :func:`solve_packed` runs the CUDA kernel on CUDA tensors and the plain
 version on CPU tensors; any other device raises.  Nothing falls back.
@@ -25,6 +35,7 @@ import ctypes
 
 import torch
 
+from scalable_ccd_tpu_torch.config import normalize_round_limits
 from scalable_ccd_tpu_torch.narrow_phase.root_finder import bisect_step, dfs_lockstep
 from scalable_ccd_tpu_torch.narrow_phase.types import (
     CCDQueries,
@@ -37,17 +48,25 @@ __all__ = [
     "pack_query_rows",
     "solve_packed",
     "solve_packed_reference",
+    "solve_escalated",
+    "normalize_round_limits",
     "LAUNCHES",
     "LAUNCHES_BY_MODE",
+    "POOL_BLOCK",
     "ROW_WIDTH",
 ]
 
 #: kernel launches made by :func:`solve_packed` in this process
 LAUNCHES = 0
 
-#: the same launches by mode: "global" (neither per-query nor bounded),
-#: "per_query" and "bounded"; a per-query bounded launch counts in both
-LAUNCHES_BY_MODE = {"global": 0, "per_query": 0, "bounded": 0}
+#: the same launches by mode: "global" (neither per-query, bounded nor
+#: round-limited), "per_query", "bounded" and "round_limit"; a per-query
+#: bounded launch counts in both
+LAUNCHES_BY_MODE = {"global": 0, "per_query": 0, "bounded": 0, "round_limit": 0}
+
+#: rows per pool block of the escalation glue (the JAX package's solver
+#: block, ``SOLVER_BLOCK_SUB * 128``)
+POOL_BLOCK = 2048
 
 #: floats per packed query row: 8 endpoints, tol (3), err (3), ms
 ROW_WIDTH = 31
@@ -83,9 +102,9 @@ def _bind(lib):
     fn = lib.sccd_solve_packed
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     lib.sccd_solver_error_string.argtypes = [ctypes.c_int]
@@ -93,9 +112,17 @@ def _bind(lib):
     return fn
 
 
+def _check_round_limit(round_limit, per_query, max_iterations):
+    if round_limit >= 0 and (per_query or max_iterations >= 0):
+        raise ValueError(
+            "round_limit is a global-mode option: it takes neither per_query "
+            "nor max_iterations (pallas_solver.py:145-150)"
+        )
+
+
 def solve_packed(qrows, valid, is_vf: bool, toi_init, tolerance,
                  allow_zero_toi: bool = True, per_query: bool = False,
-                 max_iterations: int = -1):
+                 max_iterations: int = -1, round_limit: int = -1):
     """Earliest TOI of the valid rows of ``qrows``.
 
     ``qrows`` is ``(Q, 31)`` f32 (:func:`pack_query_rows`), ``valid`` a
@@ -111,13 +138,21 @@ def solve_packed(qrows, valid, is_vf: bool, toi_init, tolerance,
     and rows without contact); ``toi`` is then ``min(toi_init, min of
     them)``.  ``max_iterations >= 0`` drops a query's domains once its
     evaluation count, taken before the increment, exceeds the cap.
+
+    ``round_limit >= 0`` (global mode; with ``per_query`` or a cap it
+    raises) stops each query after that many rounds of its search, counted
+    as the JAX kernel counts them (one round evaluates the current domain,
+    if any, and unwinds at most two levels), and appends a fourth output,
+    the ``(Q,)`` bool ``unfin`` plane of the queries still mid-search; those
+    neither lower the TOI nor set ``overflow``.
     """
     global LAUNCHES
     dev = qrows.device
+    _check_round_limit(round_limit, per_query, max_iterations)
     if dev.type == "cpu":
         return solve_packed_reference(
             qrows, valid, is_vf, toi_init, tolerance, allow_zero_toi,
-            per_query, max_iterations,
+            per_query, max_iterations, round_limit,
         )
     if dev.type != "cuda":
         raise ValueError(f"solve_packed: unsupported device {dev}")
@@ -142,6 +177,7 @@ def solve_packed(qrows, valid, is_vf: bool, toi_init, tolerance,
     checks = torch.zeros((1,), dtype=torch.int64, device=dev)
     ovf = torch.zeros((1,), dtype=torch.int32, device=dev)
     pq = torch.full((Q,), float("inf"), dtype=torch.float32, device=dev) if per_query else None
+    unfin = torch.zeros((Q,), dtype=torch.bool, device=dev) if round_limit >= 0 else None
     if Q > 0:
         lib = load_library("solver")
         fn = _bind(lib)
@@ -149,9 +185,11 @@ def solve_packed(qrows, valid, is_vf: bool, toi_init, tolerance,
             rc = fn(
                 cols.data_ptr(), valid.data_ptr(), Q, int(bool(is_vf)),
                 int(bool(allow_zero_toi)), int(bool(per_query)),
-                int(max_iterations), float(tolerance), toi.data_ptr(),
-                pq.data_ptr() if per_query else None, checks.data_ptr(),
-                ovf.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+                int(max_iterations), int(round_limit), float(tolerance),
+                toi.data_ptr(), pq.data_ptr() if per_query else None,
+                unfin.data_ptr() if unfin is not None else None,
+                checks.data_ptr(), ovf.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream,
             )
         if rc != 0:
             msg = lib.sccd_solver_error_string(rc).decode()
@@ -161,22 +199,28 @@ def solve_packed(qrows, valid, is_vf: bool, toi_init, tolerance,
             LAUNCHES_BY_MODE["per_query"] += 1
         if max_iterations >= 0:
             LAUNCHES_BY_MODE["bounded"] += 1
-        if not per_query and max_iterations < 0:
+        if round_limit >= 0:
+            LAUNCHES_BY_MODE["round_limit"] += 1
+        elif not per_query and max_iterations < 0:
             LAUNCHES_BY_MODE["global"] += 1
     out = (toi[0], ovf[0] != 0, checks[0])
-    return out + (pq,) if per_query else out
+    if per_query:
+        return out + (pq,)
+    return out + (unfin,) if unfin is not None else out
 
 
 def solve_packed_reference(qrows, valid, is_vf: bool, toi_init, tolerance,
                            allow_zero_toi: bool = True, per_query: bool = False,
-                           max_iterations: int = -1):
+                           max_iterations: int = -1, round_limit: int = -1):
     """Plain PyTorch twin of kernel B, on any device; same outputs as
     :func:`solve_packed`.
 
-    Per-query bounded calls (``per_query`` and ``max_iterations >= 0``) run
-    the lockstep depth-first search :func:`scalable_ccd_tpu_torch.
-    narrow_phase.root_finder.dfs_lockstep`, whose exploration order is the
-    kernel's, so their per-query TOIs equal the kernel's.  Every other call
+    Per-query bounded calls (``per_query`` and ``max_iterations >= 0``) and
+    round-limited calls run the lockstep depth-first search
+    :func:`scalable_ccd_tpu_torch.narrow_phase.root_finder.dfs_lockstep`,
+    whose exploration order and round count are the kernel's, so their
+    per-query TOIs, and the ``unfin`` planes of a run whose shared TOI no
+    thread lowers, equal the kernel's.  Every other call
     runs a vectorised frontier bisection in the manner of the JAX package's
     queue solver (``narrow_phase/bfs.py``): a stack of domains, each
     carrying its query id, depth and per-dimension split counts; every round
@@ -196,10 +240,11 @@ def solve_packed_reference(qrows, valid, is_vf: bool, toi_init, tolerance,
     dt = torch.float32
     co_tol = torch.as_tensor(tolerance, dtype=dt, device=dev)
     valid = valid.to(torch.bool)
-    if per_query and max_iterations >= 0:
+    _check_round_limit(round_limit, per_query, max_iterations)
+    if (per_query and max_iterations >= 0) or round_limit >= 0:
         q, tol, err, ms = _unpack(qrows)
         return dfs_lockstep(q, tol, err, ms, valid, co_tol, toi_init, is_vf,
-                            allow_zero_toi, max_iterations)
+                            allow_zero_toi, max_iterations, round_limit)
     toi = torch.as_tensor(toi_init, dtype=dt, device=dev).reshape(()).clone()
     n_rows = qrows.shape[0]
     tpq = torch.full((n_rows,), float("inf"), dtype=dt, device=dev)
@@ -259,3 +304,37 @@ def solve_packed_reference(qrows, valid, is_vf: bool, toi_init, tolerance,
     if n_rows:
         toi = torch.minimum(toi, tpq.amin())
     return toi, ovf, checks, tpq
+
+
+def solve_escalated(qrows, valid, is_vf: bool, toi_init, tolerance,
+                    allow_zero_toi: bool = True, round_limit=-1):
+    """Global solve with staged escalation; returns ``(toi, overflow,
+    checks)`` as :func:`solve_packed` does, ``checks`` counting every pass.
+
+    ``round_limit`` is an int or a ladder (:func:`normalize_round_limits`);
+    without a limit this is one unbounded :func:`solve_packed` call.  With
+    one, the first pass stops at ``limits[0]`` rounds, and the host reads
+    how many rows are unfinished (JAX ``_escalate_ladder``, where a
+    ``lax.cond`` picks the branch on the device): none, and the pass is the
+    answer; up to four pool blocks, and they are pooled in their original
+    order and solved by the rest of the ladder; more, and they are solved
+    in one unbounded pass.  Every later pass starts from the first pass's
+    TOI and solves its rows from scratch."""
+    limits = normalize_round_limits(round_limit)
+    if not limits:
+        return solve_packed(qrows, valid, is_vf, toi_init, tolerance, allow_zero_toi)
+    toi1, ovf1, checks1, unfin = solve_packed(
+        qrows, valid, is_vf, toi_init, tolerance, allow_zero_toi,
+        round_limit=limits[0],
+    )
+    count = int(unfin.sum())
+    if count == 0:
+        return toi1, ovf1, checks1
+    Q = qrows.shape[0]
+    pool_cap = min(4 * POOL_BLOCK, -(-Q // POOL_BLOCK) * POOL_BLOCK)
+    rows = qrows[torch.nonzero(unfin).flatten()]
+    ones = torch.ones((count,), dtype=torch.bool, device=qrows.device)
+    rest = limits[1:] if count <= pool_cap else ()
+    toi2, ovf2, checks2 = solve_escalated(rows, ones, is_vf, toi1, tolerance,
+                                          allow_zero_toi, rest)
+    return toi2, ovf1 | ovf2, checks1 + checks2

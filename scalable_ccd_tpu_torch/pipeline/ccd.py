@@ -35,7 +35,7 @@ from scalable_ccd_tpu_torch.geometry.aabb import (
 from scalable_ccd_tpu_torch.geometry.mesh import validate_mesh_inputs
 from scalable_ccd_tpu_torch.ops.sweep_ap import sweep_pairs
 from scalable_ccd_tpu_torch.pipeline.fused import (
-    _PRESAMPLE_MAX_BOXES,
+    CONGESTION_MIN_BOXES,
     IPC_BACKOFF,
     IPC_MIN_TOI,
     NarrowSolver,
@@ -43,6 +43,7 @@ from scalable_ccd_tpu_torch.pipeline.fused import (
     append_hits,
     fused_ccd,
     mesh_tensors,
+    resolve_auto_escalation,
     resolve_device,
 )
 from scalable_ccd_tpu_torch.utils.logging import logger
@@ -138,12 +139,14 @@ def _partial_ccd(
     max_b = mem.query_buckets[-1]
     n_boxes = v0.shape[0] + faces.shape[0] if is_vf else edges.shape[0]
     presample = (
-        n_boxes < _PRESAMPLE_MAX_BOXES if config.presample in ("auto", None)
+        n_boxes < CONGESTION_MIN_BOXES if config.presample in ("auto", None)
         else bool(config.presample)
     )
     per_query = config.toi_per_query or collisions is not None
+    # staged escalation of the global solves (JAX ccd.py:269)
+    round_limit = resolve_auto_escalation(config.escalate_rounds, max_iterations)
     nar = NarrowSolver.for_phase(is_vf, v0, v1, edges, faces, min_distance,
-                                 tolerance, allow_zero_toi, max_iterations)
+                                 tolerance, allow_zero_toi, max_iterations, round_limit)
 
     def solve_chunk(pairs, count, toi, exact):
         """Narrow-solve one chunk's candidates (``narrow_phase<is_vf>``,
@@ -225,13 +228,16 @@ def ccd(
     id_b, toi)`` with ``toi < 1`` (VF as (vertex, face), EE as (edge,
     edge)); the solver then runs in per-query mode.  ``stats`` collects
     counts and times.  Inputs and ``device`` are as for
-    :func:`scalable_ccd_tpu_torch.fused_ccd`; on CUDA the sweep and solver
-    are the CUDA kernels.  Values of ``config`` that the port lacks raise
-    ``ValueError`` (:func:`scalable_ccd_tpu_torch.config.check_supported`).
+    :func:`scalable_ccd_tpu_torch.fused_ccd`: CUDA unless the caller asks
+    for the CPU, and on CUDA the sweep and solver are the CUDA kernels.
+    ``config.escalate_rounds`` is the solver's staged escalation (auto: 128
+    rounds without an iteration cap).  Values of ``config`` that the port
+    lacks raise ``ValueError``
+    (:func:`scalable_ccd_tpu_torch.config.check_supported`).
     """
     check_supported(config)
     stats = stats if stats is not None else CCDStats()
-    device = resolve_device(device, vertices_t0)
+    device = resolve_device(device)
     if validate:
         validate_mesh_inputs(vertices_t0, vertices_t1, edges, faces)
     v0, v1, e, f = mesh_tensors(vertices_t0, vertices_t1, edges, faces, device, pca)

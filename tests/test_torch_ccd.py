@@ -44,6 +44,7 @@ torch.set_num_threads(2)
 
 F32 = jnp.float32
 TINY = dict(box_chunk_size=8, pair_chunk_size=64)
+CPU = dict(device="cpu")
 
 
 def _args(s):
@@ -89,11 +90,11 @@ def test_ccd_matches_jax(cloth, memory):
         jcfg = jcfg.replace(memory=JMemoryConfig(**memory))
     js, ps = JCCDStats(), CCDStats()
     ref = jax_ccd(*_args(cloth), config=jcfg, stats=js)
-    got = ccd(*_args(cloth), config=config_from_jax(jcfg), stats=ps)
+    got = ccd(*_args(cloth), config=config_from_jax(jcfg), stats=ps, **CPU)
     assert isinstance(got, float)
     assert got == pytest.approx(ref, abs=1e-7)
     assert (ps.vf_candidates, ps.ee_candidates) == (js.vf_candidates, js.ee_candidates)
-    fused = fused_ccd(*_args(cloth))
+    fused = fused_ccd(*_args(cloth), **CPU)
     assert ps.vf_candidates == int(fused.vf_total) and ps.ee_candidates == int(fused.ee_total)
     assert got == pytest.approx(float(fused.toi), abs=1e-7)
     assert ps.narrow_checks > 0 and ps.broad_time_s > 0 and ps.narrow_time_s > 0
@@ -103,8 +104,8 @@ def test_ccd_collisions_match_jax_and_fused(cloth):
     cfg = JCCDConfig(dtype="float32")
     hits_j, hits_p, hits_f = [], [], []
     ref = jax_ccd(*_args(cloth), config=cfg, collisions=hits_j)
-    got = ccd(*_args(cloth), config=config_from_jax(cfg), collisions=hits_p)
-    res = fused_ccd(*_args(cloth), collisions=hits_f)
+    got = ccd(*_args(cloth), config=config_from_jax(cfg), collisions=hits_p, **CPU)
+    res = fused_ccd(*_args(cloth), collisions=hits_f, **CPU)
     assert len(hits_j) > 0 and len(hits_p) == len(set((a, b) for a, b, _ in hits_p))
     assert sorted((a, b) for a, b, _ in hits_p) == sorted((a, b) for a, b, _ in hits_j)
     assert sorted(hits_p) == sorted(hits_f)  # one plain solver, the same per-pair TOIs
@@ -114,8 +115,9 @@ def test_ccd_collisions_match_jax_and_fused(cloth):
 
 
 def test_ccd_toi_per_query_config_keeps_the_toi(cloth):
-    base = ccd(*_args(cloth))
-    assert ccd(*_args(cloth), config=CCDConfig(toi_per_query=True)) == pytest.approx(base, abs=1e-7)
+    base = ccd(*_args(cloth), **CPU)
+    assert ccd(*_args(cloth), config=CCDConfig(toi_per_query=True),
+               **CPU) == pytest.approx(base, abs=1e-7)
 
 
 def _rig(x, z=0.01):
@@ -152,12 +154,13 @@ def test_ipc_refinement_is_per_chunk_like_jax():
     js, ps = JCCDStats(), CCDStats()
     ref = jax_ipc(v0, v1, edges, faces, min_distance=0.05, config=jcfg, stats=js)
     got = ipc_ccd_strategy(v0, v1, edges, faces, min_distance=0.05,
-                           config=config_from_jax(jcfg), stats=ps)
+                           config=config_from_jax(jcfg), stats=ps, **CPU)
     assert ps.vf_candidates > 1  # benign chunks really had candidates
     assert ps.ipc_refinements == js.ipc_refinements == 1
     assert got == pytest.approx(ref, abs=1e-7)
     assert got == pytest.approx(0.8 / 3.0, rel=1e-3)
-    assert ccd(v0, v1, edges, faces, min_distance=0.05, config=config_from_jax(jcfg)) < 1e-6
+    assert ccd(v0, v1, edges, faces, min_distance=0.05, config=config_from_jax(jcfg),
+               **CPU) < 1e-6
 
 
 def test_ipc_fused_matches_chunked_like_jax():
@@ -170,9 +173,9 @@ def test_ipc_fused_matches_chunked_like_jax():
     js = JCCDStats()
     ref = jax_ipc(v0, v1, edges, faces, min_distance=0.05, config=jcfg, stats=js)
     cs, fs = CCDStats(), CCDStats()
-    toi_c = ipc_ccd_strategy(v0, v1, edges, faces, min_distance=0.05, stats=cs)
+    toi_c = ipc_ccd_strategy(v0, v1, edges, faces, min_distance=0.05, stats=cs, **CPU)
     toi_f = ipc_ccd_strategy(v0, v1, edges, faces, min_distance=0.05, stats=fs,
-                             impl="fused", vf_budget=1 << 10, ee_budget=1 << 10)
+                             impl="fused", vf_budget=1 << 10, ee_budget=1 << 10, **CPU)
     assert cs.ipc_refinements == fs.ipc_refinements == js.ipc_refinements == 1
     assert toi_c == pytest.approx(ref, abs=1e-7)
     assert toi_f == pytest.approx(toi_c, abs=1e-7)
@@ -186,8 +189,8 @@ def test_ipc_strategy_on_a_cloth_matches_jax(cloth):
     jcfg = JCCDConfig(dtype="float32")
     ref = jax_ipc(*_args(cloth), min_distance=1e-3, config=jcfg)
     cs, fs = CCDStats(), CCDStats()
-    toi_c = ipc_ccd_strategy(*_args(cloth), min_distance=1e-3, stats=cs)
-    toi_f = ipc_ccd_strategy(*_args(cloth), min_distance=1e-3, stats=fs, impl="fused")
+    toi_c = ipc_ccd_strategy(*_args(cloth), min_distance=1e-3, stats=cs, **CPU)
+    toi_f = ipc_ccd_strategy(*_args(cloth), min_distance=1e-3, stats=fs, impl="fused", **CPU)
     assert cs.ipc_refinements == fs.ipc_refinements == 0
     assert toi_c == pytest.approx(ref, abs=1e-7)
     assert toi_f == pytest.approx(ref, abs=1e-7)
@@ -200,10 +203,10 @@ def test_ipc_fused_falls_back_to_chunked_on_overflow(cloth, monkeypatch):
     calls = []
     monkeypatch.setattr(port_ccd, "ccd", lambda *a, **k: calls.append(k) or 0.5)
     got = ipc_ccd_strategy(*_args(cloth), min_distance=1e-3, impl="fused",
-                           vf_budget=16, ee_budget=16)
+                           vf_budget=16, ee_budget=16, **CPU)
     assert got == 0.5 and len(calls) == 1 and calls[0]["ipc_refine"]
     with pytest.raises(ValueError, match="impl"):
-        ipc_ccd_strategy(*_args(cloth), impl="bogus")
+        ipc_ccd_strategy(*_args(cloth), impl="bogus", **CPU)
 
 
 def test_profiler_scopes_of_ccd(cloth):
@@ -213,11 +216,11 @@ def test_profiler_scopes_of_ccd(cloth):
 
     prof = profiler()
     prof.clear()
-    ccd(*_args(cloth))
+    ccd(*_args(cloth), **CPU)
     assert prof.data() == {}
     prof.enable()
     try:
-        ccd(*_args(cloth))
+        ccd(*_args(cloth), **CPU)
         tree = prof.data()["ccd"]
     finally:
         prof.disable()
@@ -249,13 +252,13 @@ def test_config_from_jax_round_trip():
 @pytest.mark.parametrize("bad, item", [
     (dict(dtype="float64"), "item 5"),
     (dict(precision="compensated"), "item 5"),
-    (dict(escalate_rounds=128), "item 3"),
-    (dict(escalate_rounds=(32, 128)), "item 3"),
+    (dict(escalate_rounds=(128, 32)), "ascending"),
+    (dict(escalate_rounds=(-1, 32)), "negative"),
     (dict(solver="bfs"), "JAX package"),
     (dict(broad_impl="pallas"), "JAX package"),
 ])
 def test_unported_config_values_raise(cloth, bad, item):
     with pytest.raises(ValueError, match=item):
-        ccd(*_args(cloth), config=CCDConfig(**bad))
+        ccd(*_args(cloth), config=CCDConfig(**bad), **CPU)
     with pytest.raises(ValueError, match=item):
-        ipc_ccd_strategy(*_args(cloth), config=CCDConfig(**bad), impl="fused")
+        ipc_ccd_strategy(*_args(cloth), config=CCDConfig(**bad), impl="fused", **CPU)

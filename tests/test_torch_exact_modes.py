@@ -45,6 +45,7 @@ torch.set_num_threads(2)
 
 TOL = 1e-6
 F32 = jnp.float32
+CPU = dict(device="cpu")
 
 
 def _cloth():
@@ -237,7 +238,7 @@ def test_fused_collisions_match_jax():
     s = jscenes.cloth_on_sphere(grid_n=10, sphere_subdiv=1, drop=0.6)
     hits_j, hits_p = [], []
     ref = _jax(s, collisions=hits_j)
-    res = fused_ccd(*_args(s), collisions=hits_p)
+    res = fused_ccd(*_args(s), collisions=hits_p, **CPU)
     assert len(hits_j) > 0
     assert sorted((a, b) for a, b, _ in hits_p) == sorted((a, b) for a, b, _ in hits_j)
     assert float(res.toi) == pytest.approx(float(ref.toi), abs=1e-7)
@@ -250,10 +251,10 @@ def test_fused_min_distance_and_cap_match_jax():
     s = _cloth()
     kw = dict(min_distance=1e-3, max_iterations=1_000_000)
     ref = _jax(s, **kw)
-    res = fused_ccd(*_args(s), **kw)
+    res = fused_ccd(*_args(s), **kw, **CPU)
     assert float(res.toi) == pytest.approx(float(ref.toi), abs=1e-7)
     assert int(res.vf_total) == int(ref.vf_total) and int(res.ee_total) == int(ref.ee_total)
-    assert float(res.toi) <= float(fused_ccd(*_args(s)).toi)
+    assert float(res.toi) <= float(fused_ccd(*_args(s), **CPU).toi)
 
 
 def test_fused_collisions_with_a_cap_match_jax():
@@ -262,7 +263,7 @@ def test_fused_collisions_with_a_cap_match_jax():
     op by op, module docstring), VF hits before EE."""
     s = jscenes.cloth_on_sphere(grid_n=10, sphere_subdiv=1, drop=0.6)
     hits = []
-    res = fused_ccd(*_args(s), max_iterations=100, collisions=hits)
+    res = fused_ccd(*_args(s), max_iterations=100, collisions=hits, **CPU)
     v0 = jnp.asarray(s.vertices_t0, F32)
     v1 = jnp.asarray(s.vertices_t1, F32)
     want = []
@@ -312,7 +313,7 @@ def test_fused_ipc_refine_matches_jax():
     kw = dict(min_distance=0.05, max_iterations=1_000_000, ipc_refine=True)
     ref = jax_fused_ccd(v0, v1, edges, faces, solver="bfs", dtype=F32,
                         vf_budget=1 << 14, ee_budget=1 << 14, **kw)
-    res = fused_ccd(v0, v1, edges, faces, **kw)
+    res = fused_ccd(v0, v1, edges, faces, **kw, **CPU)
     assert int(res.ipc_refinements) >= 1
     assert float(res.toi) == pytest.approx(float(ref.toi), abs=1e-7)
     assert 0.0 < float(res.toi) < 0.8
@@ -341,12 +342,12 @@ def test_fused_ipc_refine_is_independent_of_pair_row_order(monkeypatch):
     edges = jmesh.edges_from_faces(faces)
     monkeypatch.setattr(port_fused, "_NARROW_BATCH", 4)
     real = port_fused.sweep_pairs
-    kw = dict(min_distance=0.05, ipc_refine=True, vf_budget=64, ee_budget=256)
+    kw = dict(min_distance=0.05, ipc_refine=True, vf_budget=64, ee_budget=256, **CPU)
     base = fused_ccd(v0, v1, edges, faces, **kw)
     assert int(base.vf_total) > 8 and int(base.ipc_refinements) >= 1
     for seed in range(2):
-        def shuffled(sb, two, budget, seed=seed):
-            pairs, n, n_true, ovf = real(sb, two, budget)
+        def shuffled(sb, two, budget, seed=seed, **sweep_kw):
+            pairs, n, n_true, ovf = real(sb, two, budget, **sweep_kw)
             k = int(n)
             perm = torch.from_numpy(np.random.default_rng(seed).permutation(k))
             pairs = pairs.clone()
@@ -361,7 +362,7 @@ def test_fused_ipc_refine_is_independent_of_pair_row_order(monkeypatch):
 def test_fused_collisions_with_ipc_refine_raise():
     s = _cloth()
     with pytest.raises(ValueError, match="ipc_refine"):
-        fused_ccd(*_args(s), collisions=[], ipc_refine=True)
+        fused_ccd(*_args(s), collisions=[], ipc_refine=True, **CPU)
 
 
 def test_pca_rotation_matches_jax_and_keeps_the_toi():
@@ -371,7 +372,7 @@ def test_pca_rotation_matches_jax_and_keeps_the_toi():
     for row, row_j in zip(r.numpy(), rj):
         assert np.allclose(row, row_j, atol=1e-9) or np.allclose(row, -row_j, atol=1e-9)
     assert float(torch.linalg.det(r)) == pytest.approx(1.0, abs=1e-12)
-    base = fused_ccd(*_args(s))
-    rot = fused_ccd(*_args(s), pca=True)
+    base = fused_ccd(*_args(s), **CPU)
+    rot = fused_ccd(*_args(s), pca=True, **CPU)
     assert float(rot.toi) == pytest.approx(float(base.toi), abs=1e-6)
-    assert float(ccd(*_args(s), pca=True)) == pytest.approx(float(base.toi), abs=1e-6)
+    assert float(ccd(*_args(s), pca=True, **CPU)) == pytest.approx(float(base.toi), abs=1e-6)

@@ -29,6 +29,7 @@ from scalable_ccd_tpu_torch.pipeline import fused as port_fused
 
 torch.set_num_threads(2)
 
+CPU = dict(device="cpu")
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 
 SCENES = {
@@ -53,15 +54,15 @@ def _assert_same(res, ref):
 def test_fused_matches_jax(name):
     s = SCENES[name]()
     ref = jax_fused_ccd(*_args(s), dtype=jnp.float32)
-    res = fused_ccd(*_args(s), device="cpu")
+    res = fused_ccd(*_args(s), **CPU)
     _assert_same(res, ref)
     assert 0.0 <= float(res.toi) <= 1.0 and int(res.total_checks) > 0
 
 
 def test_fused_tensor_inputs_match_numpy_inputs():
     s = SCENES["cloth12"]()
-    res = fused_ccd(*from_numpy_scene(s))
-    ref = fused_ccd(*_args(s))
+    res = fused_ccd(*from_numpy_scene(s), **CPU)
+    ref = fused_ccd(*_args(s), **CPU)
     for a, b in zip(res, ref):
         assert torch.equal(a, b)
     assert res.toi.device.type == "cpu"
@@ -79,7 +80,7 @@ def test_fused_golden_toi(name):
     v1, _ = jmesh.read_ply(os.path.join(base, "frames", "f1.ply"))
     res = fused_ccd(
         v0, v1, jmesh.edges_from_faces(f), f, tolerance=golden["tolerance"],
-        allow_zero_toi=golden["allow_zero_toi"],
+        allow_zero_toi=golden["allow_zero_toi"], **CPU,
     )
     assert not bool(res.overflowed)
     assert float(res.toi) <= golden["toi"] * (1 + 1e-4) + 1e-7
@@ -98,26 +99,26 @@ def test_auto_budget_retry_from_exact_totals(monkeypatch):
     real = port_fused.sweep_pairs
     monkeypatch.setattr(
         port_fused, "sweep_pairs",
-        lambda sb, two, budget: calls.append(budget) or real(sb, two, budget),
+        lambda sb, two, budget, **kw: calls.append(budget) or real(sb, two, budget, **kw),
     )
     s = SCENES["cloth12"]()
-    res = fused_ccd(*_args(s))
+    res = fused_ccd(*_args(s), **CPU)
     ref = jax_fused_ccd(*_args(s), dtype=jnp.float32)
     _assert_same(res, ref)
     vf, ee = int(ref.vf_total), int(ref.ee_total)
     pow2 = lambda n: 1 << (n - 1).bit_length()  # noqa: E731
     assert calls == [1, pow2(vf), 1, pow2(ee)]
-    assert port_fused._AUTO_BUDGET_MEMO == {(1, 1): (pow2(vf), pow2(ee))}
+    assert port_fused._AUTO_BUDGET_MEMO == {(1, 1, "pairs"): (pow2(vf), pow2(ee))}
     # the next frame of the same size class starts at the grown budgets
     calls.clear()
-    _assert_same(fused_ccd(*_args(s)), ref)
+    _assert_same(fused_ccd(*_args(s), **CPU), ref)
     assert calls == [pow2(vf), pow2(ee)]
 
 
 def test_explicit_budget_overflow_is_reported():
     s = SCENES["soup"]()
     ref = jax_fused_ccd(*_args(s), dtype=jnp.float32)
-    res = fused_ccd(*_args(s), vf_budget=8, ee_budget=1 << 16)
+    res = fused_ccd(*_args(s), vf_budget=8, ee_budget=1 << 16, **CPU)
     assert bool(res.overflowed)
     assert int(res.vf_total) == int(ref.vf_total) > 8
     assert int(res.ee_total) == int(ref.ee_total)
@@ -142,7 +143,7 @@ def test_port_never_imports_jax():
 def test_cpu_calls_launch_no_kernel(monkeypatch):
     monkeypatch.setattr(sweep_ap, "LAUNCHES", 0)
     monkeypatch.setattr(solver, "LAUNCHES", 0)
-    fused_ccd(*_args(SCENES["cloth12"]()), device="cpu")
+    fused_ccd(*_args(SCENES["cloth12"]()), **CPU)
     assert (sweep_ap.LAUNCHES, solver.LAUNCHES) == (0, 0)
 
 
@@ -151,3 +152,18 @@ def test_cuda_device_without_cuda_raises():
         pytest.skip("this machine has CUDA; the check is for machines without it")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         fused_ccd(*_args(SCENES["cloth12"]()), device="cuda")
+
+
+def test_entry_points_default_to_cuda():
+    """With no ``device`` the entry points run on CUDA whatever the inputs
+    are (numpy arrays or CPU tensors); without CUDA they raise, naming it."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the check is for machines without it")
+    s = SCENES["cloth12"]()
+    for args in (_args(s), tuple(from_numpy_scene(s))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fused_ccd(*args)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            scalable_ccd_tpu_torch.ccd(*args)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            scalable_ccd_tpu_torch.ipc_ccd_strategy(*args, min_distance=1e-3)

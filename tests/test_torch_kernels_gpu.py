@@ -6,6 +6,7 @@ file imports no jax, so it also runs where only PyTorch is installed:
 (``--noconftest`` skips the suite's jax setup).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -14,7 +15,7 @@ from scalable_ccd_tpu_torch.broad_phase import merge_two_lists, sort_boxes
 from scalable_ccd_tpu_torch.geometry import aabb, scenes
 from scalable_ccd_tpu_torch.interop import from_numpy_scene
 from scalable_ccd_tpu_torch.narrow_phase import types
-from scalable_ccd_tpu_torch.ops import solver, sweep_ap
+from scalable_ccd_tpu_torch.ops import solver, sweep_ap, sweep_records
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
@@ -169,17 +170,18 @@ def test_ccd_and_ipc_cuda_equal_cpu(cuda):
     s = _scene()
     args = (s.vertices_t0, s.vertices_t1, s.edges, s.faces)
     gs, cs = CCDStats(), CCDStats()
-    assert ccd(*args, device=cuda, stats=gs) == pytest.approx(ccd(*args, stats=cs), abs=1e-7)
+    assert ccd(*args, device=cuda, stats=gs) == pytest.approx(
+        ccd(*args, stats=cs, device="cpu"), abs=1e-7)
     assert (gs.vf_candidates, gs.ee_candidates) == (cs.vf_candidates, cs.ee_candidates)
     hg, hc = [], []
     ccd(*args, device=cuda, collisions=hg)
-    fused_ccd(*args, collisions=hc)
+    fused_ccd(*args, collisions=hc, device="cpu")
     assert [(a, b) for a, b, _ in sorted(hg)] == [(a, b) for a, b, _ in sorted(hc)]
     assert max(abs(x[2] - y[2]) for x, y in zip(sorted(hg), sorted(hc))) <= 1e-7
     for impl in ("chunked", "fused"):
         kw = dict(min_distance=1e-3, impl=impl)
         assert ipc_ccd_strategy(*args, device=cuda, **kw) == pytest.approx(
-            ipc_ccd_strategy(*args, **kw), abs=1e-7)
+            ipc_ccd_strategy(*args, device="cpu", **kw), abs=1e-7)
 
 
 def test_fused_cuda_equals_cpu(cuda):
@@ -201,3 +203,92 @@ def test_wrappers_reject_bad_tensors(cuda):
     with pytest.raises(ValueError):
         sweep_ap.sweep_pairs(sb._replace(minor_min=sb.minor_min.t()), False, 16)
     assert int(sweep_ap.sweep_pairs(sb, False, 16)[1]) <= 16
+
+
+def _bucket_sorted(device, two_lists):
+    s = from_numpy_scene(_scene(), device)
+    vb = aabb.build_vertex_boxes(s.vertices_t0, s.vertices_t1)
+    boxes = (merge_two_lists(vb, aabb.build_face_boxes(vb, s.faces)) if two_lists
+             else aabb.build_edge_boxes(vb, s.edges))
+    return sort_boxes(boxes, bucket_minor=True)
+
+
+@pytest.mark.parametrize("two_lists", [True, False])
+def test_sweep_kernel_any_order_equals_plain(cuda, two_lists):
+    sb = _bucket_sorted(cuda, two_lists)
+    before = sweep_ap.LAUNCHES_BY_MODE["any_order"]
+    k = sweep_ap.sweep_pairs(sb, two_lists, 1 << 16, any_order=True)
+    torch.cuda.synchronize()
+    assert sweep_ap.LAUNCHES_BY_MODE["any_order"] == before + 1
+    p = sweep_ap.sweep_pairs_reference(sb, two_lists, 1 << 16, any_order=True)
+    assert int(k[2]) == int(p[2]) > 0 and not bool(k[3])
+    assert _set(k[0], k[1]) == _set(p[0], p[1]) == _set(*sweep_ap.sweep_pairs(
+        _sorted(cuda, two_lists), two_lists, 1 << 16)[:2])
+    # the box range in this mode
+    got = set()
+    for b0 in range(0, sb.n, 53):
+        got |= _set(*sweep_ap.sweep_pairs(sb, two_lists, 1 << 14, box_range=(b0, b0 + 53),
+                                          any_order=True)[:2])
+    assert got == _set(k[0], k[1])
+
+
+def _records(rec, n):
+    r = rec[: int(n)].cpu().numpy()
+    return r[np.lexsort(r.T[::-1])]
+
+
+@pytest.mark.parametrize("any_order", [True, False])
+@pytest.mark.parametrize("two_lists", [True, False])
+def test_records_kernel_equals_plain(cuda, two_lists, any_order):
+    sb = _bucket_sorted(cuda, two_lists) if any_order else _sorted(cuda, two_lists)
+    before = sweep_records.LAUNCHES
+    k = sweep_records.sweep_records(sb, two_lists, 1 << 16, any_order=any_order)
+    torch.cuda.synchronize()
+    assert sweep_records.LAUNCHES == before + 1
+    p = sweep_records.sweep_records_reference(sb, two_lists, 1 << 16, any_order=any_order)
+    assert (int(k[1]), int(k[2])) == (int(p[1]), int(p[2])) and int(k[1]) > 0
+    assert not bool(k[3])
+    assert np.array_equal(_records(k[0], k[1]), _records(p[0], p[1]))
+    pairs = sweep_ap.sweep_pairs(sb, two_lists, 1 << 16, any_order=any_order)
+    assert int(k[2]) == int(pairs[2])
+    cum = sweep_records.records_pair_prefix(k[0], k[1])
+    dec, _ = sweep_records.decode_records_range(sb, k[0], cum, 0, int(k[2]), 0, two_lists)
+    assert _set(dec, dec.shape[0]) == _set(pairs[0], pairs[1])
+    small = sweep_records.sweep_records(sb, two_lists, 64, any_order=any_order)
+    assert bool(small[3]) and (int(small[1]), int(small[2])) == (int(p[1]), int(p[2]))
+
+
+@pytest.mark.parametrize("is_vf", [True, False])
+def test_solver_kernel_round_limit_equals_plain(cuda, is_vf):
+    """Seeded with the final TOI nothing lowers it, so each thread's search
+    is the plain lockstep DFS's: the same unfinished rows and checks.  From
+    a cold start the ladder gives the unbounded TOI bitwise."""
+    rows, valid = _rows(cuda, is_vf)
+    final, _, _ = solver.solve_packed(rows, valid, is_vf, 1.0, TOL)
+    before = solver.LAUNCHES_BY_MODE["round_limit"]
+    for limit in (0, 7, 30):
+        toi_k, ovf_k, ck_k, un_k = solver.solve_packed(rows, valid, is_vf, final, TOL,
+                                                       round_limit=limit)
+        torch.cuda.synchronize()
+        toi_p, ovf_p, ck_p, un_p = solver.solve_packed_reference(rows, valid, is_vf, final,
+                                                                 TOL, round_limit=limit)
+        assert torch.equal(un_k, un_p) and int(ck_k) == int(ck_p)
+        assert float(toi_k) == float(toi_p) == float(final)
+        assert not un_k[~valid].any()
+    assert solver.LAUNCHES_BY_MODE["round_limit"] == before + 3
+    for limits in (4, (2, 16)):
+        toi, _, _ = solver.solve_escalated(rows, valid, is_vf, 1.0, TOL, round_limit=limits)
+        assert float(toi) == float(final)
+
+
+def test_fused_congested_knobs_cuda_equal_cpu(cuda):
+    s = _scene()
+    args = (s.vertices_t0, s.vertices_t1, s.edges, s.faces)
+    for kw in (dict(bucket_minor=True, escalate_pool="batch"),
+               dict(bucket_minor=True, sweep_impl="records"),
+               dict(sweep_impl="records", escalate_rounds=(2, 8))):
+        res = fused_ccd(*args, device=cuda, **kw)
+        ref = fused_ccd(*args, device="cpu", **kw)
+        assert float(res.toi) == pytest.approx(float(ref.toi), abs=1e-7)
+        assert (int(res.vf_total), int(res.ee_total)) == (int(ref.vf_total), int(ref.ee_total))
+        assert not bool(res.overflowed)
