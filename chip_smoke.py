@@ -56,7 +56,33 @@ when it fails:
     ``bucket_minor=False, escalate_rounds=-1``, then timed in turns with
     that run and with the ordering alone (``escalate_rounds=-1``); the same with
     ``sweep_impl="records"``; the bench scene at the new defaults (frame
-    pool) against ``escalate_rounds=-1``, both timed; grid-1000 timed once.
+    pool) against ``escalate_rounds=-1``, both timed;
+12. the f64 kernels against their plain versions on the bench scene built
+    in f64: kernel A whole, ranged and ``any_order`` (equal pair sets and
+    totals, a subset of the f32 set), kernel A' (equal record multisets,
+    decoded pairs equal to kernel A's), kernel B global on f64 rows and on
+    f32 rows widened to f64 (TOI within 1e-12, expected bitwise), per-query
+    and ``max_iterations`` 10/100 on ``cloth_on_sphere(64, 3)`` (hit sets
+    equal, per-query TOIs within 1e-12), ``round_limit`` 128 seeded with the
+    final TOI (unfinished rows and checks equal); each timed in turns with
+    its plain version; and the plain f32 ``any_order`` sweep of the bench
+    scene timed beside its kernel;
+13. kernel A ``count_only``: equal to the emitting kernel's total and to the
+    plain count on the bench scene and on grid-600, whole, ranged (2^15-box
+    chunks summed) and ``any_order``, f32 and f64, timed in turns with the
+    emitting kernel (the difference is what the atomic append costs); on
+    grid-600 the f64 ``any_order`` kernel also against its plain version;
+14. the precision path: the three golden scenes through ``fused_ccd`` in
+    f32, compensated and f64 (``dense-cluster``: f32 gives 0, the other two
+    recover the golden TOI, also through ``ccd()``); ``fused_ccd(dtype=
+    float64)``, ``fused_ccd(precision="compensated")``, ``ccd()`` with an f64
+    config and ``fused_ccd(dtype=float64, collisions=[])`` on CUDA against
+    the CPU on ``cloth_on_sphere(64, 3)``, then on the bench scene with
+    zeroed launch counters (the f64 kernels must launch, the f32 solver must
+    not) and timed beside the f32 frame; grid-600 in f64 once; the stage
+    tool (``scalable_ccd_tpu_torch.tools.stages``) on the bench scene and
+    grid-600 in f32 and on the bench scene in f64, its lines printed as they
+    are; last, grid-1000 in f32 timed once.
 
 Each kernel row carries its bound: the least time the card could take,
 the larger of the bytes the call must move over 3.35 TB/s (the H100 SXM's
@@ -70,8 +96,11 @@ under ``any_order`` 7 per slot that the walk tests (the stop, both major
 directions, four minor tests) and 2 per partner-row union it reads, counted
 from this run's ``fwd_min``, row unions and run lengths.  The solver moves
 125 bytes per query row in and does about 300 f32 operations per domain
-evaluation, over 67 TFLOP/s.  No single PyTorch call computes a sweep or a
-root search, so ``library_ms`` is null.
+evaluation, over 67 TFLOP/s.  In f64 a box is 64 bytes and a query row 249,
+and the card's non-tensor f64 rate is half its f32 rate: 33.5e12 operations
+and 16.75e12 compares per second.  ``count_only`` moves no pair bytes.  No
+single PyTorch call computes a sweep or a root search, so ``library_ms`` is
+null.
 
 The last lines are the kernels' JSON record (one row per kernel and mode),
 the ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -99,10 +128,8 @@ F32_OPS_PER_S = 67e12
 #: lane instructions/s: an SM issues at most one instruction per lane per
 #: clock, half the f32 rate's count, so a compare goes at most this fast
 INSTR_PER_S = F32_OPS_PER_S / 2
-#: bytes one sorted box holds (major min/max, two minor intervals, three
-#: vertex ids, the element id), one pair row, one record, one query row
-#: with its valid byte
-BOX_BYTES, PAIR_BYTES, RECORD_BYTES, ROW_BYTES = 40, 8, 32, 31 * 4 + 1
+#: bytes of one pair row and of one record
+PAIR_BYTES, RECORD_BYTES = 8, 32
 #: compares of one candidate slot of the major sort (the stop test and four
 #: minor compares), of one slot of the any_order walk (the stop, both major
 #: directions, four minor) and of one partner-row union test; f32
@@ -234,22 +261,45 @@ def any_order_work(sb, planes, chunk=1 << 24):
     return slots, row_tests
 
 
+def scalar_bytes(t):
+    """4 or 8: the bytes of one scalar of tensor ``t``."""
+    return t.element_size()
+
+
+def rate_divisor(t):
+    """1 for f32 tensors, 2 for f64: the card's non-tensor f64 rates are
+    half its f32 rates."""
+    return scalar_bytes(t) // 4
+
+
+def box_bytes(sb):
+    """Bytes one sorted box holds: major min/max, two minor intervals, three
+    vertex ids and the element id (40 in f32, 64 in f64)."""
+    return 6 * scalar_bytes(sb.major_min) + 16
+
+
 def sweep_bound(sb_major, out_bytes):
-    return bound(sb_major.n * BOX_BYTES + out_bytes, major_slots(sb_major) * OPS_PER_SLOT,
-                 INSTR_PER_S)
+    return bound(sb_major.n * box_bytes(sb_major) + out_bytes,
+                 major_slots(sb_major) * OPS_PER_SLOT,
+                 INSTR_PER_S / rate_divisor(sb_major.major_min))
 
 
 def any_order_bound(sb, planes, work, out_bytes):
     """The bound of an ``any_order`` sweep of ``sb`` whose walk does
     ``work = any_order_work(sb, planes)``."""
     slots, row_tests = work
-    in_bytes = sb.n * (BOX_BYTES + 4) + 8 * planes.row_umin.shape[0]
+    es = scalar_bytes(sb.major_min)
+    in_bytes = sb.n * (box_bytes(sb) + es) + 2 * es * planes.row_umin.shape[0]
     return bound(in_bytes + out_bytes, slots * OPS_PER_ANY_SLOT + row_tests * OPS_PER_ROW_TEST,
-                 INSTR_PER_S)
+                 INSTR_PER_S / rate_divisor(sb.major_min))
 
 
-def solve_bound(queries, checks, out_bytes=0):
-    return bound(queries * ROW_BYTES + out_bytes, checks * OPS_PER_CHECK)
+def solve_bound(queries, checks, out_bytes=0, f64=False):
+    """The bound of solving ``queries`` packed rows (31 scalars and a valid
+    byte each) with ``checks`` domain evaluations."""
+    row_bytes = 31 * (8 if f64 else 4) + 1
+    return bound(queries * row_bytes + out_bytes, checks * OPS_PER_CHECK,
+                 F32_OPS_PER_S / (2 if f64 else 1))
 
 
 def max_abs(a, b):
@@ -468,13 +518,21 @@ def main():
     ranged = phase_box_range(torch, phases, sweep_ap)
     ipc = phase_ipc_path(torch, dev, cloth_on_sphere, sweep_ap, solver)
 
-    grid600 = scene_on(torch, dev, cloth_on_sphere(grid_n=600, sphere_subdiv=4))
+    grid600_scene = cloth_on_sphere(grid_n=600, sphere_subdiv=4)
+    grid600 = scene_on(torch, dev, grid600_scene)
     congestion = phase_congestion(torch, grid600, sweep_ap)
     records = phase_records(torch, bargs, congestion["sorted"], sweep_ap, sweep_records)
     escalation = phase_escalation(torch, dev, bench_rows, solver)
     phase_grid_solver(torch, dev, grid600, congestion["sample"], types, solver)
     congested = phase_congested_main(torch, dev, grid600, bargs, cloth_on_sphere, res)
+    congestion_row = congestion["row"]
+    del grid600, congestion
+    f64_rows = phase_f64_kernels(torch, dev, scene, mid, phases)
+    counting = phase_count_only(torch, dev, scene, grid600_scene)
+    precise = phase_precision_path(torch, dev, scene, mid, grid600_scene, res)
+    phase_grid1000(torch, dev, cloth_on_sphere)
 
+    launched = lambda run, key: precise[run].get(key, 0)  # noqa: E731
     src = "scalable_ccd_tpu_torch/csrc/"
     sweep = {"route": "cuda", "source": src + "sweep_ap.cu",
              "replaces": "scalable_ccd_tpu/ops/pallas_sweep_ap.py:291", "library_ms": None}
@@ -488,7 +546,7 @@ def main():
         {"name": "sweep_pairs[range]", **sweep, "launches": ipc["sweep_range"],
          "max_abs_err": 0.0, "ms": ranged["ms"], "plain_ms": ranged["plain_ms"], **a_bound},
         {"name": "sweep_pairs[any_order]", **sweep,
-         "launches": congested["counts"]["sweep_any_order"], **congestion["row"]},
+         "launches": congested["counts"]["sweep_any_order"], **congestion_row},
         {"name": "sweep_records[sorted]", **recs,
          "launches": congested["records_bench_counts"]["records_sorted"], **records["sorted"]},
         {"name": "sweep_records[any_order]", **recs,
@@ -501,6 +559,34 @@ def main():
          **exact["bounded"]},
         {"name": "solve_packed[round_limit]", **solve,
          "launches": congested["counts"]["solve_round_limit"], **escalation},
+        # the f64 instantiations and count_only: launches per frame of the
+        # path that uses each (phase 14's runs with zeroed counters)
+        {"name": "sweep_pairs[whole,f64]", **sweep,
+         "launches": launched("fused_f64", "sweep_whole_f64"), **f64_rows["whole"]},
+        {"name": "sweep_pairs[range,f64]", **sweep,
+         "launches": launched("ccd_f64", "sweep_range_f64"), **f64_rows["range"]},
+        {"name": "sweep_pairs[any_order,f64]", **sweep,
+         "launches": launched("grid600_f64", "sweep_any_order_f64"),
+         **counting["any_order_f64"]},
+        {"name": "sweep_pairs[count_only]", **sweep,
+         "launches": launched("stages_128_float32", "sweep_count_only"),
+         **counting["float32"]},
+        {"name": "sweep_pairs[count_only,f64]", **sweep,
+         "launches": launched("stages_128_float64", "sweep_count_only_f64"),
+         **counting["float64"]},
+        {"name": "sweep_records[sorted,f64]", **recs,
+         "launches": launched("fused_f64_records", "records_sorted_f64"),
+         **f64_rows["records"]},
+        {"name": "solve_packed[global,f64]", **solve,
+         "launches": launched("fused_f64", "solve_global_f64"), **f64_rows["global"]},
+        {"name": "solve_packed[per_query,f64]", **solve,
+         "launches": launched("fused_f64_collisions", "solve_per_query_f64"),
+         **f64_rows["per_query"]},
+        {"name": "solve_packed[bounded,f64]", **solve,
+         "launches": launched("ipc_f64", "solve_bounded_f64"), **f64_rows["bounded"]},
+        {"name": "solve_packed[round_limit,f64]", **solve,
+         "launches": launched("fused_f64_round_limit", "solve_round_limit_f64"),
+         **f64_rows["round_limit"]},
     ]}))
     emit(phase="done", wall_seconds=time.perf_counter() - T_START)
     print(f"host: {cpu_model}, {cpu_count} CPUs")
@@ -828,15 +914,18 @@ def phase_ipc_path(torch, dev, cloth_on_sphere, sweep_ap, solver):
 
 # ---- 8. congestion on grid-600 ----------------------------------------------------
 
-def scene_on(torch, dev, scene):
-    """``(v0, v1, edges, faces)`` of ``scene`` on ``dev`` (f32, int32)."""
+def scene_on(torch, dev, scene, dtype=None):
+    """``(v0, v1, edges, faces)`` of ``scene`` on ``dev`` (vertices f32 unless
+    ``dtype`` says f64, indices int32)."""
+    dtype = dtype or torch.float32
     return tuple(torch.as_tensor(a, dtype=dt, device=dev) for a, dt in (
-        (scene.vertices_t0, torch.float32), (scene.vertices_t1, torch.float32),
+        (scene.vertices_t0, dtype), (scene.vertices_t1, dtype),
         (scene.edges, torch.int32), (scene.faces, torch.int32)))
 
 
 def phase_boxes(args):
-    """``{phase: (two_lists, unsorted boxes)}`` of a scene on the card."""
+    """``{phase: (two_lists, unsorted boxes)}`` of a scene on the card, in
+    the dtype of its vertices."""
     from scalable_ccd_tpu_torch.broad_phase import merge_two_lists
     from scalable_ccd_tpu_torch.geometry import (
         build_edge_boxes,
@@ -845,7 +934,7 @@ def phase_boxes(args):
     )
 
     v0, v1, e, f = args
-    vb = build_vertex_boxes(v0, v1)
+    vb = build_vertex_boxes(v0, v1, dtype=v0.dtype)
     return {"vf": (True, merge_two_lists(vb, build_face_boxes(vb, f))),
             "ee": (False, build_edge_boxes(vb, e))}
 
@@ -1122,7 +1211,7 @@ def wall_ms(fn, reps):
 def phase_congested_main(torch, dev, grid600, bench_args, cloth_on_sphere, bench_res):
     """``fused_ccd`` at its defaults on grid-600 and on the bench scene,
     against the plain ordering without escalation, with the launch
-    counters; records on both; grid-1000 timed once."""
+    counters; records on both."""
     from scalable_ccd_tpu_torch import fused_ccd
     from scalable_ccd_tpu_torch.pipeline.fused import Knobs, resolve_knobs
 
@@ -1194,28 +1283,529 @@ def phase_congested_main(torch, dev, grid600, bench_args, cloth_on_sphere, bench
          abs_err=berr, frame_pool_ms_median=[b_ms, b2_ms], frame_pool_ms=b_times + b2_times,
          unbounded_ms_median=o_ms, unbounded_ms=o_times)
 
-    out = {"counts": counts, "records_counts": records_counts,
-           "records_bench_counts": records_bench_counts}
-    if time.perf_counter() - T_START < 420:
-        t = time.perf_counter()
-        grid1000 = scene_on(torch, dev, cloth_on_sphere(grid_n=1000, sphere_subdiv=4))
-        scene_s = time.perf_counter() - t
-        first, first_ms = None, 0.0
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        first = run(grid1000)
-        torch.cuda.synchronize()
-        first_ms = (time.perf_counter() - t) * 1e3
-        check(not bool(first.overflowed) and 0.0 <= float(first.toi) <= 1.0,
-              "grid-1000: bad result")
-        g_ms, _ = wall_ms(lambda: run(grid1000), 1)
-        emit(phase="main_grid1000", scene="cloth_on_sphere(1000, 4)",
-             vf_boxes=grid1000[0].shape[0] + grid1000[3].shape[0], toi=float(first.toi),
-             vf_total=int(first.vf_total), ee_total=int(first.ee_total),
-             first_ms=first_ms, ms_per_frame=g_ms, scene_build_s=scene_s)
+    return {"counts": counts, "records_counts": records_counts,
+            "records_bench_counts": records_bench_counts}
+
+
+def phase_grid1000(torch, dev, cloth_on_sphere):
+    """grid-1000 in f32 at the defaults, the first frame and one more timed;
+    skipped once the script has run 700 s."""
+    from scalable_ccd_tpu_torch import fused_ccd
+
+    if time.perf_counter() - T_START >= 700:
+        emit(phase="main_grid1000", skipped="the script had run 700 s")
+        return
+    t = time.perf_counter()
+    grid1000 = scene_on(torch, dev, cloth_on_sphere(grid_n=1000, sphere_subdiv=4))
+    scene_s = time.perf_counter() - t
+    run = lambda: fused_ccd(*grid1000, device=dev, validate=False)  # noqa: E731
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    first = run()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t) * 1e3
+    check(not bool(first.overflowed) and 0.0 <= float(first.toi) <= 1.0,
+          "grid-1000: bad result")
+    g_ms, _ = wall_ms(run, 1)
+    emit(phase="main_grid1000", scene="cloth_on_sphere(1000, 4)",
+         vf_boxes=grid1000[0].shape[0] + grid1000[3].shape[0], toi=float(first.toi),
+         vf_total=int(first.vf_total), ee_total=int(first.ee_total),
+         first_ms=first_ms, ms_per_frame=g_ms, scene_build_s=scene_s)
+
+
+# ---- 12. the f64 kernels --------------------------------------------------------
+
+def packed_rows(torch, args, pairs, is_vf, dtype, ms=0.0, compensated=False):
+    """Packed query rows of ``pairs`` in ``dtype`` (compensated: f32 rows
+    with the compensated filter, widened to f64)."""
+    from scalable_ccd_tpu_torch.narrow_phase import types
+    from scalable_ccd_tpu_torch.ops import solver
+
+    v0, v1, e, f = args
+    vcat = types.concat_frames(v0, v1, torch.float32 if compensated else dtype)
+    if is_vf:
+        q = types.gather_vf_queries(vcat, types.pack_face_table(vcat, f), pairs)
     else:
-        emit(phase="main_grid1000", skipped="the script had run 420 s")
+        q = types.gather_ee_queries(types.pack_edge_table(vcat, e), pairs)
+    rows = solver.pack_query_rows(q, is_vf, ms, TOL, compensated=compensated)
+    return rows.double() if compensated else rows
+
+
+def batched(torch, rows):
+    """``rows`` cut into the main path's batches, with all-true masks."""
+    batches = [rows[s:s + BATCH].contiguous() for s in range(0, rows.shape[0], BATCH)]
+    valids = [torch.ones((b.shape[0],), dtype=torch.bool, device=rows.device) for b in batches]
+    return batches, valids
+
+
+def phase_f64_kernels(torch, dev, bench_scene, mid_scene, f32_phases):
+    """Every f64 kernel mode against its plain version; returns the JSON
+    fields of their rows.  Also times the plain f32 ``any_order`` sweep of
+    the bench scene beside its kernel."""
+    from scalable_ccd_tpu_torch.broad_phase import sort_boxes
+    from scalable_ccd_tpu_torch.ops import solver, sweep_ap, sweep_records
+
+    f64 = torch.float64
+    args = scene_on(torch, dev, bench_scene, f64)
+    out = {k: [0.0, 0.0, bound(0, 0), 0.0] for k in
+           ("whole", "range", "any_order", "records", "global", "round_limit")}
+
+    def add(key, kms, pms, bnd, err=0.0):
+        row = out[key]
+        row[0], row[1], row[2], row[3] = row[0] + kms, row[1] + pms, add_bounds(row[2], bnd), \
+            max(row[3], err)
+
+    chunk = 1 << 15
+    f32_any = [0.0, 0.0]
+    cand = {}
+    for ph, (two, boxes) in phase_boxes(args).items():
+        major, bucket = sort_boxes(boxes), sort_boxes(boxes, bucket_minor=True)
+        check(major.major_min.dtype == f64, f"f64 {ph}: boxes are {major.major_min.dtype}")
+        planes = sweep_ap.partner_planes(bucket)
+        n_true = int(sweep_ap.sweep_pairs(major, two, count_only=True))
+        budget = pow2ceil(n_true)
+        k = sweep_ap.sweep_pairs(major, two, budget)
+        torch.cuda.synchronize()
+        p = sweep_ap.sweep_pairs_reference(major, two, budget)
+        check(int(k[2]) == int(p[2]) == n_true and not bool(k[3]),
+              f"f64 kernel A {ph}: totals {int(k[2])} / plain {int(p[2])} / count {n_true}")
+        keys = pair_keys(k[0], k[1])
+        check(torch.equal(keys, pair_keys(p[0], p[1])), f"f64 kernel A {ph}: pair sets differ")
+        sb32 = f32_phases[ph][1]
+        k32 = sweep_ap.sweep_pairs(sb32, two, 1 << (4 * sb32.n - 1).bit_length())
+        keys32 = pair_keys(k32[0], k32[1])
+        check(bool(torch.isin(keys, keys32).all()) and keys.numel() <= keys32.numel(),
+              f"f64 kernel A {ph}: the f64 pair set is no subset of the f32 one")
+        kms, pms = alternate(lambda: sweep_ap.sweep_pairs_reference(major, two, budget),
+                             lambda: sweep_ap.sweep_pairs(major, two, budget), 3)
+        whole_bound = sweep_bound(major, n_true * PAIR_BYTES)
+        add("whole", kms, pms, whole_bound)
+
+        ranges = [(b0, min(b0 + chunk, major.n)) for b0 in range(0, major.n, chunk)]
+        got = [pair_keys(*sweep_ap.sweep_pairs(major, two, budget, box_range=r)[:2])
+               for r in ranges]
+        check(torch.equal(torch.sort(torch.cat(got)).values, keys),
+              f"f64 kernel A {ph}: the ranged union differs")
+        rms, rpms = alternate(
+            lambda: [sweep_ap.sweep_pairs_reference(major, two, budget, box_range=r)
+                     for r in ranges],
+            lambda: [sweep_ap.sweep_pairs(major, two, budget, box_range=r) for r in ranges], 3)
+        add("range", rms, rpms, whole_bound)
+
+        ka = sweep_ap.sweep_pairs(bucket, two, budget, any_order=True, planes=planes)
+        pa = sweep_ap.sweep_pairs_reference(bucket, two, budget, any_order=True, planes=planes)
+        check(int(ka[2]) == int(pa[2]) == n_true, f"f64 any_order {ph}: totals differ")
+        check(torch.equal(pair_keys(ka[0], ka[1]), keys)
+              and torch.equal(pair_keys(pa[0], pa[1]), keys), f"f64 any_order {ph}: sets differ")
+        ams, apms = alternate(
+            lambda: sweep_ap.sweep_pairs_reference(bucket, two, budget, any_order=True,
+                                                   planes=planes),
+            lambda: sweep_ap.sweep_pairs(bucket, two, budget, any_order=True, planes=planes), 3)
+        add("any_order", ams, apms,
+            any_order_bound(bucket, planes, any_order_work(bucket, planes),
+                            n_true * PAIR_BYTES))
+
+        r = sweep_records.sweep_records(major, two, budget)
+        rp = sweep_records.sweep_records_reference(major, two, budget)
+        n_rec = int(r[1])
+        check((n_rec, int(r[2])) == (int(rp[1]), int(rp[2])) and int(r[2]) == n_true
+              and not bool(r[3]), f"f64 kernel A' {ph}: counts differ")
+        check(torch.equal(record_rows(r[0], n_rec), record_rows(rp[0], n_rec)),
+              f"f64 kernel A' {ph}: record multisets differ")
+        cum = sweep_records.records_pair_prefix(r[0], n_rec)
+        dec = sweep_records.decode_records_range(major, r[0], cum, 0, n_true, 0, two)[0]
+        check(torch.equal(pair_keys(dec, n_true), keys),
+              f"f64 kernel A' {ph}: decoded pairs differ from kernel A's")
+        qms, qpms = alternate(lambda: sweep_records.sweep_records_reference(major, two, budget),
+                              lambda: sweep_records.sweep_records(major, two, budget), 3)
+        add("records", qms, qpms, sweep_bound(major, n_rec * RECORD_BYTES))
+
+        # the f32 any_order sweep of the same scene: its plain version's time
+        b32 = sort_boxes(phase_boxes(scene_on(torch, dev, bench_scene))[ph][1],
+                         bucket_minor=True)
+        pl32 = sweep_ap.partner_planes(b32)
+        b32_budget = pow2ceil(int(sweep_ap.sweep_pairs(b32, two, any_order=True, planes=pl32,
+                                                       count_only=True)))
+        fms, fpms = alternate(
+            lambda: sweep_ap.sweep_pairs_reference(b32, two, b32_budget, any_order=True,
+                                                   planes=pl32),
+            lambda: sweep_ap.sweep_pairs(b32, two, b32_budget, any_order=True, planes=pl32), 3)
+        f32_any[0], f32_any[1] = f32_any[0] + fms, f32_any[1] + fpms
+
+        cand[ph] = p[0][:n_true]
+        emit(phase="f64_sweeps", which=ph, boxes=major.n, pairs=n_true, f32_pairs=int(k32[2]),
+             records=n_rec, equal=True, whole_ms=kms, whole_plain_ms=pms, range_ms=rms,
+             range_plain_ms=rpms, any_order_ms=ams, any_order_plain_ms=apms, records_ms=qms,
+             records_plain_ms=qpms, f32_any_order_ms=fms, f32_any_order_plain_ms=fpms)
+
+    # kernel B: global on f64 rows and on widened rows, round_limit seeded
+    limit = 128
+    for ph, pairs in cand.items():
+        is_vf = ph == "vf"
+        info = {}
+        for label, comp in (("f64", False), ("widened", True)):
+            batches, valids = batched(torch, packed_rows(torch, args, pairs, is_vf, f64,
+                                                         compensated=comp))
+
+            def run(fn, batches=batches, valids=valids, comp=comp):
+                toi = torch.ones((), dtype=f64, device=dev)
+                checks, ovf = 0, False
+                for b, v in zip(batches, valids):
+                    t, o, c = fn(b, v, is_vf, toi, TOL, widened=comp)
+                    toi, checks, ovf = torch.minimum(toi, t), checks + c, ovf | o
+                return toi, ovf, checks
+
+            tk, ok_, ck = run(solver.solve_packed)
+            torch.cuda.synchronize()
+            tp, op_, cp = run(solver.solve_packed_reference)
+            err = abs(float(tk) - float(tp))
+            check(err <= 1e-12, f"f64 kernel B {label} {ph}: toi {float(tk)} vs plain {float(tp)}")
+            check(tk.dtype == f64 and 0.0 <= float(tk) <= 1.0 and not bool(ok_) and not bool(op_),
+                  f"f64 kernel B {label} {ph}: bad toi or a conservative accept")
+            if comp:
+                check(float(tk) == float(tk.float()), f"widened {ph}: toi is no f32 value")
+            kms, pms = alternate(lambda: run(solver.solve_packed_reference),
+                                 lambda: run(solver.solve_packed), 1)
+            n_q = sum(b.shape[0] for b in batches)
+            if not comp:
+                add("global", kms, pms, solve_bound(n_q, int(ck), f64=True), err)
+                final, f64_batches, f64_valids = float(tk), batches, valids
+            info.update({label + "_toi": float(tk), label + "_bitwise": err == 0.0,
+                         label + "_checks": int(ck), label + "_plain_checks": int(cp),
+                         label + "_ms": kms, label + "_plain_ms": pms})
+
+        seed = torch.tensor(final, dtype=f64, device=dev)
+
+        def seeded(fn):
+            return [fn(b, v, is_vf, seed, TOL, round_limit=limit)
+                    for b, v in zip(f64_batches, f64_valids)]
+
+        ks, kms = timed_once(lambda: seeded(solver.solve_packed))
+        ps, pms = timed_once(lambda: seeded(solver.solve_packed_reference))
+        unfin = checks = 0
+        for i, (k, p) in enumerate(zip(ks, ps)):
+            check(torch.equal(k[3], p[3]) and int(k[2]) == int(p[2])
+                  and float(k[0]) == float(p[0]) == final,
+                  f"f64 round_limit {ph} batch {i}: kernel and plain differ")
+            unfin, checks = unfin + int(k[3].sum()), checks + int(k[2])
+        n_q = sum(b.shape[0] for b in f64_batches)
+        add("round_limit", kms, pms, solve_bound(n_q, checks, n_q, f64=True))
+        emit(phase="f64_kernel_b", which=ph, queries=n_q, **info, round_limit=limit,
+             unfinished=unfin, seeded_checks=checks, round_limit_ms=kms,
+             round_limit_plain_ms=pms)
+
+    # per-query and bounded on cloth_on_sphere(64, 3)
+    margs = scene_on(torch, dev, mid_scene, f64)
+    mrows = {}
+    for ph, (two, boxes) in phase_boxes(margs).items():
+        sb = sort_boxes(boxes)
+        pr = sweep_ap.sweep_pairs_reference(sb, two, pow2ceil(4 * sb.n))
+        mrows[ph] = batched(torch, packed_rows(torch, margs, pr[0][: int(pr[1])], two, f64))
+    modes = {}
+    for label, kw in (("per_query", dict(per_query=True)),
+                      ("cap10", dict(per_query=True, max_iterations=10)),
+                      ("cap100", dict(per_query=True, max_iterations=100))):
+        kms_sum = pms_sum = err_max = 0.0
+        bnd = bound(0, 0)
+        info = {}
+        for ph, (batches, valids) in mrows.items():
+            is_vf = ph == "vf"
+
+            def run(fn, batches=batches, valids=valids, is_vf=is_vf, kw=kw):
+                toi = torch.ones((), dtype=f64, device=dev)
+                checks, pqs = 0, []
+                for b, v in zip(batches, valids):
+                    o = fn(b, v, is_vf, toi, TOL, **kw)
+                    toi, checks = torch.minimum(toi, o[0]), checks + int(o[2])
+                    pqs.append(o[3])
+                return toi, checks, torch.cat(pqs)
+
+            tk, ck, pk = run(solver.solve_packed)
+            torch.cuda.synchronize()
+            tp, cp, pp = run(solver.solve_packed_reference)
+            check(torch.equal(pk < 1, pp < 1) and torch.equal(torch.isinf(pk), torch.isinf(pp)),
+                  f"f64 {label} {ph}: hit sets differ")
+            fin = torch.isfinite(pp)
+            err = max(abs(float(tk) - float(tp)), max_abs(pk[fin], pp[fin]))
+            check(err <= 1e-12 and pk.dtype == f64, f"f64 {label} {ph}: differ by {err}")
+            kms, pms = alternate(lambda: run(solver.solve_packed_reference),
+                                 lambda: run(solver.solve_packed), 1)
+            n_q = pk.shape[0]
+            kms_sum, pms_sum, err_max = kms_sum + kms, pms_sum + pms, max(err_max, err)
+            bnd = add_bounds(bnd, solve_bound(n_q, ck, 8 * n_q, f64=True))
+            info.update({ph + "_hits": int((pk < 1).sum()), ph + "_checks": ck,
+                         ph + "_bitwise": bool(torch.equal(pk, pp)), ph + "_queries": n_q})
+        modes[label] = {"max_abs_err": err_max, "ms": kms_sum, "plain_ms": pms_sum, **bnd}
+        emit(phase="f64_kernel_b_mode", mode=label, **modes[label], **info)
+    caps = [modes["cap10"], modes["cap100"]]
+    rows = {k: {"max_abs_err": v[3], "ms": v[0], "plain_ms": v[1], **v[2]}
+            for k, v in out.items()}
+    rows["per_query"] = modes["per_query"]
+    rows["bounded"] = {"max_abs_err": max(c["max_abs_err"] for c in caps),
+                       "ms": sum(c["ms"] for c in caps),
+                       "plain_ms": sum(c["plain_ms"] for c in caps),
+                       **add_bounds(caps[0], caps[1])}
+    rows["f32_any_order_bench"] = {"ms": f32_any[0], "plain_ms": f32_any[1]}
+    emit(phase="f32_any_order_bench", ms=f32_any[0], plain_ms=f32_any[1])
+    return rows
+
+
+# ---- 13. kernel A count_only ------------------------------------------------------
+
+def phase_count_only(torch, dev, bench_scene, grid600_scene):
+    """``count_only`` against the emitting kernel and the plain count, on
+    the bench scene and grid-600, whole, ranged and ``any_order``, f32 and
+    f64.  Returns the JSON fields of the two ``count_only`` rows and of the
+    f64 ``any_order`` row on grid-600."""
+    from scalable_ccd_tpu_torch.broad_phase import sort_boxes
+    from scalable_ccd_tpu_torch.ops import sweep_ap
+
+    chunk = 1 << 15
+    rows = {"float32": [0.0, 0.0, bound(0, 0)], "float64": [0.0, 0.0, bound(0, 0)]}
+    any64 = [0.0, 0.0, bound(0, 0)]
+    for scene_name, scene in (("bench", bench_scene), ("grid600", grid600_scene)):
+        for dtype in (torch.float32, torch.float64):
+            name = str(dtype).removeprefix("torch.")
+            for ph, (two, boxes) in phase_boxes(scene_on(torch, dev, scene, dtype)).items():
+                major, bucket = sort_boxes(boxes), sort_boxes(boxes, bucket_minor=True)
+                planes = sweep_ap.partner_planes(bucket)
+                ranges = [(b0, min(b0 + chunk, major.n)) for b0 in range(0, major.n, chunk)]
+                launch = lambda sb, **kw: sweep_ap.sweep_pairs(  # noqa: E731
+                    sb, two, count_only=True, **kw)
+                count = lambda sb, **kw: int(launch(sb, **kw))  # noqa: E731
+                plain = lambda sb, **kw: int(  # noqa: E731
+                    sweep_ap.sweep_pairs_reference(sb, two, count_only=True, **kw))
+                whole = count(major)
+                emitted = sweep_ap.sweep_pairs(major, two, 64)
+                ranged = sum(count(major, box_range=r) for r in ranges)
+                anyo = count(bucket, any_order=True, planes=planes)
+                budget = pow2ceil(whole)
+                emitted_any = sweep_ap.sweep_pairs(bucket, two, budget, any_order=True,
+                                                   planes=planes)
+                label = f"count_only {scene_name} {name} {ph}"
+                check(whole == int(emitted[2]) == ranged == anyo == int(emitted_any[2]) > 64,
+                      f"{label}: whole {whole}, emitting {int(emitted[2])}, ranged {ranged}, "
+                      f"any_order {anyo}, emitting any_order {int(emitted_any[2])}")
+                p_whole, plain_ms = timed_once(lambda: plain(major))
+                p_any, plain_any_ms = timed_once(
+                    lambda: plain(bucket, any_order=True, planes=planes))
+                p_ranged = sum(plain(major, box_range=r) for r in ranges)
+                check(p_whole == p_ranged == p_any == whole,
+                      f"{label}: plain counts {p_whole}/{p_ranged}/{p_any} vs {whole}")
+                # in turns: emitting, count_only, count_only, emitting; the
+                # timed calls read nothing back, like the emitting ones
+                c_ms, e_ms = alternate(lambda: sweep_ap.sweep_pairs(major, two, budget),
+                                       lambda: launch(major), 3)
+                ca_ms, ea_ms = alternate(
+                    lambda: sweep_ap.sweep_pairs(bucket, two, budget, any_order=True,
+                                                 planes=planes),
+                    lambda: launch(bucket, any_order=True, planes=planes), 3)
+                cr_ms, er_ms = alternate(
+                    lambda: [sweep_ap.sweep_pairs(major, two, budget, box_range=r)
+                             for r in ranges],
+                    lambda: [launch(major, box_range=r) for r in ranges], 3)
+                congested = scene_name == "grid600"
+                if not congested:
+                    # the rows: the bench scene, which the stage tool sweeps
+                    # in the major sort
+                    row = rows[name]
+                    row[0], row[1], row[2] = row[0] + c_ms, row[1] + plain_ms, \
+                        add_bounds(row[2], sweep_bound(major, 8))
+                extra = {}
+                if congested and dtype == torch.float64:
+                    pa, pa_ms = timed_once(lambda: sweep_ap.sweep_pairs_reference(
+                        bucket, two, budget, any_order=True, planes=planes))
+                    check(torch.equal(pair_keys(pa[0], pa[1]),
+                                      pair_keys(emitted_any[0], emitted_any[1])),
+                          f"{label}: f64 any_order kernel and plain pair sets differ")
+                    any64[0], any64[1] = any64[0] + ea_ms, any64[1] + pa_ms
+                    any64[2] = add_bounds(any64[2], any_order_bound(
+                        bucket, planes, any_order_work(bucket, planes), whole * PAIR_BYTES))
+                    extra = {"any_order_plain_emitting_ms": pa_ms}
+                emit(phase="count_only", scene=scene_name, dtype=name, which=ph, boxes=major.n,
+                     pairs=whole, chunks=len(ranges), equal=True,
+                     count_only_ms=c_ms, emitting_ms=e_ms,
+                     append_share=1 - c_ms / e_ms,
+                     any_order_count_only_ms=ca_ms, any_order_emitting_ms=ea_ms,
+                     any_order_append_share=1 - ca_ms / ea_ms,
+                     ranged_count_only_ms=cr_ms, ranged_emitting_ms=er_ms,
+                     plain_count_ms=plain_ms, plain_any_order_count_ms=plain_any_ms, **extra)
+    out = {k: {"max_abs_err": 0.0, "ms": r[0], "plain_ms": r[1], **r[2]}
+           for k, r in rows.items()}
+    out["any_order_f64"] = {"max_abs_err": 0.0, "ms": any64[0], "plain_ms": any64[1], **any64[2]}
     return out
+
+
+# ---- 14. the precision path ---------------------------------------------------------
+
+def phase_precision_path(torch, dev, bench_scene, mid_scene, grid600_scene, f32_res):
+    """The golden scenes, CUDA against CPU, the bench scene and grid-600 in
+    f64 and compensated, and the stage tool.  Returns the launch counts of
+    the frames that prove the f64 kernels' launches."""
+    from scalable_ccd_tpu_torch import CCDConfig, ccd, fused_ccd, ipc_ccd_strategy
+    from scalable_ccd_tpu_torch.geometry import edges_from_faces, read_ply
+    from scalable_ccd_tpu_torch.tools import stages
+
+    f64 = torch.float64
+    modes = {"float32": {}, "compensated": {"precision": "compensated"},
+             "float64": {"dtype": f64}}
+    configs = {"compensated": CCDConfig(precision="compensated"),
+               "float64": CCDConfig(dtype="float64")}
+
+    # the golden scenes (tests/test_golden_data.py:293-333)
+    for scene in ("cloth-sphere-16", "soup-60", "dense-cluster"):
+        gdir = os.path.join(REPO, "tests", "golden", scene)
+        with open(os.path.join(gdir, "toi.json")) as fh:
+            g = json.load(fh)
+        g0, gf = read_ply(os.path.join(gdir, "frames", "f0.ply"))
+        g1, _ = read_ply(os.path.join(gdir, "frames", "f1.ply"))
+        gargs = (g0, g1, edges_from_faces(gf), gf)
+        tois = {}
+        for mode, kw in modes.items():
+            r = fused_ccd(*gargs, device=dev, tolerance=g["tolerance"],
+                          min_distance=g["min_distance"], allow_zero_toi=g["allow_zero_toi"],
+                          **kw)
+            t = tois[mode] = float(r.toi)
+            check(not bool(r.overflowed), f"golden {scene} {mode}: overflowed")
+            check(t <= g["toi"] * (1 + 1e-4) + 1e-7,
+                  f"golden {scene} {mode}: toi {t} later than {g['toi']}")
+            if scene == "dense-cluster" and mode == "float32":
+                check(t == 0.0, f"golden {scene}: f32 toi {t}, expected the collapse to 0")
+            else:
+                check(abs(t - g["toi"]) <= 1e-6 + 2e-2 * g["toi"],
+                      f"golden {scene} {mode}: toi {t} not within 2% of {g['toi']}")
+            if scene == "dense-cluster" and mode != "float32":
+                tc = ccd(*gargs, device=dev, tolerance=g["tolerance"], config=configs[mode])
+                for v, via in ((t, "fused_ccd"), (tc, "ccd")):
+                    check(0.0 < v <= g["toi"] * (1 + 1e-4) + 1e-9
+                          and abs(v - g["toi"]) <= 2e-2 * g["toi"],
+                          f"golden {scene} {mode} {via}: toi {v} vs {g['toi']}")
+                tois[mode + "_ccd"] = tc
+        emit(phase="precision_golden", scene=scene, golden_toi=g["toi"], **tois)
+
+    # CUDA against the CPU on cloth_on_sphere(64, 3)
+    margs = (mid_scene.vertices_t0, mid_scene.vertices_t1, mid_scene.edges, mid_scene.faces)
+    errs = {}
+    for label, kw in (("fused_f64", {"dtype": f64}), ("fused_compensated", modes["compensated"])):
+        rg, rc = fused_ccd(*margs, device=dev, **kw), fused_ccd(*margs, device="cpu", **kw)
+        errs[label] = abs(float(rg.toi) - float(rc.toi))
+        check(errs[label] <= 1e-7 and (int(rg.vf_total), int(rg.ee_total))
+              == (int(rc.vf_total), int(rc.ee_total)) and not bool(rg.overflowed),
+              f"grid-64 {label}: cuda {float(rg.toi)} vs cpu {float(rc.toi)}")
+    tg = ccd(*margs, device=dev, config=configs["float64"])
+    tc = ccd(*margs, device="cpu", config=configs["float64"])
+    errs["ccd_f64"] = abs(tg - tc)
+    check(errs["ccd_f64"] <= 1e-7, f"grid-64 ccd f64: cuda {tg} vs cpu {tc}")
+    hg, hc = [], []
+    fused_ccd(*margs, device=dev, dtype=f64, collisions=hg)
+    fused_ccd(*margs, device="cpu", dtype=f64, collisions=hc)
+    errs["collisions_f64"] = same_hits(hg, hc, "grid-64 f64 collisions cuda vs cpu")
+    emit(phase="precision_grid64", hits=len(hg), ccd_toi=tg, **errs)
+
+    # the bench scene: launch counters, then timings beside the f32 frame
+    bargs = scene_on(torch, dev, bench_scene, f64)
+    cfg64 = configs["float64"]
+    runs = {
+        "fused_f64": lambda: fused_ccd(*bargs, device=dev, validate=False, dtype=f64),
+        "fused_compensated": lambda: fused_ccd(*bargs, device=dev, validate=False,
+                                               precision="compensated"),
+        "ccd_f64": lambda: ccd(*bargs, device=dev, validate=False, config=cfg64),
+        "fused_f64_collisions": lambda: fused_ccd(*bargs, device=dev, validate=False,
+                                                  dtype=f64, collisions=[]),
+        "fused_f64_records": lambda: fused_ccd(*bargs, device=dev, validate=False, dtype=f64,
+                                               sweep_impl="records"),
+        "fused_f64_round_limit": lambda: fused_ccd(*bargs, device=dev, validate=False,
+                                                   dtype=f64, escalate_rounds=128),
+        "ipc_f64": lambda: ipc_ccd_strategy(*bargs, device=dev, validate=False,
+                                            min_distance=1e-3, config=cfg64),
+    }
+    counts, results = {}, {}
+    for label, fn in runs.items():
+        zero_counts()
+        results[label] = fn()
+        torch.cuda.synchronize()
+        counts[label] = {k: v for k, v in read_counts().items() if v}
+    f64_only = ("fused_f64", "ccd_f64", "fused_f64_collisions", "fused_f64_records",
+                "fused_f64_round_limit", "ipc_f64")
+    for label in f64_only:
+        c = counts[label]
+        check(c.get("solve_f64", 0) > 0 and c.get("solve_f32", 0) == 0
+              and c.get("sweep_f32", 0) == 0 and c.get("records_f32", 0) == 0,
+              f"{label}: the f64 path launched {c}")
+    c = counts["fused_compensated"]
+    check(c.get("solve_f64", 0) > 0 and c.get("solve_f32", 0) == 0 and c.get("sweep_f32", 0) > 0
+          and c.get("sweep_f64", 0) == 0, f"fused_compensated launched {c}")
+    for label, key in (("fused_f64", "sweep_whole_f64"), ("fused_f64", "solve_global_f64"),
+                       ("ccd_f64", "sweep_range_f64"),
+                       ("fused_f64_collisions", "solve_per_query_f64"),
+                       ("fused_f64_records", "records_sorted_f64"),
+                       ("fused_f64_round_limit", "solve_round_limit_f64"),
+                       ("ipc_f64", "solve_bounded_f64")):
+        check(counts[label].get(key, 0) > 0, f"{label} launched no {key}: {counts[label]}")
+    r64, rcomp = results["fused_f64"], results["fused_compensated"]
+    t32 = float(f32_res.toi)
+    for label, r in (("fused_f64", r64), ("fused_compensated", rcomp),
+                     ("fused_f64_records", results["fused_f64_records"]),
+                     ("fused_f64_round_limit", results["fused_f64_round_limit"])):
+        check(not bool(r.overflowed) and 0.0 <= float(r.toi) <= 1.0
+              and float(r.toi) >= t32 - 1e-6,
+              f"bench {label}: toi {float(r.toi)} (f32 {t32}), overflowed {bool(r.overflowed)}")
+    check(r64.toi.dtype == f64 and rcomp.toi.dtype == torch.float32, "bench: wrong toi dtypes")
+    for label in ("fused_f64_records", "fused_f64_round_limit"):
+        check(float(results[label].toi) == float(r64.toi), f"bench {label}: toi differs")
+    check(abs(results["ccd_f64"] - float(r64.toi)) <= 1e-7,
+          f"bench ccd f64 {results['ccd_f64']} vs fused {float(r64.toi)}")
+    check((int(r64.vf_total), int(r64.ee_total)) <= (int(f32_res.vf_total), int(f32_res.ee_total)),
+          "bench f64: more candidates than f32")
+    b32 = scene_on(torch, dev, bench_scene)
+    timings = {"fused_f32": wall_ms(lambda: fused_ccd(*b32, device=dev, validate=False), 5)}
+    for label in ("fused_f64", "fused_compensated", "ccd_f64", "fused_f64_collisions"):
+        timings[label] = wall_ms(runs[label], 5)
+    timings["fused_f32_again"] = wall_ms(lambda: fused_ccd(*b32, device=dev, validate=False), 5)
+    emit(phase="precision_bench", scene="cloth_on_sphere(128, 4, drop=0.25)", f32_toi=t32,
+         f64_toi=float(r64.toi), compensated_toi=float(rcomp.toi), ccd_f64_toi=results["ccd_f64"],
+         ipc_f64_toi=results["ipc_f64"], f64_vf_total=int(r64.vf_total),
+         f64_ee_total=int(r64.ee_total), f64_checks=int(r64.total_checks),
+         compensated_checks=int(rcomp.total_checks), f32_checks=int(f32_res.total_checks),
+         launches=counts, **{k + "_ms_median": v[0] for k, v in timings.items()},
+         **{k + "_ms": v[1] for k, v in timings.items()})
+
+    # grid-600 in f64, once
+    g64 = scene_on(torch, dev, grid600_scene, f64)
+    zero_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rg = fused_ccd(*g64, device=dev, validate=False, dtype=f64)
+    torch.cuda.synchronize()
+    g_first_ms = (time.perf_counter() - t) * 1e3
+    counts["grid600_f64"] = {k: v for k, v in read_counts().items() if v}
+    check(counts["grid600_f64"].get("sweep_any_order_f64", 0) > 0
+          and counts["grid600_f64"].get("solve_f32", 0) == 0,
+          f"grid-600 f64 launched {counts['grid600_f64']}")
+    check(not bool(rg.overflowed) and 0.0 <= float(rg.toi) <= 1.0, "grid-600 f64: bad result")
+    g_ms, _ = wall_ms(lambda: fused_ccd(*g64, device=dev, validate=False, dtype=f64), 1)
+    emit(phase="precision_grid600", scene="cloth_on_sphere(600, 4)", toi=float(rg.toi),
+         vf_total=int(rg.vf_total), ee_total=int(rg.ee_total),
+         total_checks=int(rg.total_checks), first_ms=g_first_ms, ms_per_frame=g_ms,
+         launches=counts["grid600_f64"])
+
+    # the stage tool, its lines as they are
+    for grid, subdiv, drop, dtype in ((128, 4, 0.25, "float32"), (600, 4, 0.25, "float32"),
+                                      (128, 4, 0.25, "float64")):
+        zero_counts()
+        lines = stages.run_stages(grid, subdiv, drop, dtype=dtype, device=dev)
+        torch.cuda.synchronize()
+        counts[f"stages_{grid}_{dtype}"] = {k: v for k, v in read_counts().items() if v}
+        frame = lines[-1]
+        check(frame["stage"] == "fused_ccd" and not frame["overflowed"]
+              and all(o["pairs"] == frame[o["phase"] + "_total"] for o in lines
+                      if o["stage"].startswith("sweep")),
+              f"stage tool {grid} {dtype}: totals differ from the frame's")
+    key = "sweep_count_only"
+    check(counts["stages_128_float32"].get(key, 0) > 0
+          and counts["stages_128_float64"].get(key + "_f64", 0) > 0,
+          "the stage tool launched no count_only kernel")
+    return counts
 
 
 if __name__ == "__main__":

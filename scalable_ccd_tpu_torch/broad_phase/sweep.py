@@ -65,8 +65,9 @@ def sort_boxes(boxes: AABBs, axis=0, bucket_minor: bool = False) -> SortedBoxes:
     ``bucket_minor`` is the congestion ordering (JAX ``sort_boxes``,
     ``broad_phase/sweep.py:171-200``): the minor axis of wider center spread
     moves into slot 0, and the key becomes ``bucket + frac``, one f32 per
-    box, where ``bucket`` quantizes ``major_min`` by 4x the mean major extent
-    and ``frac`` is the box's position along minor axis 0.  Thousands of
+    box whatever the box dtype, where ``bucket`` quantizes ``major_min`` by
+    4x the mean major extent and ``frac`` is the box's position along minor
+    axis 0.  Thousands of
     near-equal-major boxes of a congested scene then order coherently along
     the minor axis, which makes the sweep's row skip fire.  ``major_min`` is
     no longer sorted, so only the kernel sweeps with ``any_order`` may read
@@ -99,7 +100,7 @@ def sort_boxes(boxes: AABBs, axis=0, bucket_minor: bool = False) -> SortedBoxes:
         mlo = m0.min()
         mspan = torch.clamp(m0.max() - mlo, min=1e-30)
         frac = torch.clamp((m0 - mlo) / mspan, 0.0, 1.0 - 1e-7)
-        key = (bucket - bucket.min()) + frac
+        key = ((bucket - bucket.min()) + frac).to(torch.float32)
     order = torch.sort(key, stable=True).indices
     return SortedBoxes(
         major_min=major_min[order].contiguous(),

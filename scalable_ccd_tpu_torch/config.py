@@ -5,7 +5,7 @@ dataclasses with the same field names and defaults, so a configuration can
 be handed to both packages (``interop.config_from_jax``).  Fields that pick
 something this port does not have are kept for that reason and rejected by
 :func:`check_supported`, which :func:`scalable_ccd_tpu_torch.ccd` calls on
-entry; the error names the ROADMAP item the feature waits for.
+entry.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ __all__ = [
     "CCDConfig",
     "MemoryConfig",
     "DEFAULT_CONFIG",
+    "check_precision",
     "check_supported",
     "normalize_round_limits",
 ]
@@ -74,10 +75,14 @@ class CCDConfig:
     fields of the same names are carried for the JAX configuration's sake.
     """
 
-    #: working precision; only "float32" is ported (f64 is ROADMAP item 5)
+    #: working precision of boxes, queries, tolerances, filter and TOI:
+    #: "float32" or "float64" (the kernels are instantiated for both)
     dtype: str = "float32"
 
-    #: inclusion-function precision: "f32"; "compensated" waits for item 5
+    #: inclusion-function precision: "f32" (the working dtype) or
+    #: "compensated": f32 inputs, the JAX package's compensated error filter,
+    #: and the inclusion function evaluated in native f64 in place of its
+    #: double-word f32; the TOI stays f32
     precision: str = "f32"
 
     #: co-domain tolerance of the root finder
@@ -117,6 +122,12 @@ class CCDConfig:
     #: chunking policy
     memory: MemoryConfig = dataclasses.field(default_factory=MemoryConfig)
 
+    @property
+    def torch_dtype(self):
+        import torch
+
+        return {"float32": torch.float32, "float64": torch.float64}[self.dtype]
+
     def replace(self, **kw) -> "CCDConfig":
         return dataclasses.replace(self, **kw)
 
@@ -142,19 +153,30 @@ def normalize_round_limits(round_limit) -> tuple:
     return (int(round_limit),) if round_limit >= 0 else ()
 
 
+def check_precision(precision: str, f64: bool) -> None:
+    """Raise ``ValueError`` unless ``precision`` is ``"f32"`` or
+    ``"compensated"``; the latter widens f32 inputs, so it raises with the
+    f64 working dtype (``f64``)."""
+    if precision not in ("f32", "compensated"):
+        raise ValueError(
+            f"unknown precision {precision!r}: 'f32' or 'compensated' "
+            "(f32 inputs with the inclusion function in native f64, the "
+            "counterpart of the reference's Scalar=double default; for f64 "
+            "throughout pass dtype float64)"
+        )
+    if precision == "compensated" and f64:
+        raise ValueError(
+            "precision='compensated' evaluates f32 inputs in f64; with "
+            "dtype float64 the working precision is f64 already"
+        )
+
+
 def check_supported(config: CCDConfig) -> None:
     """Raise ``ValueError`` for a value that picks something the port does
     not have."""
-    if config.dtype != "float32":
-        raise ValueError(
-            f"dtype={config.dtype!r} is not ported: only float32 "
-            "(f64 is ROADMAP item 5)"
-        )
-    if config.precision != "f32":
-        raise ValueError(
-            f"precision={config.precision!r} is not ported: only 'f32' "
-            "(the compensated mode is ROADMAP item 5)"
-        )
+    if config.dtype not in ("float32", "float64"):
+        raise ValueError(f"unknown dtype {config.dtype!r}: 'float32' or 'float64'")
+    check_precision(config.precision, config.dtype == "float64")
     normalize_round_limits(config.escalate_rounds)  # a bad ladder raises
     for name in ("solver", "broad_impl"):
         value = getattr(config, name)

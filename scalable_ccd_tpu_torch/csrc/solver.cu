@@ -66,30 +66,54 @@
 // the cap always applies before the guard.  With a round limit it is raised
 // past the limit (a round evaluates at most once), so the guard never fires.
 //
-// Must be compiled with -fmad=false: the unwind, the midpoints and the error
-// filter assume separately rounded multiplies and adds (no FMA contraction),
-// exactly as the plain twin computes them (ops/solver.py).
+// Scalar type (template T): the rows are float or double.  In double the
+// running TOI is lowered with atomicMin on its long long bits (valid for
+// non-negative doubles), the stack has 128 levels (sixteen 32-bit words:
+// with a 2^-53 error filter a search ends on its tolerances, ~20 splits in
+// each of the three dimensions at a co-domain tolerance of 1e-6, and runs
+// deeper than float's), and 31 doubles of query data take 62 registers.
+// The per-dimension split cap is an argument: 24 for float rows (bounds
+// exact in a 24-bit mantissa), 52 for double rows, and 24 for double rows
+// widened from float ones (the compensated precision of ops/solver.py: every
+// bound, and so the TOI, stays exact in float).
+//
+// The VF cull limit 1 / (1 - eps) on u + v is an argument too: float's for
+// float rows and for widened rows, as the JAX package's compensated mode
+// keeps it, double's for double rows.
+//
+// Must be compiled with -fmad=false (it holds for DFMA as for FFMA): the
+// unwind, the midpoints and the error filter assume separately rounded
+// multiplies and adds (no FMA contraction), exactly as the plain twin
+// computes them (ops/solver.py).
 //
 // Plain C interface, bound with ctypes (ops/solver.py).
 
 #include <cuda_runtime.h>
-#include <cfloat>
 #include <cmath>
 #include <cstdint>
 
 namespace {
 
-constexpr int kDepth = 64;        // stack levels (4-bit nibbles)
-constexpr int kPathWords = kDepth / 8;
-constexpr unsigned kDimCap = 24;  // splits per dimension (dyadic exactness)
+// stack levels (4-bit nibbles, eight per 32-bit word)
+template <typename T> struct Scalar;
+template <> struct Scalar<float> { static constexpr int kDepth = 64; };
+template <> struct Scalar<double> { static constexpr int kDepth = 128; };
+constexpr int kMaxDepth = 128;  // the deepest stack of any scalar type
 constexpr long long kMaxSteps = 1ll << 20;  // runaway guard per query
 constexpr unsigned kDimMask = 3u, kSideHi = 4u, kPending = 8u;
 
-__device__ __forceinline__ float sel3(const float (&a)[3], int d) {
+__device__ __forceinline__ float tmin(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ float tmax(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double tmin(double a, double b) { return fmin(a, b); }
+__device__ __forceinline__ double tmax(double a, double b) { return fmax(a, b); }
+
+template <typename T>
+__device__ __forceinline__ T sel3(const T (&a)[3], int d) {
   return d == 0 ? a[0] : (d == 1 ? a[1] : a[2]);
 }
 
-__device__ __forceinline__ void set3(float (&a)[3], int d, float v) {
+template <typename T>
+__device__ __forceinline__ void set3(T (&a)[3], int d, T v) {
   a[0] = d == 0 ? v : a[0];
   a[1] = d == 1 ? v : a[1];
   a[2] = d == 2 ? v : a[2];
@@ -99,58 +123,62 @@ __device__ __forceinline__ void atomic_min_nonneg(float* addr, float v) {
   atomicMin(reinterpret_cast<int*>(addr), __float_as_int(v));
 }
 
+__device__ __forceinline__ void atomic_min_nonneg(double* addr, double v) {
+  atomicMin(reinterpret_cast<long long*>(addr), __double_as_longlong(v));
+}
+
 // min/max of F over the 8 corners of the box, per xyz dim; the same
 // association as domain_corners (narrow_phase/types.py).
-template <bool IS_VF>
-__device__ __forceinline__ void corners_minmax(const float (&p)[24],
-                                               const float (&lo)[3],
-                                               const float (&hi)[3],
-                                               float (&cmin)[3],
-                                               float (&cmax)[3]) {
+template <typename T, bool IS_VF>
+__device__ __forceinline__ void corners_minmax(const T (&p)[24],
+                                               const T (&lo)[3],
+                                               const T (&hi)[3], T (&cmin)[3],
+                                               T (&cmax)[3]) {
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
-    cmin[d] = INFINITY;
-    cmax[d] = -INFINITY;
+    cmin[d] = (T)INFINITY;
+    cmax[d] = -(T)INFINITY;
   }
 #pragma unroll
   for (int it = 0; it < 2; ++it) {
-    const float t = it ? hi[0] : lo[0];
+    const T t = it ? hi[0] : lo[0];
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
-      const float q0 = (p[12 + d] - p[d]) * t + p[d];
-      const float q1 = (p[15 + d] - p[3 + d]) * t + p[3 + d];
-      const float q2 = (p[18 + d] - p[6 + d]) * t + p[6 + d];
-      const float q3 = (p[21 + d] - p[9 + d]) * t + p[9 + d];
+      const T q0 = (p[12 + d] - p[d]) * t + p[d];
+      const T q1 = (p[15 + d] - p[3 + d]) * t + p[3 + d];
+      const T q2 = (p[18 + d] - p[6 + d]) * t + p[6 + d];
+      const T q3 = (p[21 + d] - p[9 + d]) * t + p[9 + d];
 #pragma unroll
       for (int iu = 0; iu < 2; ++iu) {
-        const float u = iu ? hi[1] : lo[1];
+        const T u = iu ? hi[1] : lo[1];
 #pragma unroll
         for (int iv = 0; iv < 2; ++iv) {
-          const float v = iv ? hi[2] : lo[2];
-          float f;
+          const T v = iv ? hi[2] : lo[2];
+          T f;
           if (IS_VF) {
-            const float a = q2 - q1;
-            const float b = q3 - q1;
+            const T a = q2 - q1;
+            const T b = q3 - q1;
             f = q0 - a * u - b * v - q1;
           } else {
-            const float a = q1 - q0;
-            const float b = q3 - q2;
+            const T a = q1 - q0;
+            const T b = q3 - q2;
             f = (a * u + q0) - (b * v + q2);
           }
-          cmin[d] = fminf(cmin[d], f);
-          cmax[d] = fmaxf(cmax[d], f);
+          cmin[d] = tmin(cmin[d], f);
+          cmax[d] = tmax(cmax[d], f);
         }
       }
     }
   }
 }
 
-template <bool IS_VF, bool ALLOW_ZERO, bool PER_QUERY>
-__global__ void solve_kernel(const float* __restrict__ cols,
+template <typename T, bool IS_VF, bool ALLOW_ZERO, bool PER_QUERY>
+__global__ void solve_kernel(const T* __restrict__ cols,
                              const unsigned char* __restrict__ valid, int Q,
-                             float co_tol, long long max_iterations,
-                             long long round_limit, long long max_steps,
-                             float* toi, float* __restrict__ pq_out,
+                             T co_tol, T uv_limit, unsigned dim_cap,
+                             long long max_iterations, long long round_limit,
+                             long long max_steps, T* toi,
+                             T* __restrict__ pq_out,
                              unsigned char* __restrict__ unfin_out,
                              unsigned long long* __restrict__ checks_out,
                              int* __restrict__ ovf_out) {
@@ -158,27 +186,29 @@ __global__ void solve_kernel(const float* __restrict__ cols,
   unsigned long long checks = 0;
   int ovf = 0;
   unsigned char unfin = 0;
-  float tpq = INFINITY;  // per_query: this query's own running TOI
+  constexpr int kDepth = Scalar<T>::kDepth;
+  constexpr int kPathWords = kDepth / 8;
+  const T inf = (T)INFINITY;
+  T tpq = inf;  // per_query: this query's own running TOI
   if (q < Q && valid[q]) {
-    float p[24];
+    T p[24];
 #pragma unroll
     for (int k = 0; k < 24; ++k) p[k] = cols[(size_t)k * Q + q];
-    const float tol[3] = {cols[(size_t)24 * Q + q], cols[(size_t)25 * Q + q],
-                          cols[(size_t)26 * Q + q]};
-    const float err[3] = {cols[(size_t)27 * Q + q], cols[(size_t)28 * Q + q],
-                          cols[(size_t)29 * Q + q]};
-    const float ms = cols[(size_t)30 * Q + q];
-    const float uv_limit = 1.0f / (1.0f - FLT_EPSILON);
+    const T tol[3] = {cols[(size_t)24 * Q + q], cols[(size_t)25 * Q + q],
+                      cols[(size_t)26 * Q + q]};
+    const T err[3] = {cols[(size_t)27 * Q + q], cols[(size_t)28 * Q + q],
+                      cols[(size_t)29 * Q + q]};
+    const T ms = cols[(size_t)30 * Q + q];
 
-    float lo[3] = {0.f, 0.f, 0.f};
-    float hi[3] = {1.f, 1.f, 1.f};
+    T lo[3] = {T(0), T(0), T(0)};
+    T hi[3] = {T(1), T(1), T(1)};
     unsigned path[kPathWords];
 #pragma unroll
     for (int k = 0; k < kPathWords; ++k) path[k] = 0u;
     int sp = 0;
     unsigned dimcnt = 0u;  // 8-bit split counters: dims 0/1/2 at bits 0/8/16
     bool cur = true;       // the current domain is still to be evaluated
-    float pend_min = INFINITY;  // lower bound of every pending sibling
+    T pend_min = inf;  // lower bound of every pending sibling
 
     // unwind levels per round: two in round_limit mode, else all of them
     const int levels = round_limit >= 0 ? 2 : kDepth + 1;
@@ -190,59 +220,59 @@ __global__ void solve_kernel(const float* __restrict__ cols,
       if (cur) {
         // global: every accept lowers *toi first, so this read covers this
         // query's own accepts
-        const float bound = PER_QUERY ? tpq : *(volatile float*)toi;
-        const float min_t = lo[0];
+        const T bound = PER_QUERY ? tpq : *(volatile T*)toi;
+        const T min_t = lo[0];
         // bounded: the pre-increment count is compared, and a domain past
         // the cap is dropped, not accepted
         const bool pruned =
             min_t >= bound ||
             (max_iterations >= 0 && (long long)checks > max_iterations);
         ++checks;
-        float cmin[3], cmax[3];
-        corners_minmax<IS_VF>(p, lo, hi, cmin, cmax);
+        T cmin[3], cmax[3];
+        corners_minmax<T, IS_VF>(p, lo, hi, cmin, cmax);
         bool miss = false, box_in = true;
-        float true_tol = 0.f;
+        T true_tol = T(0);
 #pragma unroll
         for (int d = 0; d < 3; ++d) {
           miss = miss || (cmin[d] - ms > err[d]) || (cmax[d] + ms < -err[d]);
           box_in = box_in &&
                    !((cmin[d] + ms < -err[d]) || (cmax[d] - ms > err[d]));
-          true_tol = fmaxf(true_tol, cmax[d] - cmin[d]);
+          true_tol = tmax(true_tol, cmax[d] - cmin[d]);
         }
-        true_tol = fmaxf(true_tol, 0.f);
-        const float w0 = hi[0] - lo[0], w1 = hi[1] - lo[1], w2 = hi[2] - lo[2];
-        const bool pos_ok = ALLOW_ZERO || min_t > 0.f;
+        true_tol = tmax(true_tol, T(0));
+        const T w0 = hi[0] - lo[0], w1 = hi[1] - lo[1], w2 = hi[2] - lo[2];
+        const bool pos_ok = ALLOW_ZERO || min_t > T(0);
         const bool cond1 = w0 <= tol[0] && w1 <= tol[1] && w2 <= tol[2];
         const bool cond2 = box_in && pos_ok;
         const bool cond3 = true_tol <= co_tol && pos_ok;
         // split dim: argmax of widths / tol, first index on ties
-        const float r0 = w0 / tol[0], r1 = w1 / tol[1], r2 = w2 / tol[2];
+        const T r0 = w0 / tol[0], r1 = w1 / tol[1], r2 = w2 / tol[2];
         const bool d0 = r0 >= r1 && r0 >= r2;
         const bool d1 = !d0 && r1 >= r2;
         const int split = d0 ? 0 : (d1 ? 1 : 2);
-        const float s_lo = sel3(lo, split), s_hi = sel3(hi, split);
-        const float mid = (s_lo + s_hi) * 0.5f;
+        const T s_lo = sel3(lo, split), s_hi = sel3(hi, split);
+        const T mid = (s_lo + s_hi) * T(0.5);
         const bool degenerate = s_lo >= mid || mid >= s_hi;
 
         const bool live = !pruned && !miss;
         bool accept = live && (cond1 || cond2 || cond3 || degenerate);
         const bool want = live && !accept;
         const unsigned cnt_d = (dimcnt >> (8 * split)) & 255u;
-        const bool full = sp >= kDepth || cnt_d >= kDimCap;
+        const bool full = sp >= kDepth || cnt_d >= dim_cap;
         if (want && full) {
           ovf = 1;
           accept = true;  // conservative accept
         }
         if (accept) {
           if (PER_QUERY)
-            tpq = fminf(tpq, min_t);
+            tpq = tmin(tpq, min_t);
           else
             atomic_min_nonneg(toi, min_t);
         }
         if (want && !full) {
           bool push2;
           if (IS_VF) {
-            const float other = split == 1 ? lo[2] : lo[1];
+            const T other = split == 1 ? lo[2] : lo[1];
             push2 = split == 0 ? mid <= bound : (mid + other) <= uv_limit;
           } else {
             push2 = split != 0 || mid <= bound;
@@ -253,7 +283,7 @@ __global__ void solve_kernel(const float* __restrict__ cols,
             path[k] = (path[k] << 4) | (path[k - 1] >> 28);
           path[0] = (path[0] << 4) | meta;
           dimcnt += 1u << (8 * split);
-          if (push2) pend_min = fminf(pend_min, split == 0 ? mid : lo[0]);
+          if (push2) pend_min = tmin(pend_min, split == 0 ? mid : lo[0]);
           set3(hi, split, mid);  // descend into child1 = [s_lo, mid]
           ++sp;
           continue;
@@ -266,11 +296,11 @@ __global__ void solve_kernel(const float* __restrict__ cols,
         const int dim = (int)(m & kDimMask);
         const bool side_hi = (m & kSideHi) != 0u;
         const bool pending = (m & kPending) != 0u;
-        const float old_hi = sel3(hi, dim), old_lo = sel3(lo, dim);
+        const T old_hi = sel3(hi, dim), old_lo = sel3(lo, dim);
         if (side_hi) {
-          set3(hi, dim, 2.0f * old_hi - old_lo);
+          set3(hi, dim, T(2) * old_hi - old_lo);
         } else {
-          set3(lo, dim, 2.0f * old_lo - old_hi);
+          set3(lo, dim, T(2) * old_lo - old_hi);
         }
         if (pending && side_hi) {
           set3(lo, dim, old_hi);  // the sibling [mid, H]
@@ -290,9 +320,9 @@ __global__ void solve_kernel(const float* __restrict__ cols,
       unfin = 1;  // out of rounds: left to the caller's re-solve
     } else if (cur || sp > 0) {
       // runaway guard: accept the earliest unexplored time conservatively
-      const float left = cur ? fminf(lo[0], pend_min) : pend_min;
+      const T left = cur ? tmin(lo[0], pend_min) : pend_min;
       if (PER_QUERY)
-        tpq = fminf(tpq, left);
+        tpq = tmin(tpq, left);
       else
         atomic_min_nonneg(toi, left);
       ovf = 1;
@@ -300,7 +330,7 @@ __global__ void solve_kernel(const float* __restrict__ cols,
   }
   if (PER_QUERY && q < Q) {
     pq_out[q] = tpq;
-    if (tpq < INFINITY) atomic_min_nonneg(toi, tpq);
+    if (tpq < inf) atomic_min_nonneg(toi, tpq);
   }
   if (unfin_out != nullptr && q < Q) unfin_out[q] = unfin;
   // one atomic per warp
@@ -315,78 +345,83 @@ __global__ void solve_kernel(const float* __restrict__ cols,
   }
 }
 
-template <bool IS_VF, bool ALLOW_ZERO, bool PER_QUERY>
-void launch(int blocks, int threads, cudaStream_t s, const float* c,
-            const unsigned char* v, int Q, float co_tol, long long max_iter,
-            long long round_limit, long long max_steps, float* t, float* pq,
-            unsigned char* u, unsigned long long* k, int* o) {
-  solve_kernel<IS_VF, ALLOW_ZERO, PER_QUERY><<<blocks, threads, 0, s>>>(
-      c, v, Q, co_tol, max_iter, round_limit, max_steps, t, pq, u, k, o);
+template <typename T, bool IS_VF, bool ALLOW_ZERO, bool PER_QUERY>
+void launch(int blocks, int threads, cudaStream_t s, const void* c,
+            const void* v, int Q, double co_tol, double uv_limit, int dim_cap,
+            long long max_iter, long long round_limit, long long max_steps,
+            void* t, void* pq, void* u, void* k, void* o) {
+  solve_kernel<T, IS_VF, ALLOW_ZERO, PER_QUERY><<<blocks, threads, 0, s>>>(
+      (const T*)c, (const unsigned char*)v, Q, (T)co_tol, (T)uv_limit,
+      (unsigned)dim_cap, max_iter, round_limit, max_steps, (T*)t, (T*)pq,
+      (unsigned char*)u, (unsigned long long*)k, (int*)o);
 }
 
-template <bool IS_VF, bool ALLOW_ZERO>
-void launch_mode(int per_query, int blocks, int threads, cudaStream_t s,
-                 const float* c, const unsigned char* v, int Q, float co_tol,
-                 long long max_iter, long long round_limit,
-                 long long max_steps, float* t, float* pq, unsigned char* u,
-                 unsigned long long* k, int* o) {
-  if (per_query)
-    launch<IS_VF, ALLOW_ZERO, true>(blocks, threads, s, c, v, Q, co_tol,
-                                    max_iter, round_limit, max_steps, t, pq,
-                                    u, k, o);
-  else
-    launch<IS_VF, ALLOW_ZERO, false>(blocks, threads, s, c, v, Q, co_tol,
-                                     max_iter, round_limit, max_steps, t, pq,
-                                     u, k, o);
+template <typename T, typename... Args>
+void launch_mode(int is_vf, int allow_zero_toi, int per_query, Args... a) {
+  if (is_vf) {
+    if (allow_zero_toi) {
+      if (per_query)
+        launch<T, true, true, true>(a...);
+      else
+        launch<T, true, true, false>(a...);
+    } else {
+      if (per_query)
+        launch<T, true, false, true>(a...);
+      else
+        launch<T, true, false, false>(a...);
+    }
+  } else {
+    if (allow_zero_toi) {
+      if (per_query)
+        launch<T, false, true, true>(a...);
+      else
+        launch<T, false, true, false>(a...);
+    } else {
+      if (per_query)
+        launch<T, false, false, true>(a...);
+      else
+        launch<T, false, false, false>(a...);
+    }
+  }
 }
 
 }  // namespace
 
-// per_query: nonzero selects per-query mode, which writes `per_query_toi`
-// (Q floats); max_iterations < 0 means unbounded; round_limit >= 0 (global
-// mode only, no cap) writes `unfin` (Q bytes).
+// is_f64: cols, toi and per_query_toi are double, else float.  dim_cap: the
+// most splits of one dimension (1..255).  uv_limit: the VF cull limit on
+// u + v (exact in the scalar type).  per_query: nonzero selects
+// per-query mode, which writes `per_query_toi` (Q scalars); max_iterations
+// < 0 means unbounded; round_limit >= 0 (global mode only, no cap) writes
+// `unfin` (Q bytes).
 extern "C" int sccd_solve_packed(const void* cols, const void* valid, int Q,
                                  int is_vf, int allow_zero_toi, int per_query,
+                                 int is_f64, int dim_cap,
                                  long long max_iterations,
-                                 long long round_limit, float co_tol,
-                                 void* toi, void* per_query_toi, void* unfin,
+                                 long long round_limit, double co_tol,
+                                 double uv_limit, void* toi,
+                                 void* per_query_toi, void* unfin,
                                  void* checks, void* overflow, void* stream) {
   if (round_limit >= 0 && (per_query || max_iterations >= 0 || !unfin))
     return (int)cudaErrorInvalidValue;
+  if (dim_cap < 1 || dim_cap > 255) return (int)cudaErrorInvalidValue;
   const int threads = 128;
   const int blocks = (Q + threads - 1) / threads;
   long long max_steps = kMaxSteps;
-  if (max_iterations >= 0 && max_iterations + 2 * kDepth + 2 > max_steps)
-    max_steps = max_iterations + 2 * kDepth + 2;
+  if (max_iterations >= 0 && max_iterations + 2 * kMaxDepth + 2 > max_steps)
+    max_steps = max_iterations + 2 * kMaxDepth + 2;
   if (round_limit >= 0 && round_limit + 1 > max_steps)
     max_steps = round_limit + 1;
   auto s = (cudaStream_t)stream;
-  auto c = (const float*)cols;
-  auto v = (const unsigned char*)valid;
-  auto t = (float*)toi;
-  auto pq = (float*)per_query_toi;
-  auto u = (unsigned char*)unfin;
-  auto k = (unsigned long long*)checks;
-  auto o = (int*)overflow;
-  if (is_vf) {
-    if (allow_zero_toi)
-      launch_mode<true, true>(per_query, blocks, threads, s, c, v, Q, co_tol,
-                              max_iterations, round_limit, max_steps, t, pq,
-                              u, k, o);
-    else
-      launch_mode<true, false>(per_query, blocks, threads, s, c, v, Q, co_tol,
-                               max_iterations, round_limit, max_steps, t, pq,
-                               u, k, o);
-  } else {
-    if (allow_zero_toi)
-      launch_mode<false, true>(per_query, blocks, threads, s, c, v, Q, co_tol,
-                               max_iterations, round_limit, max_steps, t, pq,
-                               u, k, o);
-    else
-      launch_mode<false, false>(per_query, blocks, threads, s, c, v, Q, co_tol,
-                                max_iterations, round_limit, max_steps, t, pq,
-                                u, k, o);
-  }
+  if (is_f64)
+    launch_mode<double>(is_vf, allow_zero_toi, per_query, blocks, threads, s,
+                        cols, valid, Q, co_tol, uv_limit, dim_cap, max_iterations,
+                        round_limit, max_steps, toi, per_query_toi, unfin,
+                        checks, overflow);
+  else
+    launch_mode<float>(is_vf, allow_zero_toi, per_query, blocks, threads, s,
+                       cols, valid, Q, co_tol, uv_limit, dim_cap, max_iterations,
+                       round_limit, max_steps, toi, per_query_toi, unfin,
+                       checks, overflow);
   return (int)cudaGetLastError();
 }
 

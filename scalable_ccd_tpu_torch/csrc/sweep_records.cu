@@ -34,6 +34,12 @@
 // 128-aligned partner row whose minor-0 union misses the a-row's is skipped
 // whole, as in kernel A.
 //
+// Scalar type (template T): float or double planes, as in kernel A.  The
+// records hold positions and bits, no floats, so their format and decode do
+// not depend on T.  The partner chunk, the ballots and the reductions take
+// 1.7-1.8 KB of static shared memory per block in float and 2.3-2.7 KB in
+// double (ptxas), far below the 48 KB a block may take statically.
+//
 // Plain C interface, bound with ctypes (ops/sweep_records.py).
 
 #include <cuda_runtime.h>
@@ -45,19 +51,31 @@ constexpr int kRow = 128;   // boxes per a-row, threads per CTA
 constexpr int kChunk = 32;  // partners per chunk
 constexpr int kWarps = kRow / 32;
 
-template <bool ANY_ORDER>
+template <typename T> struct Vec2;
+template <> struct Vec2<float> { using type = float2; };
+template <> struct Vec2<double> { using type = double2; };
+
+__device__ __forceinline__ float tmin(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ float tmax(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double tmin(double a, double b) { return fmin(a, b); }
+__device__ __forceinline__ double tmax(double a, double b) { return fmax(a, b); }
+
+template <typename T, bool ANY_ORDER>
 __global__ void __launch_bounds__(kRow) sweep_records_kernel(
-    const float* __restrict__ major_min, const float* __restrict__ major_max,
-    const float2* __restrict__ minor_min, const float2* __restrict__ minor_max,
+    const T* __restrict__ major_min, const T* __restrict__ major_max,
+    const typename Vec2<T>::type* __restrict__ minor_min,
+    const typename Vec2<T>::type* __restrict__ minor_max,
     const int* __restrict__ vertex_ids, const int* __restrict__ element_id,
-    const float* __restrict__ fwd_min, const float* __restrict__ row_umin,
-    const float* __restrict__ row_umax, int n, int is_two_lists,
+    const T* __restrict__ fwd_min, const T* __restrict__ row_umin,
+    const T* __restrict__ row_umax, int n, int is_two_lists,
     int* __restrict__ records, long long rec_budget,
     unsigned long long* __restrict__ n_records,
     unsigned long long* __restrict__ n_pairs) {
-  __shared__ float s_reach[kWarps], s_lo0[kWarps], s_hi0[kWarps];
-  __shared__ float p_mmin[kChunk], p_mmax[kChunk];
-  __shared__ float2 p_lo[kChunk], p_hi[kChunk];
+  using V = typename Vec2<T>::type;
+  const T inf = (T)INFINITY;
+  __shared__ T s_reach[kWarps], s_lo0[kWarps], s_hi0[kWarps];
+  __shared__ T p_mmin[kChunk], p_mmax[kChunk];
+  __shared__ V p_lo[kChunk], p_hi[kChunk];
   __shared__ int p_v0[kChunk], p_v1[kChunk], p_v2[kChunk], p_eid[kChunk];
   __shared__ unsigned ballots[kWarps][kChunk];
 
@@ -66,9 +84,10 @@ __global__ void __launch_bounds__(kRow) sweep_records_kernel(
   const int lane = t & 31, warp = t >> 5;
   const int i = r * kRow + t;
   const bool live = i < n;
-  float a_reach = -INFINITY, a_start = INFINITY;
-  float2 a_lo = make_float2(INFINITY, INFINITY);
-  float2 a_hi = make_float2(-INFINITY, -INFINITY);
+  T a_reach = -inf, a_start = inf;
+  V a_lo, a_hi;
+  a_lo.x = a_lo.y = inf;
+  a_hi.x = a_hi.y = -inf;
   int a0 = 0, a1 = 0, a2 = 0, a_eid = 0;
   if (live) {
     a_reach = major_max[i];
@@ -81,12 +100,12 @@ __global__ void __launch_bounds__(kRow) sweep_records_kernel(
     a_eid = element_id[i];
   }
   // the row's reach and minor-0 union (dead lanes carry inverted bounds)
-  float reach = a_reach, lo0 = a_lo.x, hi0 = a_hi.x;
+  T reach = a_reach, lo0 = a_lo.x, hi0 = a_hi.x;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    reach = fmaxf(reach, __shfl_xor_sync(0xffffffffu, reach, off));
-    lo0 = fminf(lo0, __shfl_xor_sync(0xffffffffu, lo0, off));
-    hi0 = fmaxf(hi0, __shfl_xor_sync(0xffffffffu, hi0, off));
+    reach = tmax(reach, __shfl_xor_sync(0xffffffffu, reach, off));
+    lo0 = tmin(lo0, __shfl_xor_sync(0xffffffffu, lo0, off));
+    hi0 = tmax(hi0, __shfl_xor_sync(0xffffffffu, hi0, off));
   }
   if (lane == 0) {
     s_reach[warp] = reach;
@@ -94,9 +113,9 @@ __global__ void __launch_bounds__(kRow) sweep_records_kernel(
     s_hi0[warp] = hi0;
   }
   __syncthreads();
-  reach = fmaxf(fmaxf(s_reach[0], s_reach[1]), fmaxf(s_reach[2], s_reach[3]));
-  lo0 = fminf(fminf(s_lo0[0], s_lo0[1]), fminf(s_lo0[2], s_lo0[3]));
-  hi0 = fmaxf(fmaxf(s_hi0[0], s_hi0[1]), fmaxf(s_hi0[2], s_hi0[3]));
+  reach = tmax(tmax(s_reach[0], s_reach[1]), tmax(s_reach[2], s_reach[3]));
+  lo0 = tmin(tmin(s_lo0[0], s_lo0[1]), tmin(s_lo0[2], s_lo0[3]));
+  hi0 = tmax(tmax(s_hi0[0], s_hi0[1]), tmax(s_hi0[2], s_hi0[3]));
 
   for (int j0 = r * kRow; j0 < n; j0 += kChunk) {
     // uniform over the CTA: every thread reads the same words
@@ -120,7 +139,7 @@ __global__ void __launch_bounds__(kRow) sweep_records_kernel(
         p_v2[t] = vertex_ids[3 * j + 2];
         p_eid[t] = element_id[j];
       } else {
-        p_mmin[t] = INFINITY;  // past the end: fails the major test
+        p_mmin[t] = inf;  // past the end: fails the major test
       }
     }
     __syncthreads();
@@ -130,7 +149,7 @@ __global__ void __launch_bounds__(kRow) sweep_records_kernel(
       bool keep = live && i < j && j < n && p_mmin[u] <= a_reach;
       if (ANY_ORDER) keep = keep && a_start <= p_mmax[u];
       if (keep) {
-        const float2 b_lo = p_lo[u], b_hi = p_hi[u];
+        const V b_lo = p_lo[u], b_hi = p_hi[u];
         keep = a_lo.x <= b_hi.x && b_lo.x <= a_hi.x && a_lo.y <= b_hi.y &&
                b_lo.y <= a_hi.y;
       }
@@ -161,37 +180,56 @@ __global__ void __launch_bounds__(kRow) sweep_records_kernel(
   }
 }
 
+template <typename T>
+void launch(int any_order, int blocks, cudaStream_t s, const void* major_min,
+            const void* major_max, const void* minor_min,
+            const void* minor_max, const void* vertex_ids,
+            const void* element_id, const void* fwd_min, const void* row_umin,
+            const void* row_umax, int n, int is_two_lists, void* records,
+            long long rec_budget, void* n_records, void* n_pairs) {
+  using V = typename Vec2<T>::type;
+  if (any_order)
+    sweep_records_kernel<T, true><<<blocks, kRow, 0, s>>>(
+        (const T*)major_min, (const T*)major_max, (const V*)minor_min,
+        (const V*)minor_max, (const int*)vertex_ids, (const int*)element_id,
+        (const T*)fwd_min, (const T*)row_umin, (const T*)row_umax, n,
+        is_two_lists, (int*)records, rec_budget,
+        (unsigned long long*)n_records, (unsigned long long*)n_pairs);
+  else
+    sweep_records_kernel<T, false><<<blocks, kRow, 0, s>>>(
+        (const T*)major_min, (const T*)major_max, (const V*)minor_min,
+        (const V*)minor_max, (const int*)vertex_ids, (const int*)element_id,
+        nullptr, nullptr, nullptr, n, is_two_lists, (int*)records, rec_budget,
+        (unsigned long long*)n_records, (unsigned long long*)n_pairs);
+}
+
 }  // namespace
 
-// fwd_min/row_umin/row_umax are read only with any_order (may be null
-// otherwise).  records: (rec_budget, 8) int32, 16-byte aligned.
+// is_f64: the float planes are double (minor planes 16-byte aligned), else
+// float.  fwd_min/row_umin/row_umax are read only with any_order (may be
+// null otherwise).  records: (rec_budget, 8) int32, 16-byte aligned.
 extern "C" int sccd_sweep_records(const void* major_min, const void* major_max,
                                   const void* minor_min, const void* minor_max,
                                   const void* vertex_ids,
                                   const void* element_id, const void* fwd_min,
                                   const void* row_umin, const void* row_umax,
                                   int n, int is_two_lists, int any_order,
-                                  void* records, long long rec_budget,
-                                  void* n_records, void* n_pairs,
-                                  void* stream) {
+                                  int is_f64, void* records,
+                                  long long rec_budget, void* n_records,
+                                  void* n_pairs, void* stream) {
   if (n <= 0) return 0;
   const int blocks = (n + kRow - 1) / kRow;
   auto s = (cudaStream_t)stream;
-  if (any_order)
-    sweep_records_kernel<true><<<blocks, kRow, 0, s>>>(
-        (const float*)major_min, (const float*)major_max,
-        (const float2*)minor_min, (const float2*)minor_max,
-        (const int*)vertex_ids, (const int*)element_id, (const float*)fwd_min,
-        (const float*)row_umin, (const float*)row_umax, n, is_two_lists,
-        (int*)records, rec_budget, (unsigned long long*)n_records,
-        (unsigned long long*)n_pairs);
+  if (is_f64)
+    launch<double>(any_order, blocks, s, major_min, major_max, minor_min,
+                   minor_max, vertex_ids, element_id, fwd_min, row_umin,
+                   row_umax, n, is_two_lists, records, rec_budget, n_records,
+                   n_pairs);
   else
-    sweep_records_kernel<false><<<blocks, kRow, 0, s>>>(
-        (const float*)major_min, (const float*)major_max,
-        (const float2*)minor_min, (const float2*)minor_max,
-        (const int*)vertex_ids, (const int*)element_id, nullptr, nullptr,
-        nullptr, n, is_two_lists, (int*)records, rec_budget,
-        (unsigned long long*)n_records, (unsigned long long*)n_pairs);
+    launch<float>(any_order, blocks, s, major_min, major_max, minor_min,
+                  minor_max, vertex_ids, element_id, fwd_min, row_umin,
+                  row_umax, n, is_two_lists, records, rec_budget, n_records,
+                  n_pairs);
   return (int)cudaGetLastError();
 }
 

@@ -104,16 +104,20 @@ def config_from_jax(cfg):
 
 def fused_kwargs_from_jax(**kwargs) -> dict:
     """JAX ``fused_ccd`` options as the port's: ``escalate_rounds``,
-    ``escalate_pool`` and ``bucket_minor`` carry over as they are (``None``
-    and ``"auto"`` mean auto in both), and ``sweep_impl`` maps to
-    ``"pairs"`` (``xla``, ``pallas_ap``) or ``"records"`` (the record
-    layouts).  Options that choose between the JAX package's own
-    implementations (``solver``, ``narrow_order``, ``presample``, ...) have
-    no counterpart and raise ``ValueError``."""
+    ``escalate_pool``, ``bucket_minor`` and ``precision`` carry over as they
+    are (``None`` and ``"auto"`` mean auto in both), ``dtype`` (a numpy or
+    jax.numpy scalar type, or its name) becomes ``"float32"`` or
+    ``"float64"``, and ``sweep_impl`` maps to ``"pairs"`` (``xla``,
+    ``pallas_ap``) or ``"records"`` (the record layouts).  Options that
+    choose between the JAX package's own implementations (``solver``,
+    ``narrow_order``, ``presample``, ...) have no counterpart and raise
+    ``ValueError``."""
     out = {}
     for name, value in kwargs.items():
-        if name in ("escalate_rounds", "escalate_pool", "bucket_minor"):
+        if name in ("escalate_rounds", "escalate_pool", "bucket_minor", "precision"):
             out[name] = value
+        elif name == "dtype":
+            out[name] = np.dtype(value).name
         elif name == "sweep_impl":
             if value not in _SWEEP_IMPL:
                 raise ValueError(f"unknown JAX sweep_impl {value!r}")

@@ -1,6 +1,7 @@
 """Narrow phase: query data, tolerances, error filters and the bisection
 rules (the solvers are in :mod:`scalable_ccd_tpu_torch.ops.solver`)."""
 
+from scalable_ccd_tpu_torch.narrow_phase.oracle import ccd_query_oracle
 from scalable_ccd_tpu_torch.narrow_phase.root_finder import (
     BisectStep,
     bisect_step,
@@ -22,6 +23,7 @@ __all__ = [
     "BisectStep",
     "CCDQueries",
     "bisect_step",
+    "ccd_query_oracle",
     "compute_tolerance",
     "concat_frames",
     "domain_corners",

@@ -15,8 +15,9 @@ narrower than the co-domain tolerance; (4) the bisection degenerates.  (2)
 and (3) need ``t > 0`` unless zero TOIs are allowed.  Culls: the second
 child of a t-split only if it can beat the running TOI; for VF the second
 child of a u- or v-split only if ``u + v <= 1`` stays reachable.  The caps of
-the JAX kernel hold too: a domain 64 splits deep, or split 24 times in one
-dimension, is accepted conservatively and flags overflow.
+the kernels hold too (:func:`search_caps`): in f32 a domain 64 splits deep,
+or split 24 times in one dimension, is accepted conservatively and flags
+overflow; in f64 the caps are 128 and 52.
 
 :func:`dfs_lockstep` is the plain per-query depth-first search in kernel
 B's exploration order, which per-query bounded results depend on (the JAX
@@ -36,14 +37,36 @@ __all__ = [
     "BisectStep",
     "bisect_step",
     "dfs_lockstep",
+    "SearchCaps",
+    "search_caps",
     "MAX_DEPTH",
     "DIM_CAP",
 ]
 
-#: stack levels of the kernel's value-free stack
-MAX_DEPTH = 64
-#: splits per dimension that keep every bound an exact f32 dyadic
-DIM_CAP = 24
+#: stack levels of the kernel's value-free stack, by scalar type
+MAX_DEPTH = {torch.float32: 64, torch.float64: 128}
+#: splits per dimension that keep every bound an exact dyadic of the scalar
+#: type (its mantissa bits)
+DIM_CAP = {torch.float32: 24, torch.float64: 52}
+
+
+class SearchCaps(NamedTuple):
+    """The caps and the VF cull limit of one search."""
+
+    max_depth: int   # splits from the unit cube
+    dim_cap: int     # splits of one dimension
+    uv_limit: float  # a VF u- or v-split keeps its second child up to here
+
+
+def search_caps(dtype, widened: bool = False) -> SearchCaps:
+    """The caps of a search on rows of ``dtype``.  ``widened`` rows are f64
+    rows widened from f32 ones (``precision="compensated"``): they keep
+    f32's split cap, so every bound and the TOI stay exact in f32, and
+    f32's cull limit ``1 / (1 - eps)``, as the JAX package's mode does."""
+    bounds = torch.float32 if widened else dtype
+    one = torch.ones((), dtype=bounds)
+    uv_limit = float(one / (one - torch.finfo(bounds).eps))
+    return SearchCaps(MAX_DEPTH[dtype], DIM_CAP[bounds], uv_limit)
 
 
 def inclusion(q: CCDQueries, lo, hi, err, ms, is_vf: bool):
@@ -70,10 +93,13 @@ class BisectStep(NamedTuple):
 
 
 def bisect_step(q: CCDQueries, lo, hi, tol, err, ms, co_tol, bound,
-                depth, dimcnt, is_vf: bool, allow_zero_toi: bool) -> BisectStep:
+                depth, dimcnt, is_vf: bool, allow_zero_toi: bool,
+                caps: SearchCaps | None = None) -> BisectStep:
     """Evaluate each domain ``[lo, hi]`` once against the running TOI
     ``bound``; ``depth`` is its number of splits from the unit cube and
-    ``dimcnt`` (Q, 3) those per dimension."""
+    ``dimcnt`` (Q, 3) those per dimension.  ``caps`` default to
+    :func:`search_caps` of the domains' dtype."""
+    caps = caps if caps is not None else search_caps(lo.dtype)
     min_t = lo[:, 0]
     live = min_t < bound
     hit, box_in, true_tol = inclusion(q, lo, hi, err, ms, is_vf)
@@ -94,16 +120,14 @@ def bisect_step(q: CCDQueries, lo, hi, tol, err, ms, co_tol, bound,
     live = live & hit
     accept = live & (cond1 | cond2 | cond3 | degenerate)
     want = live & ~accept
-    full = (depth >= MAX_DEPTH) | (dimcnt.gather(1, split[:, None])[:, 0] >= DIM_CAP)
+    full = ((depth >= caps.max_depth)
+            | (dimcnt.gather(1, split[:, None])[:, 0] >= caps.dim_cap))
     overflow = want & full
     accept = accept | overflow
     do_split = want & ~full
     if is_vf:
-        eps = torch.finfo(lo.dtype).eps
-        one = torch.ones((), dtype=lo.dtype, device=lo.device)
-        uv_limit = one / (one - eps)
         other = torch.where(split == 1, lo[:, 2], lo[:, 1])
-        push2 = torch.where(split == 0, mid <= bound, (mid + other) <= uv_limit)
+        push2 = torch.where(split == 0, mid <= bound, (mid + other) <= caps.uv_limit)
     else:
         push2 = (split != 0) | (mid <= bound)
     return BisectStep(accept, do_split, push2 & do_split, split, mid, overflow)
@@ -111,7 +135,7 @@ def bisect_step(q: CCDQueries, lo, hi, tol, err, ms, co_tol, bound,
 
 def dfs_lockstep(q: CCDQueries, tol, err, ms, valid, co_tol, toi_init,
                  is_vf: bool, allow_zero_toi: bool, max_iterations: int = -1,
-                 round_limit: int = -1):
+                 round_limit: int = -1, caps: SearchCaps | None = None):
     """Depth-first bisection of every query, all queries in lockstep.
 
     Every round each query with work left pops its stack top, evaluates it
@@ -139,9 +163,10 @@ def dfs_lockstep(q: CCDQueries, tol, err, ms, valid, co_tol, toi_init,
     ``unfin`` marking the queries still mid-search.
     """
     dev, dt = tol.device, tol.dtype
+    caps = caps if caps is not None else search_caps(dt)
     rounds_mode = round_limit >= 0
     n = valid.shape[0]
-    depth_cap = MAX_DEPTH + 2  # one pending sibling per level, plus the top
+    depth_cap = caps.max_depth + 2  # one pending sibling per level, plus the top
     s_lo = torch.zeros((n, depth_cap, 3), dtype=dt, device=dev)
     s_hi = torch.zeros((n, depth_cap, 3), dtype=dt, device=dev)
     s_hi[:, 0] = 1.0
@@ -182,7 +207,7 @@ def dfs_lockstep(q: CCDQueries, tol, err, ms, valid, co_tol, toi_init,
             bound = torch.where(pre > max_iterations, -inf, tpq[act])
         qa = CCDQueries(*[f[act] for f in q])
         st = bisect_step(qa, lo, hi, tol[act], err[act], ms[act], co_tol, bound,
-                         depth, cnt, is_vf, allow_zero_toi)
+                         depth, cnt, is_vf, allow_zero_toi, caps)
         acc_t = torch.where(st.accept, lo[:, 0], inf)
         if rounds_mode:
             toi = torch.minimum(toi, acc_t.amin())

@@ -20,15 +20,16 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "load_library", "build_library", "BUILD_DIR"]
+__all__ = ["NVCC_FLAGS", "load_library", "build_library", "BUILD_DIR", "launch_counts",
+           "count_launch"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 
 #: Hopper only (``sm_90a``); ``-fmad=false`` keeps every multiply and add
-#: separately rounded, as the solver's exact dyadic unwind and its error
-#: filter require (``ops/solver.py``).  ``-Xptxas -v`` records registers and
-#: spills in the build log.
+#: separately rounded, in float and in double, as the solver's exact dyadic
+#: unwind and its error filter require (``ops/solver.py``).  ``-Xptxas -v``
+#: records registers and spills in the build log.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -94,3 +95,21 @@ def load_library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build_library(name)))
             _LOADED[name] = lib
         return lib
+
+
+def launch_counts(*modes: str) -> dict:
+    """A zeroed launch-count table of a kernel wrapper: one entry per mode,
+    counting launches of either scalar type, one per ``"<mode>_f64"``,
+    counting the double instantiation alone, and ``"f32"`` / ``"f64"``,
+    every launch by scalar type."""
+    keys = list(modes) + [m + "_f64" for m in modes] + ["f32", "f64"]
+    return dict.fromkeys(keys, 0)
+
+
+def count_launch(counts: dict, modes, f64: bool) -> None:
+    """Add one launch in each of ``modes`` to a :func:`launch_counts` table."""
+    for m in modes:
+        counts[m] += 1
+        if f64:
+            counts[m + "_f64"] += 1
+    counts["f64" if f64 else "f32"] += 1

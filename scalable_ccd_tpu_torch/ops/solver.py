@@ -25,6 +25,13 @@ first pass's TOI, stage by stage of a ladder of limits, the last stage
 unbounded.  Its TOI is the unbounded TOI bitwise unless a conservative
 accept fired (``overflow``).
 
+Rows are f32 or f64, and the TOI comes back in their dtype (the kernel is
+instantiated for both; :func:`scalable_ccd_tpu_torch.narrow_phase.
+root_finder.search_caps` gives each its caps).  ``widened`` marks f64 rows
+widened from f32 ones, the port's ``precision="compensated"``: packed in f32
+with the compensated error filter, solved in native f64 under f32's split
+cap, so that every bound, and with it the TOI, is exact in f32.
+
 :func:`solve_packed` runs the CUDA kernel on CUDA tensors and the plain
 version on CPU tensors; any other device raises.  Nothing falls back.
 """
@@ -36,13 +43,17 @@ import ctypes
 import torch
 
 from scalable_ccd_tpu_torch.config import normalize_round_limits
-from scalable_ccd_tpu_torch.narrow_phase.root_finder import bisect_step, dfs_lockstep
+from scalable_ccd_tpu_torch.narrow_phase.root_finder import (
+    bisect_step,
+    dfs_lockstep,
+    search_caps,
+)
 from scalable_ccd_tpu_torch.narrow_phase.types import (
     CCDQueries,
     compute_tolerance,
     numerical_error_bound,
 )
-from scalable_ccd_tpu_torch.ops._build import load_library
+from scalable_ccd_tpu_torch.ops._build import count_launch, launch_counts, load_library
 
 __all__ = [
     "pack_query_rows",
@@ -61,8 +72,9 @@ LAUNCHES = 0
 
 #: the same launches by mode: "global" (neither per-query, bounded nor
 #: round-limited), "per_query", "bounded" and "round_limit"; a per-query
-#: bounded launch counts in both
-LAUNCHES_BY_MODE = {"global": 0, "per_query": 0, "bounded": 0, "round_limit": 0}
+#: bounded launch counts in both; by scalar type as
+#: :func:`scalable_ccd_tpu_torch.ops._build.launch_counts` lays out
+LAUNCHES_BY_MODE = launch_counts("global", "per_query", "bounded", "round_limit")
 
 #: rows per pool block of the escalation glue (the JAX package's solver
 #: block, ``SOLVER_BLOCK_SUB * 128``)
@@ -77,20 +89,23 @@ ROW_WIDTH = 31
 _TILE = 1 << 16
 
 
-def pack_query_rows(queries: CCDQueries, is_vf: bool, ms, tolerance) -> torch.Tensor:
-    """``(Q, 31)`` f32 rows in the kernel's field order: the eight corner
-    points, the per-dim tolerance, the per-dim error filter, ms
-    (``pack_query_rows``, JAX ``pallas_solver.py:649``)."""
-    dt = torch.float32
+def pack_query_rows(queries: CCDQueries, is_vf: bool, ms, tolerance,
+                    compensated: bool = False) -> torch.Tensor:
+    """``(Q, 31)`` rows in the queries' dtype and the kernel's field order:
+    the eight corner points, the per-dim tolerance, the per-dim error
+    filter, ms (``pack_query_rows``, JAX ``pallas_solver.py:649``).
+    ``compensated`` packs the compensated error filter (the rows of the JAX
+    queue solver under ``precision="compensated"``, ``bfs.py:109-125``)."""
+    dt = queries.p0s.dtype
     dev = queries.p0s.device
     ms_arr = torch.as_tensor(ms, dtype=dt, device=dev).expand(queries.n)
     err = torch.where(
         (ms_arr > 0).any(),
-        numerical_error_bound(queries, is_vf, True),
-        numerical_error_bound(queries, is_vf, False),
+        numerical_error_bound(queries, is_vf, True, compensated),
+        numerical_error_bound(queries, is_vf, False, compensated),
     )
     tol = compute_tolerance(queries, is_vf, tolerance)
-    return torch.cat([*queries, tol, err, ms_arr[:, None]], dim=1).to(dt)
+    return torch.cat([*queries, tol, err, ms_arr[:, None]], dim=1)
 
 
 def _unpack(rows: torch.Tensor):
@@ -102,8 +117,9 @@ def _bind(lib):
     fn = lib.sccd_solve_packed
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_double, ctypes.c_double,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
@@ -120,21 +136,40 @@ def _check_round_limit(round_limit, per_query, max_iterations):
         )
 
 
+def _co_tolerance(tolerance, dt, widened: bool) -> float:
+    """The co-domain tolerance as the rows' scalar type holds it (f32's
+    value for widened rows)."""
+    return float(torch.as_tensor(tolerance, dtype=torch.float32 if widened else dt))
+
+
+def _check_rows(qrows, widened: bool):
+    if (qrows.dtype not in (torch.float32, torch.float64)
+            or tuple(qrows.shape[1:]) != (ROW_WIDTH,)):
+        raise ValueError(
+            f"solve_packed: qrows must be float32 or float64 (Q, {ROW_WIDTH}), got "
+            f"{qrows.dtype} {tuple(qrows.shape)}"
+        )
+    if widened and qrows.dtype != torch.float64:
+        raise ValueError(f"solve_packed: widened rows are float64, got {qrows.dtype}")
+
+
 def solve_packed(qrows, valid, is_vf: bool, toi_init, tolerance,
                  allow_zero_toi: bool = True, per_query: bool = False,
-                 max_iterations: int = -1, round_limit: int = -1):
+                 max_iterations: int = -1, round_limit: int = -1,
+                 widened: bool = False):
     """Earliest TOI of the valid rows of ``qrows``.
 
-    ``qrows`` is ``(Q, 31)`` f32 (:func:`pack_query_rows`), ``valid`` a
+    ``qrows`` is ``(Q, 31)`` f32 or f64 (:func:`pack_query_rows`; ``widened``
+    says that f64 rows were widened from f32, module docstring), ``valid`` a
     ``(Q,)`` bool mask, ``toi_init`` the running TOI (a float or a 0-d
     tensor), ``tolerance`` the co-domain tolerance.  Returns 0-d tensors
-    ``(toi, overflow, checks)``: ``toi = min(toi_init, earliest accepted
-    time)``; ``overflow`` is set where a conservative accept was taken (the
-    TOI stays valid, possibly early); ``checks`` (int64) counts domain
-    evaluations, dropped ones included.
+    ``(toi, overflow, checks)``, ``toi`` in the rows' dtype: ``toi =
+    min(toi_init, earliest accepted time)``; ``overflow`` is set where a
+    conservative accept was taken (the TOI stays valid, possibly early);
+    ``checks`` (int64) counts domain evaluations, dropped ones included.
 
     ``per_query`` prunes each query only against its own TOI and appends
-    a fourth output, the ``(Q,)`` f32 per-query TOIs (+inf for invalid rows
+    a fourth output, the ``(Q,)`` per-query TOIs (+inf for invalid rows
     and rows without contact); ``toi`` is then ``min(toi_init, min of
     them)``.  ``max_iterations >= 0`` drops a query's domains once its
     evaluation count, taken before the increment, exceeds the cap.
@@ -152,16 +187,15 @@ def solve_packed(qrows, valid, is_vf: bool, toi_init, tolerance,
     if dev.type == "cpu":
         return solve_packed_reference(
             qrows, valid, is_vf, toi_init, tolerance, allow_zero_toi,
-            per_query, max_iterations, round_limit,
+            per_query, max_iterations, round_limit, widened,
         )
     if dev.type != "cuda":
         raise ValueError(f"solve_packed: unsupported device {dev}")
+    _check_rows(qrows, widened)
     Q = qrows.shape[0]
-    if qrows.dtype != torch.float32 or tuple(qrows.shape) != (Q, ROW_WIDTH):
-        raise ValueError(
-            f"solve_packed: qrows must be float32 (Q, {ROW_WIDTH}), got "
-            f"{qrows.dtype} {tuple(qrows.shape)}"
-        )
+    dt = qrows.dtype
+    f64 = dt == torch.float64
+    caps = search_caps(dt, widened)
     if valid.device != dev or valid.dtype != torch.bool or tuple(valid.shape) != (Q,):
         raise ValueError(
             f"solve_packed: valid must be bool ({Q},) on {dev}, got "
@@ -172,11 +206,11 @@ def solve_packed(qrows, valid, is_vf: bool, toi_init, tolerance,
     if Q >= 2**31 // ROW_WIDTH:
         raise ValueError(f"solve_packed: {Q} rows exceed the kernel's index range")
     cols = qrows.t().contiguous()  # (31, Q): neighbouring threads, neighbouring words
-    # + 0.0 turns a -0.0 seed into +0.0 (the atomicMin compares int bits)
-    toi = torch.as_tensor(toi_init, dtype=torch.float32, device=dev).reshape(1) + 0.0
+    # + 0.0 turns a -0.0 seed into +0.0 (the atomicMin compares integer bits)
+    toi = torch.as_tensor(toi_init, dtype=dt, device=dev).reshape(1) + 0.0
     checks = torch.zeros((1,), dtype=torch.int64, device=dev)
     ovf = torch.zeros((1,), dtype=torch.int32, device=dev)
-    pq = torch.full((Q,), float("inf"), dtype=torch.float32, device=dev) if per_query else None
+    pq = torch.full((Q,), float("inf"), dtype=dt, device=dev) if per_query else None
     unfin = torch.zeros((Q,), dtype=torch.bool, device=dev) if round_limit >= 0 else None
     if Q > 0:
         lib = load_library("solver")
@@ -184,8 +218,9 @@ def solve_packed(qrows, valid, is_vf: bool, toi_init, tolerance,
         with torch.cuda.device(dev):
             rc = fn(
                 cols.data_ptr(), valid.data_ptr(), Q, int(bool(is_vf)),
-                int(bool(allow_zero_toi)), int(bool(per_query)),
-                int(max_iterations), int(round_limit), float(tolerance),
+                int(bool(allow_zero_toi)), int(bool(per_query)), int(f64),
+                caps.dim_cap, int(max_iterations), int(round_limit),
+                _co_tolerance(tolerance, dt, widened), caps.uv_limit,
                 toi.data_ptr(), pq.data_ptr() if per_query else None,
                 unfin.data_ptr() if unfin is not None else None,
                 checks.data_ptr(), ovf.data_ptr(),
@@ -195,14 +230,10 @@ def solve_packed(qrows, valid, is_vf: bool, toi_init, tolerance,
             msg = lib.sccd_solver_error_string(rc).decode()
             raise RuntimeError(f"solver kernel launch failed: {msg}")
         LAUNCHES += 1
-        if per_query:
-            LAUNCHES_BY_MODE["per_query"] += 1
-        if max_iterations >= 0:
-            LAUNCHES_BY_MODE["bounded"] += 1
-        if round_limit >= 0:
-            LAUNCHES_BY_MODE["round_limit"] += 1
-        elif not per_query and max_iterations < 0:
-            LAUNCHES_BY_MODE["global"] += 1
+        modes = ["per_query"] if per_query else []
+        modes += ["bounded"] if max_iterations >= 0 else []
+        modes += ["round_limit"] if round_limit >= 0 else []
+        count_launch(LAUNCHES_BY_MODE, modes or ["global"], f64)
     out = (toi[0], ovf[0] != 0, checks[0])
     if per_query:
         return out + (pq,)
@@ -211,9 +242,10 @@ def solve_packed(qrows, valid, is_vf: bool, toi_init, tolerance,
 
 def solve_packed_reference(qrows, valid, is_vf: bool, toi_init, tolerance,
                            allow_zero_toi: bool = True, per_query: bool = False,
-                           max_iterations: int = -1, round_limit: int = -1):
-    """Plain PyTorch twin of kernel B, on any device; same outputs as
-    :func:`solve_packed`.
+                           max_iterations: int = -1, round_limit: int = -1,
+                           widened: bool = False):
+    """Plain PyTorch twin of kernel B, on any device; same arguments and
+    outputs as :func:`solve_packed`, computed in the rows' dtype.
 
     Per-query bounded calls (``per_query`` and ``max_iterations >= 0``) and
     round-limited calls run the lockstep depth-first search
@@ -237,14 +269,16 @@ def solve_packed_reference(qrows, valid, is_vf: bool, toi_init, tolerance,
     can reproduce it, and where it does not bind both give the unbounded TOI.
     """
     dev = qrows.device
-    dt = torch.float32
-    co_tol = torch.as_tensor(tolerance, dtype=dt, device=dev)
+    _check_rows(qrows, widened)
+    dt = qrows.dtype
+    caps = search_caps(dt, widened)
+    co_tol = torch.tensor(_co_tolerance(tolerance, dt, widened), dtype=dt, device=dev)
     valid = valid.to(torch.bool)
     _check_round_limit(round_limit, per_query, max_iterations)
     if (per_query and max_iterations >= 0) or round_limit >= 0:
         q, tol, err, ms = _unpack(qrows)
         return dfs_lockstep(q, tol, err, ms, valid, co_tol, toi_init, is_vf,
-                            allow_zero_toi, max_iterations, round_limit)
+                            allow_zero_toi, max_iterations, round_limit, caps)
     toi = torch.as_tensor(toi_init, dtype=dt, device=dev).reshape(()).clone()
     n_rows = qrows.shape[0]
     tpq = torch.full((n_rows,), float("inf"), dtype=dt, device=dev)
@@ -273,7 +307,7 @@ def solve_packed_reference(qrows, valid, is_vf: bool, toi_init, tolerance,
             bound = torch.where(pre > max_iterations, -inf, bound)
         st = bisect_step(
             q, p_lo, p_hi, tol, err, ms, co_tol, bound, p_depth, p_cnt,
-            is_vf, allow_zero_toi,
+            is_vf, allow_zero_toi, caps,
         )
         checks += count - top
         acc_t = torch.where(st.accept, p_lo[:, 0], inf)
@@ -307,7 +341,8 @@ def solve_packed_reference(qrows, valid, is_vf: bool, toi_init, tolerance,
 
 
 def solve_escalated(qrows, valid, is_vf: bool, toi_init, tolerance,
-                    allow_zero_toi: bool = True, round_limit=-1):
+                    allow_zero_toi: bool = True, round_limit=-1,
+                    widened: bool = False):
     """Global solve with staged escalation; returns ``(toi, overflow,
     checks)`` as :func:`solve_packed` does, ``checks`` counting every pass.
 
@@ -322,10 +357,11 @@ def solve_escalated(qrows, valid, is_vf: bool, toi_init, tolerance,
     TOI and solves its rows from scratch."""
     limits = normalize_round_limits(round_limit)
     if not limits:
-        return solve_packed(qrows, valid, is_vf, toi_init, tolerance, allow_zero_toi)
+        return solve_packed(qrows, valid, is_vf, toi_init, tolerance, allow_zero_toi,
+                            widened=widened)
     toi1, ovf1, checks1, unfin = solve_packed(
         qrows, valid, is_vf, toi_init, tolerance, allow_zero_toi,
-        round_limit=limits[0],
+        round_limit=limits[0], widened=widened,
     )
     count = int(unfin.sum())
     if count == 0:
@@ -336,5 +372,5 @@ def solve_escalated(qrows, valid, is_vf: bool, toi_init, tolerance,
     ones = torch.ones((count,), dtype=torch.bool, device=qrows.device)
     rest = limits[1:] if count <= pool_cap else ()
     toi2, ovf2, checks2 = solve_escalated(rows, ones, is_vf, toi1, tolerance,
-                                          allow_zero_toi, rest)
+                                          allow_zero_toi, rest, widened)
     return toi2, ovf1 | ovf2, checks1 + checks2

@@ -2,13 +2,13 @@
 
 Replaces the JAX package's all-pairs subtile sweep kernel
 (``scalable_ccd_tpu/ops/pallas_sweep_ap.py:_sweep_kernel``, launched by
-``pallas_sweep_pairs``, with its ``tile0``/``n_tiles`` a-side range and its
-``any_order`` mode).  Both versions here compute the same pair set: for each
-sorted box ``i`` (of a box range, when one is given), every later box ``j``
-with ``major_min[j] <= major_max[i]`` that passes
-:func:`scalable_ccd_tpu_torch.broad_phase.sweep.pair_filters`, emitted
-already decoded in the reference convention (one-list ``(min, max)``,
-two-list ``(-min-1, max)``, ``decode_pairs_ap`` of the JAX package).
+``pallas_sweep_pairs``, with its ``tile0``/``n_tiles`` a-side range, its
+``any_order`` mode and its ``count_only`` option).  Both versions here
+compute the same pair set: for each sorted box ``i`` (of a box range, when
+one is given), every later box ``j`` with ``major_min[j] <= major_max[i]``
+that passes :func:`scalable_ccd_tpu_torch.broad_phase.sweep.pair_filters`,
+emitted already decoded in the reference convention (one-list ``(min,
+max)``, two-list ``(-min-1, max)``, ``decode_pairs_ap`` of the JAX package).
 
 ``any_order`` sweeps boxes in any order, the congestion ordering of
 ``sort_boxes(bucket_minor=True)`` among them (JAX ``pack_boxes_ap``'s
@@ -21,6 +21,13 @@ misses box ``i``'s minor-0 interval holds no partner of ``i`` and is
 skipped).  The reverse major test ``major_min[i] <= major_max[j]``, free
 under the major sort, is made explicitly.  The JAX kernel's 1024-box window
 and 8-box batch unions only stage partners on the TPU and are not ported.
+
+The planes are f32 or f64, all of one dtype (the kernel is instantiated for
+both); the pair set of f64 boxes is a subset of the f32 one, whose boxes are
+rounded outward.  ``count_only`` walks and tests as always and returns only
+the exact survivor total: no pair buffer exists, and the kernel sums its
+survivors per thread, warp and block and takes one atomic per block, so its
+time against the emitting kernel's is what the atomic append costs.
 
 :func:`sweep_pairs` runs the CUDA kernel on CUDA tensors and the plain
 version on CPU tensors; any other device raises.  Nothing falls back.
@@ -38,7 +45,7 @@ from scalable_ccd_tpu_torch.broad_phase.sweep import (
     emit_pairs,
     pair_filters,
 )
-from scalable_ccd_tpu_torch.ops._build import load_library
+from scalable_ccd_tpu_torch.ops._build import count_launch, launch_counts, load_library
 
 __all__ = [
     "PartnerPlanes",
@@ -55,8 +62,10 @@ __all__ = [
 LAUNCHES = 0
 
 #: the same launches by mode: "whole" (every box starts a run) or "range"
-#: (a ``box_range`` was given), and also "any_order" when that mode was on
-LAUNCHES_BY_MODE = {"whole": 0, "range": 0, "any_order": 0}
+#: (a ``box_range`` was given), also "any_order" and "count_only" when those
+#: were on; by scalar type as :func:`scalable_ccd_tpu_torch.ops._build.
+#: launch_counts` lays out
+LAUNCHES_BY_MODE = launch_counts("whole", "range", "any_order", "count_only")
 
 #: partners per row of the row-skip planes (the JAX kernel's 128-lane row)
 ROW = 128
@@ -68,9 +77,9 @@ _SENTINEL = -(2**31) + 1
 class PartnerPlanes(NamedTuple):
     """The partner side's stop and row-skip planes of one sorted box set."""
 
-    fwd_min: torch.Tensor   # (n,) f32: min of major_min over positions >= j
-    row_umin: torch.Tensor  # (ceil(n/128),) f32: min of minor_min[:, 0] per row
-    row_umax: torch.Tensor  # (ceil(n/128),) f32: max of minor_max[:, 0] per row
+    fwd_min: torch.Tensor   # (n,): min of major_min over positions >= j
+    row_umin: torch.Tensor  # (ceil(n/128),): min of minor_min[:, 0] per row
+    row_umax: torch.Tensor  # (ceil(n/128),): max of minor_max[:, 0] per row
 
 
 def partner_planes(sorted_boxes: SortedBoxes) -> PartnerPlanes:
@@ -94,8 +103,7 @@ def partner_planes(sorted_boxes: SortedBoxes) -> PartnerPlanes:
 
 def _bind(lib):
     fn = lib.sccd_sweep_pairs
-    fn.argtypes = [ctypes.c_void_p] * 9 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
@@ -106,23 +114,27 @@ def _bind(lib):
 
 def check_boxes(sb: SortedBoxes, caller: str, planes: PartnerPlanes | None = None):
     """Raise ``ValueError`` unless ``sb`` (and ``planes``) hold the dtypes,
-    shapes, device and layout the kernels take."""
+    shapes, device and layout the kernels take: f32 or f64 planes, all of
+    the dtype of ``major_min``."""
     n = sb.n
     dev = sb.major_min.device
+    fdt = sb.major_min.dtype
+    if fdt not in (torch.float32, torch.float64):
+        raise ValueError(f"{caller}: boxes must be float32 or float64, got {fdt}")
     spec = [
-        ("major_min", sb.major_min, torch.float32, (n,)),
-        ("major_max", sb.major_max, torch.float32, (n,)),
-        ("minor_min", sb.minor_min, torch.float32, (n, 2)),
-        ("minor_max", sb.minor_max, torch.float32, (n, 2)),
+        ("major_min", sb.major_min, fdt, (n,)),
+        ("major_max", sb.major_max, fdt, (n,)),
+        ("minor_min", sb.minor_min, fdt, (n, 2)),
+        ("minor_max", sb.minor_max, fdt, (n, 2)),
         ("vertex_ids", sb.vertex_ids, torch.int32, (n, 3)),
         ("element_id", sb.element_id, torch.int32, (n,)),
     ]
     if planes is not None:
         rows = -(-n // ROW)
         spec += [
-            ("fwd_min", planes.fwd_min, torch.float32, (n,)),
-            ("row_umin", planes.row_umin, torch.float32, (rows,)),
-            ("row_umax", planes.row_umax, torch.float32, (rows,)),
+            ("fwd_min", planes.fwd_min, fdt, (n,)),
+            ("row_umin", planes.row_umin, fdt, (rows,)),
+            ("row_umax", planes.row_umax, fdt, (rows,)),
         ]
     for name, t, dtype, shape in spec:
         if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
@@ -132,8 +144,10 @@ def check_boxes(sb: SortedBoxes, caller: str, planes: PartnerPlanes | None = Non
             )
         if not t.is_contiguous():
             raise ValueError(f"{caller}: {name} must be contiguous")
-        if t.data_ptr() % 8 and name.startswith("minor"):
-            raise ValueError(f"{caller}: {name} must be 8-byte aligned")
+        # the kernels read a minor interval as one float2 or double2
+        if name.startswith("minor") and t.data_ptr() % (2 * t.element_size()):
+            raise ValueError(
+                f"{caller}: {name} must be {2 * t.element_size()}-byte aligned")
     if n >= 2**31 - ROW:
         raise ValueError(f"{caller}: {n} boxes exceed the int32 index range")
 
@@ -147,8 +161,19 @@ def _resolve_range(box_range, n):
     return b0, min(b1, n)
 
 
-def sweep_pairs(sorted_boxes: SortedBoxes, is_two_lists: bool, budget: int,
-                box_range=None, any_order: bool = False, planes=None):
+def _check_budget(budget, count_only: bool):
+    if count_only:
+        if budget is not None:
+            raise ValueError("count_only writes no pairs: it takes no budget")
+        return None
+    if budget is None:
+        raise ValueError("sweep_pairs needs a pair budget unless count_only")
+    return int(budget)
+
+
+def sweep_pairs(sorted_boxes: SortedBoxes, is_two_lists: bool, budget=None,
+                box_range=None, any_order: bool = False, planes=None,
+                count_only: bool = False):
     """All candidate pairs of a sorted box set.
 
     ``box_range = (b0, b1)`` keeps the pairs whose earlier sorted box lies
@@ -162,24 +187,27 @@ def sweep_pairs(sorted_boxes: SortedBoxes, is_two_lists: bool, budget: int,
     exact survivor count even past the budget; ``overflow`` is ``n_true >
     budget``.  The three scalars are 0-d tensors on the boxes' device.
 
+    ``count_only`` returns ``n_true`` alone and writes no pair; it takes no
+    budget (one given raises).
+
     On CUDA the row order is nondeterministic (survivors are appended with
     an atomic counter); the pair set, and every TOI computed from it, is
     order-free.  On the CPU the plain version emits rows in sweep order.
     """
     global LAUNCHES
     dev = sorted_boxes.major_min.device
+    budget = _check_budget(budget, count_only)
     if any_order and planes is None:
         planes = partner_planes(sorted_boxes)
     if dev.type == "cpu":
         return sweep_pairs_reference(
             sorted_boxes, is_two_lists, budget, box_range=box_range,
-            any_order=any_order, planes=planes,
+            any_order=any_order, planes=planes, count_only=count_only,
         )
     if dev.type != "cuda":
         raise ValueError(f"sweep_pairs: unsupported device {dev}")
     check_boxes(sorted_boxes, "sweep_pairs", planes if any_order else None)
-    budget = int(budget)
-    pairs = torch.empty((budget, 2), dtype=torch.int32, device=dev)
+    pairs = None if count_only else torch.empty((budget, 2), dtype=torch.int32, device=dev)
     n_true = torch.zeros((1,), dtype=torch.int64, device=dev)
     n = sorted_boxes.n
     b0, b1 = _resolve_range(box_range, n)
@@ -187,6 +215,7 @@ def sweep_pairs(sorted_boxes: SortedBoxes, is_two_lists: bool, budget: int,
         lib = load_library("sweep_ap")
         fn = _bind(lib)
         sb = sorted_boxes
+        f64 = sb.major_min.dtype == torch.float64
         pl = (planes.fwd_min.data_ptr(), planes.row_umin.data_ptr(),
               planes.row_umax.data_ptr()) if any_order else (None, None, None)
         with torch.cuda.device(dev):
@@ -195,17 +224,22 @@ def sweep_pairs(sorted_boxes: SortedBoxes, is_two_lists: bool, budget: int,
                 sb.minor_min.data_ptr(), sb.minor_max.data_ptr(),
                 sb.vertex_ids.data_ptr(), sb.element_id.data_ptr(), *pl,
                 n, b0, b1, int(bool(is_two_lists)), int(bool(any_order)),
-                pairs.data_ptr(), budget, n_true.data_ptr(),
+                int(f64), int(count_only),
+                None if count_only else pairs.data_ptr(),
+                0 if count_only else budget, n_true.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         if rc != 0:
             msg = lib.sccd_sweep_error_string(rc)
             raise RuntimeError(f"sweep_ap kernel launch failed: {msg.decode()}")
         LAUNCHES += 1
-        LAUNCHES_BY_MODE["whole" if box_range is None else "range"] += 1
-        if any_order:
-            LAUNCHES_BY_MODE["any_order"] += 1
+        modes = ["whole" if box_range is None else "range"]
+        modes += ["any_order"] if any_order else []
+        modes += ["count_only"] if count_only else []
+        count_launch(LAUNCHES_BY_MODE, modes, f64)
     n_true = n_true[0]
+    if count_only:
+        return n_true
     return pairs, torch.clamp(n_true, max=budget), n_true, n_true > budget
 
 
@@ -254,21 +288,23 @@ def sweep_positions(sorted_boxes: SortedBoxes, is_two_lists: bool,
 
 
 def sweep_pairs_reference(
-    sorted_boxes: SortedBoxes, is_two_lists: bool, budget: int,
+    sorted_boxes: SortedBoxes, is_two_lists: bool, budget=None,
     chunk_slots: int = 1 << 22, box_range=None, any_order: bool = False,
-    planes=None,
+    planes=None, count_only: bool = False,
 ):
     """Plain PyTorch twin of kernel A, on any device; arguments and outputs
     as in :func:`sweep_pairs`, rows in sweep order (:func:`sweep_positions`,
-    expanded in chunks of about ``chunk_slots`` slots)."""
+    expanded in chunks of about ``chunk_slots`` slots).  ``count_only`` sums
+    the survivors of each chunk and emits nothing."""
     sb = sorted_boxes
     dev = sb.major_min.device
-    budget = int(budget)
-    found = [
-        emit_pairs(sb.element_id[i], sb.element_id[j], is_two_lists)
-        for i, j in sweep_positions(sb, is_two_lists, box_range, any_order,
-                                    planes, chunk_slots)
-    ]
+    budget = _check_budget(budget, count_only)
+    t = lambda v: torch.tensor(v, dtype=torch.int64, device=dev)  # noqa: E731
+    positions = sweep_positions(sb, is_two_lists, box_range, any_order, planes, chunk_slots)
+    if count_only:
+        return t(sum(i.numel() for i, _ in positions))
+    found = [emit_pairs(sb.element_id[i], sb.element_id[j], is_two_lists)
+             for i, j in positions]
     allp = (
         torch.cat(found) if found
         else torch.empty((0, 2), dtype=torch.int32, device=dev)
@@ -277,5 +313,4 @@ def sweep_pairs_reference(
     pairs = torch.full((budget, 2), _SENTINEL, dtype=torch.int32, device=dev)
     n_pairs = min(n_true, budget)
     pairs[:n_pairs] = allp[:n_pairs]
-    t = lambda v: torch.tensor(v, dtype=torch.int64, device=dev)  # noqa: E731
     return pairs, t(n_pairs), t(n_true), torch.tensor(n_true > budget, device=dev)

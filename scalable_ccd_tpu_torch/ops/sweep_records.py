@@ -14,7 +14,9 @@ the surviving a-lanes (lane ``i % 128`` is bit ``i % 32`` of word
 A narrow batch decodes its own range of pairs with a monotone record
 cursor.  The TPU's ``layout`` knob (four ways to place the same records in
 VMEM) and the a-side extent classing are not ported, so ``w5`` is always
-``i // 128`` and the buffer is a plain ``(R, 8)`` tensor.
+``i // 128`` and the buffer is a plain ``(R, 8)`` tensor.  The box planes
+are f32 or f64 (the kernel is instantiated for both); records hold positions
+and bits, no floats, so their format and decode are the same for either.
 
 :func:`sweep_records` runs the CUDA kernel on CUDA tensors and the plain
 version on CPU tensors; any other device raises.  Nothing falls back.
@@ -27,7 +29,7 @@ import ctypes
 import torch
 
 from scalable_ccd_tpu_torch.broad_phase.sweep import SortedBoxes, emit_pairs
-from scalable_ccd_tpu_torch.ops._build import load_library
+from scalable_ccd_tpu_torch.ops._build import count_launch, launch_counts, load_library
 from scalable_ccd_tpu_torch.ops.sweep_ap import (
     ROW,
     check_boxes,
@@ -51,8 +53,10 @@ __all__ = [
 #: kernel launches made by :func:`sweep_records` in this process
 LAUNCHES = 0
 
-#: the same launches by ordering: "sorted" (the major sort) or "any_order"
-LAUNCHES_BY_MODE = {"sorted": 0, "any_order": 0}
+#: the same launches by ordering: "sorted" (the major sort) or "any_order";
+#: by scalar type as :func:`scalable_ccd_tpu_torch.ops._build.launch_counts`
+#: lays out
+LAUNCHES_BY_MODE = launch_counts("sorted", "any_order")
 
 #: int32 words per record
 REC_WORDS = 8
@@ -61,7 +65,7 @@ REC_WORDS = 8
 def _bind(lib):
     fn = lib.sccd_sweep_records
     fn.argtypes = [ctypes.c_void_p] * 9 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
@@ -110,6 +114,7 @@ def sweep_records(sorted_boxes: SortedBoxes, is_two_lists: bool, pair_budget: in
         lib = load_library("sweep_records")
         fn = _bind(lib)
         sb = sorted_boxes
+        f64 = sb.major_min.dtype == torch.float64
         pl = (planes.fwd_min.data_ptr(), planes.row_umin.data_ptr(),
               planes.row_umax.data_ptr()) if any_order else (None, None, None)
         with torch.cuda.device(dev):
@@ -117,7 +122,7 @@ def sweep_records(sorted_boxes: SortedBoxes, is_two_lists: bool, pair_budget: in
                 sb.major_min.data_ptr(), sb.major_max.data_ptr(),
                 sb.minor_min.data_ptr(), sb.minor_max.data_ptr(),
                 sb.vertex_ids.data_ptr(), sb.element_id.data_ptr(), *pl,
-                n, int(bool(is_two_lists)), int(bool(any_order)),
+                n, int(bool(is_two_lists)), int(bool(any_order)), int(f64),
                 records.data_ptr(), rec_budget, n_records.data_ptr(),
                 n_pairs.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
             )
@@ -125,7 +130,7 @@ def sweep_records(sorted_boxes: SortedBoxes, is_two_lists: bool, pair_budget: in
             msg = lib.sccd_sweep_records_error_string(rc).decode()
             raise RuntimeError(f"sweep_records kernel launch failed: {msg}")
         LAUNCHES += 1
-        LAUNCHES_BY_MODE["any_order" if any_order else "sorted"] += 1
+        count_launch(LAUNCHES_BY_MODE, ["any_order" if any_order else "sorted"], f64)
     n_records, n_pairs = n_records[0], n_pairs[0]
     return records, n_records, n_pairs, (n_pairs > pair_budget) | (n_records > rec_budget)
 

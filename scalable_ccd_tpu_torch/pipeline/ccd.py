@@ -143,10 +143,16 @@ def _partial_ccd(
         else bool(config.presample)
     )
     per_query = config.toi_per_query or collisions is not None
-    # staged escalation of the global solves (JAX ccd.py:269)
-    round_limit = resolve_auto_escalation(config.escalate_rounds, max_iterations)
+    compensated = config.precision == "compensated"
+    # staged escalation of the global solves (JAX ccd.py:239-275: its kernel
+    # escalates, its queue solver, which f64 and compensated requests take,
+    # does not)
+    round_limit = resolve_auto_escalation(
+        config.escalate_rounds, max_iterations,
+        plain_f32=config.dtype == "float32" and not compensated)
     nar = NarrowSolver.for_phase(is_vf, v0, v1, edges, faces, min_distance,
-                                 tolerance, allow_zero_toi, max_iterations, round_limit)
+                                 tolerance, allow_zero_toi, max_iterations, round_limit,
+                                 config.torch_dtype, compensated)
 
     def solve_chunk(pairs, count, toi, exact):
         """Narrow-solve one chunk's candidates (``narrow_phase<is_vf>``,
@@ -231,7 +237,10 @@ def ccd(
     :func:`scalable_ccd_tpu_torch.fused_ccd`: CUDA unless the caller asks
     for the CPU, and on CUDA the sweep and solver are the CUDA kernels.
     ``config.escalate_rounds`` is the solver's staged escalation (auto: 128
-    rounds without an iteration cap).  Values of ``config`` that the port
+    rounds without an iteration cap in plain f32).  ``config.dtype`` and
+    ``config.precision`` are the working precision and the compensated
+    mode, as in :func:`scalable_ccd_tpu_torch.fused_ccd`; the returned float
+    holds the TOI of that precision.  Values of ``config`` that the port
     lacks raise ``ValueError``
     (:func:`scalable_ccd_tpu_torch.config.check_supported`).
     """
@@ -246,7 +255,7 @@ def ccd(
         t0 = time.perf_counter()
         with profiler().scope("build_boxes", device):
             vb = build_vertex_boxes(v0, v1, inflation_radius=min_distance,
-                                    dtype=torch.float32)
+                                    dtype=config.torch_dtype)
             eb = build_edge_boxes(vb, e)
             fb = build_face_boxes(vb, f)
         with profiler().scope("sort_boxes", device):
@@ -303,7 +312,8 @@ def ipc_ccd_strategy(
             vertices_t0, vertices_t1, edges, faces, device=device,
             validate=validate, min_distance=min_distance, tolerance=tolerance,
             max_iterations=max_iterations, allow_zero_toi=True,
-            ipc_refine=True, **fused_kwargs,
+            ipc_refine=True, dtype=config.dtype, precision=config.precision,
+            **fused_kwargs,
         )
         if bool(res.overflowed):
             # the chunked pipeline needs no budget

@@ -49,10 +49,21 @@ Exact modes (the JAX package's ``_phase``, ``fused.py:632-645``):
   whole and sorted by ``(id_a << 32) | id_b`` before batching, on every
   device.
 
+Precision (the JAX package's ``dtype`` and ``precision``, ``fused.py:
+1541-1553,1608-1649,1869-1883``): ``dtype`` is the working precision of
+boxes, queries, tolerances, error filter and TOI, f32 or f64, and the
+kernels run in it.  ``precision="compensated"`` keeps everything up to the
+packed query rows in f32, packs the JAX package's compensated error filter,
+widens the rows to f64 (exact) and solves them with kernel B's f64
+instantiation under f32's split cap, so the TOI is exact in f32 and comes
+back as f32: native f64 in place of the JAX package's double-word f32.  For
+both, the JAX package's solver is its queue solver, so the auto policies
+resolve to no escalation; an explicit ``escalate_rounds`` still applies.
+
 The JAX package runs this as one XLA program; here it is eager PyTorch, and
 the host reads a few scalars on the way (each phase's candidate totals, the
 TOI after every narrow batch for the early exit, and the unfinished count
-of every escalated solve).  The compensated precision is not ported.
+of every escalated solve).
 """
 
 from __future__ import annotations
@@ -63,7 +74,7 @@ import numpy as np
 import torch
 
 from scalable_ccd_tpu_torch.broad_phase.sweep import merge_two_lists, sort_boxes
-from scalable_ccd_tpu_torch.config import normalize_round_limits
+from scalable_ccd_tpu_torch.config import check_precision, normalize_round_limits
 from scalable_ccd_tpu_torch.geometry.aabb import (
     build_edge_boxes,
     build_face_boxes,
@@ -100,6 +111,7 @@ __all__ = [
     "fused_ccd",
     "resolve_auto_escalation",
     "resolve_device",
+    "resolve_dtype",
     "resolve_knobs",
 ]
 
@@ -171,29 +183,43 @@ class Knobs(NamedTuple):
     sweep_impl: str
 
 
-def resolve_auto_escalation(escalate_rounds, max_iterations: int):
+def resolve_auto_escalation(escalate_rounds, max_iterations: int,
+                            plain_f32: bool = True):
     """``escalate_rounds`` with auto (``None`` or the config sentinel -2)
     resolved: :data:`AUTO_ESCALATE_ROUNDS` on the global path, off with a
-    check cap (``_resolve_auto_escalation``, JAX ``fused.py:135-147``; the
-    port's solver is always the kernel)."""
+    check cap (``_resolve_auto_escalation``, JAX ``fused.py:135-147``), and
+    off unless the request is plain f32 (``plain_f32``): for f64 and for the
+    compensated precision the JAX package solves with its queue solver,
+    which does not escalate (``fused.py:1869-1883``)."""
     if escalate_rounds is not None and escalate_rounds != -2:
         return escalate_rounds
-    return AUTO_ESCALATE_ROUNDS if max_iterations < 0 else -1
+    return AUTO_ESCALATE_ROUNDS if max_iterations < 0 and plain_f32 else -1
+
+
+def resolve_dtype(dtype):
+    """``torch.float32`` or ``torch.float64`` from either, or from the
+    strings ``"float32"`` and ``"float64"``; anything else raises."""
+    names = {"float32": torch.float32, "float64": torch.float64}
+    dtype = names.get(dtype, dtype)
+    if dtype not in names.values():
+        raise ValueError(f"unknown dtype {dtype!r}: float32 or float64")
+    return dtype
 
 
 def resolve_knobs(n_vf: int, n_ee: int, *, bucket_minor="auto", escalate_rounds=None,
                   escalate_pool="auto", sweep_impl: str = "pairs",
                   max_iterations: int = -1, collisions: bool = False,
-                  ipc_refine: bool = False) -> Knobs:
+                  ipc_refine: bool = False, plain_f32: bool = True) -> Knobs:
     """The auto policies as functions of the phases' box counts ``n_vf``
     (vertices + faces) and ``n_ee`` (edges), as JAX ``fused_ccd`` resolves
     them (``fused.py:1880-1947``): congestion ordering from
     :data:`CONGESTION_MIN_BOXES` VF boxes; escalation at 128 rounds on the
     global path; the frame pool below the threshold where its preconditions
     hold (global mode, one limit), the batch ladder otherwise; presample per
-    phase below the threshold.  An explicit ``escalate_pool="frame"`` where
-    the frame pool cannot run raises (the JAX package warns and takes the
-    batch ladder)."""
+    phase below the threshold.  Unless ``plain_f32`` (an f64 or compensated
+    request) auto escalation is off and the auto pool is the batch ladder.
+    An explicit ``escalate_pool="frame"`` where the frame pool cannot run
+    raises (the JAX package warns and takes the batch ladder)."""
     if sweep_impl not in ("pairs", "records"):
         raise ValueError(f"unknown sweep_impl {sweep_impl!r}: 'pairs' or 'records'")
     if escalate_pool not in ("auto", None, "batch", "frame"):
@@ -204,12 +230,12 @@ def resolve_knobs(n_vf: int, n_ee: int, *, bucket_minor="auto", escalate_rounds=
     congested = n_vf >= CONGESTION_MIN_BOXES
     if bucket_minor == "auto":
         bucket_minor = congested
-    er = resolve_auto_escalation(escalate_rounds, max_iterations)
+    er = resolve_auto_escalation(escalate_rounds, max_iterations, plain_f32)
     normalize_round_limits(er)  # a bad ladder raises here
     frame_ok = (not collisions and not ipc_refine and max_iterations < 0
                 and isinstance(er, int) and er >= 0)
     if escalate_pool in ("auto", None):
-        escalate_pool = "frame" if frame_ok and not congested else "batch"
+        escalate_pool = "frame" if frame_ok and not congested and plain_f32 else "batch"
     elif escalate_pool == "frame" and not frame_ok:
         raise ValueError(
             "escalate_pool='frame' needs the global path and one round limit: "
@@ -269,14 +295,24 @@ class NarrowSolver(NamedTuple):
     max_iterations: int
     #: staged escalation of global solves: -1, a limit or a ladder
     round_limit: object = -1
+    #: the compensated precision: f32 tables and rows, widened to f64 for
+    #: the solve, TOIs narrowed back to f32 (exact)
+    compensated: bool = False
 
     @classmethod
     def for_phase(cls, is_vf, v0, v1, edges, faces, ms, tolerance,
-                  allow_zero_toi, max_iterations, round_limit=-1):
-        vcat = concat_frames(v0, v1, torch.float32)
+                  allow_zero_toi, max_iterations, round_limit=-1,
+                  dtype=torch.float32, compensated=False):
+        vcat = concat_frames(v0, v1, dtype)
         table = pack_face_table(vcat, faces) if is_vf else pack_edge_table(vcat, edges)
         return cls(is_vf, vcat, table, float(ms), float(tolerance),
-                   bool(allow_zero_toi), int(max_iterations), round_limit)
+                   bool(allow_zero_toi), int(max_iterations), round_limit,
+                   bool(compensated))
+
+    @property
+    def row_dtype(self):
+        """The dtype of the packed rows the solver takes."""
+        return torch.float64 if self.compensated else self.vcat.dtype
 
     def rows(self, pairs, exact=False):
         """``(P, 31)`` packed rows of ``(P, 2)`` element-id pairs; ``exact``
@@ -285,7 +321,25 @@ class NarrowSolver(NamedTuple):
             q = gather_vf_queries(self.vcat, self.table, pairs)
         else:
             q = gather_ee_queries(self.table, pairs)
-        return pack_query_rows(q, self.is_vf, 0.0 if exact else self.ms, self.tolerance)
+        rows = pack_query_rows(q, self.is_vf, 0.0 if exact else self.ms, self.tolerance,
+                               self.compensated)
+        return rows.to(self.row_dtype)
+
+    def _narrowed(self, out):
+        """A solve's outputs with its TOIs in the phase's TOI dtype: a
+        widened solve returns f64 values that are exact in f32."""
+        if not self.compensated:
+            return out
+        return tuple(o.float() if o.is_floating_point() else o for o in out)
+
+    def solve_rows(self, rows, valid, toi, zero_ok=None, **modes):
+        """:func:`solve_packed` of packed ``rows`` with the phase's options;
+        ``modes`` are its ``per_query``, ``max_iterations`` and
+        ``round_limit``."""
+        zero_ok = self.allow_zero_toi if zero_ok is None else zero_ok
+        return self._narrowed(solve_packed(
+            rows, valid, self.is_vf, toi, self.tolerance, zero_ok,
+            widened=self.compensated, **modes))
 
     def solve(self, pairs, toi, per_query=False, exact=False):
         """Solve ``(P, 2)`` element-id pairs from the running TOI ``toi``;
@@ -296,10 +350,11 @@ class NarrowSolver(NamedTuple):
         max_iter, zero_ok = (-1, False) if exact else (self.max_iterations, self.allow_zero_toi)
         valid = torch.ones((rows.shape[0],), dtype=torch.bool, device=rows.device)
         if per_query or max_iter >= 0:
-            return solve_packed(rows, valid, self.is_vf, toi, self.tolerance,
-                                zero_ok, per_query, max_iter)
-        return solve_escalated(rows, valid, self.is_vf, toi, self.tolerance,
-                               zero_ok, self.round_limit)
+            return self.solve_rows(rows, valid, toi, zero_ok, per_query=per_query,
+                                   max_iterations=max_iter)
+        return self._narrowed(solve_escalated(
+            rows, valid, self.is_vf, toi, self.tolerance, zero_ok, self.round_limit,
+            self.compensated))
 
     def solve_bounded(self, pairs, toi):
         """One round-limited global pass of ``pairs`` (no ladder); returns
@@ -307,8 +362,7 @@ class NarrowSolver(NamedTuple):
         for the frame pool (``pallas_find_roots_bounded``)."""
         rows = self.rows(pairs)
         valid = torch.ones((rows.shape[0],), dtype=torch.bool, device=rows.device)
-        out = solve_packed(rows, valid, self.is_vf, toi, self.tolerance,
-                           self.allow_zero_toi, round_limit=int(self.round_limit))
+        out = self.solve_rows(rows, valid, toi, round_limit=int(self.round_limit))
         return out + (rows,)
 
 
@@ -406,7 +460,7 @@ def _frame_pool_loop(stream, budget, batch, nar: NarrowSolver, toi, checks, capp
     capped)."""
     dev = toi.device
     cap = -(-min(_FRAME_POOL_MAX, max(_FRAME_POOL_MIN, budget >> 6)) // POOL_BLOCK) * POOL_BLOCK
-    pool = torch.empty((cap + POOL_BLOCK, ROW_WIDTH), dtype=torch.float32, device=dev)
+    pool = torch.empty((cap + POOL_BLOCK, ROW_WIDTH), dtype=nar.row_dtype, device=dev)
     cur = 0
     start = 0
     toi_h = float(toi)
@@ -421,8 +475,7 @@ def _frame_pool_loop(stream, budget, batch, nar: NarrowSolver, toi, checks, capp
             pool[cur:cur + cnt] = rows[unfin]
             cur += cnt
         elif cnt > 0:
-            toi2, ovf2, ck2 = solve_packed(rows, unfin, nar.is_vf, toi, nar.tolerance,
-                                           nar.allow_zero_toi)
+            toi2, ovf2, ck2 = nar.solve_rows(rows, unfin, toi)
             toi = torch.minimum(toi, toi2)
             checks, capped = checks + ck2, capped | ovf2
             toi_h = float(toi)
@@ -432,8 +485,7 @@ def _frame_pool_loop(stream, budget, batch, nar: NarrowSolver, toi, checks, capp
             break
         rows = pool[s:min(s + POOL_BLOCK, cur)]
         valid = torch.ones((rows.shape[0],), dtype=torch.bool, device=dev)
-        toi2, ovf2, ck2 = solve_packed(rows, valid, nar.is_vf, toi, nar.tolerance,
-                                       nar.allow_zero_toi)
+        toi2, ovf2, ck2 = nar.solve_rows(rows, valid, toi)
         toi = torch.minimum(toi, toi2)
         checks, capped = checks + ck2, capped | ovf2
     return toi, checks, capped
@@ -482,7 +534,8 @@ def _narrow_phase(stream, budget, batch, presample, nar: NarrowSolver, toi,
         chunk = stream.batch(start, min(start + batch, n_pairs))
         toi_b, cap, ck = nar.solve(chunk, toi)
         toi_after = torch.minimum(toi, toi_b)
-        # compared in f32, as the JAX package's in-dispatch rule does
+        # compared in the working dtype, as the JAX package's in-dispatch
+        # rule does
         if ipc_refine and bool(toi_after < IPC_MIN_TOI):
             toi_r, cap_r, ck_r = nar.solve(chunk, toi, exact=True)
             toi_after = torch.minimum(toi, toi_r) * IPC_BACKOFF
@@ -515,6 +568,8 @@ def fused_ccd(
     escalate_rounds=None,
     escalate_pool="auto",
     sweep_impl: str = "pairs",
+    dtype=torch.float32,
+    precision: str = "f32",
 ) -> FusedCCDResult:
     """Earliest time of impact of a linearly moving triangle mesh.
 
@@ -549,13 +604,24 @@ def fused_ccd(
     ``"auto"`` guesses from the scene size and retries a phase once from
     its exact totals on overflow, so ``overflowed`` stays False.  With
     integer budgets an overflow is reported in ``overflowed`` and the pairs
-    past the budget are missing.  Boxes are built and solved in f32.
+    past the budget are missing.
+
+    ``dtype`` (``torch.float32``, ``torch.float64`` or their names) is the
+    working precision of boxes, queries, tolerances, error filter and TOI;
+    the kernels run in it, and ``toi`` comes back in it.  ``precision`` is
+    ``"f32"`` (the working dtype) or ``"compensated"`` (f32 inputs and TOI,
+    the inclusion function in native f64 with the compensated error filter;
+    module docstring): co-located geometry whose separations lie below the
+    f32 filter, where plain f32 collapses the TOI to 0, resolves as in f64.
     """
     if collisions is not None and ipc_refine:
         raise ValueError(
             "ipc_refine has no per-pair output (the reference discards "
             "collisions in ipc_ccd_strategy, ipc_ccd_strategy.cu:52-54)"
         )
+    dtype = resolve_dtype(dtype)
+    check_precision(precision, dtype == torch.float64)
+    compensated = precision == "compensated"
     device = resolve_device(device)
     if validate:
         validate_mesh_inputs(vertices_t0, vertices_t1, edges, faces)
@@ -567,6 +633,7 @@ def fused_ccd(
         escalate_pool=escalate_pool, sweep_impl=sweep_impl,
         max_iterations=max_iterations, collisions=collisions is not None,
         ipc_refine=ipc_refine,
+        plain_f32=dtype == torch.float32 and not compensated,
     )
     vf_auto, ee_auto = vf_budget == "auto", ee_budget == "auto"
     memo_key = None
@@ -580,12 +647,12 @@ def fused_ccd(
         vf_budget = max(vf_budget, memo[0]) if vf_auto else vf_budget
         ee_budget = max(ee_budget, memo[1]) if ee_auto else ee_budget
 
-    vb = build_vertex_boxes(v0, v1, inflation_radius=min_distance, dtype=torch.float32)
+    vb = build_vertex_boxes(v0, v1, inflation_radius=min_distance, dtype=dtype)
     vf_sorted = sort_boxes(merge_two_lists(vb, build_face_boxes(vb, f)), axis=0,
                            bucket_minor=knobs.bucket_minor)
     ee_sorted = sort_boxes(build_edge_boxes(vb, e), axis=0, bucket_minor=knobs.bucket_minor)
 
-    toi = torch.ones((), dtype=torch.float32, device=device)
+    toi = torch.ones((), dtype=dtype, device=device)
     grown = [0, 0]
     out = []
     frame_pool = knobs.escalate_pool == "frame"
@@ -596,7 +663,8 @@ def fused_ccd(
         stream, n_true, overflow, budget, grew = _sweep_phase(sb, is_vf, budget, auto, knobs)
         grown[k] = budget if grew else 0
         nar = NarrowSolver.for_phase(is_vf, v0, v1, e, f, min_distance, tolerance,
-                                     allow_zero_toi, max_iterations, knobs.escalate_rounds)
+                                     allow_zero_toi, max_iterations, knobs.escalate_rounds,
+                                     dtype, compensated)
         toi, checks, capped, refined = _narrow_phase(
             stream, budget, min(_NARROW_BATCH, budget), ps, nar, toi,
             collisions, ipc_refine, frame_pool,

@@ -1,5 +1,6 @@
 """Utilities."""
 
 from scalable_ccd_tpu_torch.utils.logging import logger, set_logger
+from scalable_ccd_tpu_torch.utils.timer import Timer
 
-__all__ = ["logger", "set_logger"]
+__all__ = ["Timer", "logger", "set_logger"]

@@ -250,12 +250,13 @@ def test_config_from_jax_round_trip():
 
 
 @pytest.mark.parametrize("bad, item", [
-    (dict(dtype="float64"), "item 5"),
-    (dict(precision="compensated"), "item 5"),
+    (dict(dtype="float16"), "unknown dtype"),
+    (dict(precision="f64"), "unknown precision"),
     (dict(escalate_rounds=(128, 32)), "ascending"),
     (dict(escalate_rounds=(-1, 32)), "negative"),
     (dict(solver="bfs"), "JAX package"),
     (dict(broad_impl="pallas"), "JAX package"),
+    (dict(dtype="float64", precision="compensated"), "f64 already"),
 ])
 def test_unported_config_values_raise(cloth, bad, item):
     with pytest.raises(ValueError, match=item):

@@ -196,7 +196,7 @@ def test_fused_cuda_equals_cpu(cuda):
 
 
 def test_wrappers_reject_bad_tensors(cuda):
-    rows = torch.zeros((4, 31), dtype=torch.float64, device=cuda)
+    rows = torch.zeros((4, 31), dtype=torch.float16, device=cuda)
     with pytest.raises(ValueError):
         solver.solve_packed(rows, torch.ones(4, dtype=torch.bool, device=cuda), True, 1.0, TOL)
     sb = _sorted(cuda, False)
@@ -292,3 +292,196 @@ def test_fused_congested_knobs_cuda_equal_cpu(cuda):
         assert float(res.toi) == pytest.approx(float(ref.toi), abs=1e-7)
         assert (int(res.vf_total), int(res.ee_total)) == (int(ref.vf_total), int(ref.ee_total))
         assert not bool(res.overflowed)
+
+
+# ---- f64 instantiations and count_only -----------------------------------------
+
+def _sorted_f64(device, two_lists, bucket=False):
+    s = from_numpy_scene(_scene(), device)
+    vb = aabb.build_vertex_boxes(s.vertices_t0, s.vertices_t1, dtype=torch.float64)
+    boxes = (merge_two_lists(vb, aabb.build_face_boxes(vb, s.faces)) if two_lists
+             else aabb.build_edge_boxes(vb, s.edges))
+    return sort_boxes(boxes, bucket_minor=bucket)
+
+
+@pytest.mark.parametrize("any_order", [True, False])
+@pytest.mark.parametrize("two_lists", [True, False])
+def test_sweep_kernels_f64_equal_plain(cuda, two_lists, any_order):
+    """Kernels A (whole and ranged) and A' on f64 boxes: the plain version's
+    pair set and record multiset, a subset of the f32 pair set."""
+    sb = _sorted_f64(cuda, two_lists, any_order)
+    assert sb.major_min.dtype == torch.float64
+    before = dict(sweep_ap.LAUNCHES_BY_MODE), dict(sweep_records.LAUNCHES_BY_MODE)
+    k = sweep_ap.sweep_pairs(sb, two_lists, 1 << 16, any_order=any_order)
+    torch.cuda.synchronize()
+    assert sweep_ap.LAUNCHES_BY_MODE["whole_f64"] == before[0]["whole_f64"] + 1
+    assert sweep_ap.LAUNCHES_BY_MODE["f32"] == before[0]["f32"]
+    p = sweep_ap.sweep_pairs_reference(sb, two_lists, 1 << 16, any_order=any_order)
+    assert int(k[2]) == int(p[2]) > 0 and not bool(k[3])
+    assert _set(k[0], k[1]) == _set(p[0], p[1])
+    f32 = sweep_ap.sweep_pairs(_sorted(cuda, two_lists), two_lists, 1 << 16)
+    assert _set(k[0], k[1]) <= _set(f32[0], f32[1])
+    got = set()
+    for b0 in range(0, sb.n, 41):
+        got |= _set(*sweep_ap.sweep_pairs(sb, two_lists, 1 << 14, box_range=(b0, b0 + 41),
+                                          any_order=any_order)[:2])
+    assert got == _set(k[0], k[1])
+    r = sweep_records.sweep_records(sb, two_lists, 1 << 16, any_order=any_order)
+    torch.cuda.synchronize()
+    assert sweep_records.LAUNCHES_BY_MODE["f64"] == before[1]["f64"] + 1
+    rp = sweep_records.sweep_records_reference(sb, two_lists, 1 << 16, any_order=any_order)
+    assert (int(r[1]), int(r[2])) == (int(rp[1]), int(rp[2])) and int(r[2]) == int(k[2])
+    assert np.array_equal(_records(r[0], r[1]), _records(rp[0], rp[1]))
+    cum = sweep_records.records_pair_prefix(r[0], r[1])
+    dec, _ = sweep_records.decode_records_range(sb, r[0], cum, 0, int(r[2]), 0, two_lists)
+    assert _set(dec, dec.shape[0]) == _set(k[0], k[1])
+
+
+@pytest.mark.parametrize("f64", [True, False])
+@pytest.mark.parametrize("any_order", [True, False])
+@pytest.mark.parametrize("two_lists", [True, False])
+def test_sweep_kernel_count_only_equals_emitting_total(cuda, two_lists, any_order, f64):
+    if f64:
+        sb = _sorted_f64(cuda, two_lists, any_order)
+    else:
+        sb = _bucket_sorted(cuda, two_lists) if any_order else _sorted(cuda, two_lists)
+    before = sweep_ap.LAUNCHES_BY_MODE["count_only_f64" if f64 else "count_only"]
+    total = sweep_ap.sweep_pairs(sb, two_lists, any_order=any_order, count_only=True)
+    torch.cuda.synchronize()
+    assert sweep_ap.LAUNCHES_BY_MODE["count_only_f64" if f64 else "count_only"] == before + 1
+    emitted = sweep_ap.sweep_pairs(sb, two_lists, 64, any_order=any_order)
+    plain = sweep_ap.sweep_pairs_reference(sb, two_lists, any_order=any_order, count_only=True)
+    assert int(total) == int(emitted[2]) == int(plain) > 64
+    ranged = sum(int(sweep_ap.sweep_pairs(sb, two_lists, box_range=(b0, b0 + 300),
+                                          any_order=any_order, count_only=True))
+                 for b0 in range(0, sb.n, 300))
+    assert ranged == int(total)
+    with pytest.raises(ValueError, match="no budget"):
+        sweep_ap.sweep_pairs(sb, two_lists, 64, count_only=True)
+
+
+def _rows_f64(device, is_vf, widened=False, ms=0.0):
+    """Packed f64 rows of every candidate of the scene (f32 rows widened to
+    f64 with the compensated filter when ``widened``), every seventh row
+    invalid."""
+    s = from_numpy_scene(_scene(), device)
+    pairs, n, _, _ = sweep_ap.sweep_pairs_reference(_sorted(device, is_vf), is_vf, 1 << 16)
+    pairs = pairs[: int(n)]
+    vcat = types.concat_frames(s.vertices_t0, s.vertices_t1,
+                               torch.float32 if widened else torch.float64)
+    if is_vf:
+        q = types.gather_vf_queries(vcat, types.pack_face_table(vcat, s.faces), pairs)
+    else:
+        q = types.gather_ee_queries(types.pack_edge_table(vcat, s.edges), pairs)
+    rows = solver.pack_query_rows(q, is_vf, ms, TOL, compensated=widened).double()
+    valid = torch.ones((rows.shape[0],), dtype=torch.bool, device=device)
+    valid[::7] = False
+    return rows, valid
+
+
+@pytest.mark.parametrize("widened", [True, False])
+@pytest.mark.parametrize("is_vf", [True, False])
+def test_solver_kernel_f64_global_equals_plain(cuda, is_vf, widened):
+    """f64 rows, and f32 rows widened to f64 (the compensated precision):
+    the global TOI within 1e-12 of the plain version's (expected bitwise),
+    f64 out, no conservative accept."""
+    rows, valid = _rows_f64(cuda, is_vf, widened)
+    before = dict(solver.LAUNCHES_BY_MODE)
+    toi_k, ovf_k, checks_k = solver.solve_packed(rows, valid, is_vf, 1.0, TOL, widened=widened)
+    torch.cuda.synchronize()
+    assert solver.LAUNCHES_BY_MODE["global_f64"] == before["global_f64"] + 1
+    assert solver.LAUNCHES_BY_MODE["f32"] == before["f32"]
+    toi_p, ovf_p, _ = solver.solve_packed_reference(rows, valid, is_vf, 1.0, TOL,
+                                                    widened=widened)
+    assert toi_k.dtype == torch.float64
+    assert float(toi_k) == pytest.approx(float(toi_p), abs=1e-12)
+    assert 0.0 < float(toi_k) < 1.0 and int(checks_k) > 0
+    assert not bool(ovf_k) and not bool(ovf_p)
+    if widened:  # every bound is an f32 dyadic
+        assert float(toi_k) == float(toi_k.float())
+    toi_ms, _, _ = solver.solve_packed(*_rows_f64(cuda, is_vf, widened, ms=1e-3), is_vf, 1.0,
+                                       TOL, widened=widened)
+    toi_ms_p, _, _ = solver.solve_packed_reference(*_rows_f64(cuda, is_vf, widened, ms=1e-3),
+                                                   is_vf, 1.0, TOL, widened=widened)
+    assert float(toi_ms) == pytest.approx(float(toi_ms_p), abs=1e-12)
+
+
+@pytest.mark.parametrize("is_vf", [True, False])
+@pytest.mark.parametrize("cap", [-1, 10, 100])
+def test_solver_kernel_f64_per_query_equals_plain(cuda, is_vf, cap):
+    rows, valid = _rows_f64(cuda, is_vf)
+    before = dict(solver.LAUNCHES_BY_MODE)
+    toi_k, _, _, pq_k = solver.solve_packed(rows, valid, is_vf, 0.5, TOL, per_query=True,
+                                            max_iterations=cap)
+    torch.cuda.synchronize()
+    assert solver.LAUNCHES_BY_MODE["per_query_f64"] == before["per_query_f64"] + 1
+    assert solver.LAUNCHES_BY_MODE["bounded_f64"] == before["bounded_f64"] + (cap >= 0)
+    toi_p, _, _, pq_p = solver.solve_packed_reference(rows, valid, is_vf, 0.5, TOL,
+                                                      per_query=True, max_iterations=cap)
+    assert pq_k.dtype == torch.float64
+    assert torch.equal(pq_k < 1, pq_p < 1) and torch.equal(torch.isinf(pq_k), torch.isinf(pq_p))
+    fin = torch.isfinite(pq_p)
+    if fin.any():
+        assert float((pq_k[fin] - pq_p[fin]).abs().max()) <= 1e-12
+    if cap >= 0:
+        assert torch.equal(pq_k, pq_p)
+    assert float(toi_k) == min(0.5, float(pq_k.min()))
+    assert float(toi_k) == pytest.approx(float(toi_p), abs=1e-12)
+
+
+@pytest.mark.parametrize("is_vf", [True, False])
+def test_solver_kernel_f64_round_limit_equals_plain(cuda, is_vf):
+    rows, valid = _rows_f64(cuda, is_vf)
+    final, _, _ = solver.solve_packed(rows, valid, is_vf, 1.0, TOL)
+    before = solver.LAUNCHES_BY_MODE["round_limit_f64"]
+    for limit in (0, 7, 30):
+        toi_k, _, ck_k, un_k = solver.solve_packed(rows, valid, is_vf, final, TOL,
+                                                   round_limit=limit)
+        torch.cuda.synchronize()
+        toi_p, _, ck_p, un_p = solver.solve_packed_reference(rows, valid, is_vf, final, TOL,
+                                                             round_limit=limit)
+        assert torch.equal(un_k, un_p) and int(ck_k) == int(ck_p)
+        assert float(toi_k) == float(toi_p) == float(final)
+    assert solver.LAUNCHES_BY_MODE["round_limit_f64"] == before + 3
+    for limits in (4, (2, 16)):
+        toi, _, _ = solver.solve_escalated(rows, valid, is_vf, 1.0, TOL, round_limit=limits)
+        assert float(toi) == float(final)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(dtype=torch.float64), dict(precision="compensated"),
+    dict(dtype="float64", sweep_impl="records", bucket_minor=True),
+    dict(dtype="float64", escalate_rounds=8, escalate_pool="frame"),
+    dict(precision="compensated", escalate_rounds=(2, 8)),
+])
+def test_fused_precision_cuda_equals_cpu(cuda, kw):
+    s = _scene()
+    args = (s.vertices_t0, s.vertices_t1, s.edges, s.faces)
+    before = dict(solver.LAUNCHES_BY_MODE)
+    res = fused_ccd(*args, device=cuda, **kw)
+    torch.cuda.synchronize()
+    assert solver.LAUNCHES_BY_MODE["f64"] > before["f64"]
+    assert solver.LAUNCHES_BY_MODE["f32"] == before["f32"]
+    ref = fused_ccd(*args, device="cpu", **kw)
+    want = torch.float32 if "precision" in kw else torch.float64
+    assert res.toi.dtype == ref.toi.dtype == want
+    assert float(res.toi) == pytest.approx(float(ref.toi), abs=1e-7)
+    assert (int(res.vf_total), int(res.ee_total)) == (int(ref.vf_total), int(ref.ee_total))
+    assert not bool(res.overflowed) and not bool(res.solver_capped)
+
+
+def test_ccd_precision_cuda_equals_cpu(cuda):
+    from scalable_ccd_tpu_torch import CCDConfig
+
+    s = _scene()
+    args = (s.vertices_t0, s.vertices_t1, s.edges, s.faces)
+    for cfg in (CCDConfig(dtype="float64"), CCDConfig(precision="compensated")):
+        assert ccd(*args, config=cfg, device=cuda) == pytest.approx(
+            ccd(*args, config=cfg, device="cpu"), abs=1e-7)
+        hg, hc = [], []
+        ccd(*args, config=cfg, device=cuda, collisions=hg)
+        ccd(*args, config=cfg, device="cpu", collisions=hc)
+        assert [(a, b) for a, b, _ in sorted(hg)] == [(a, b) for a, b, _ in sorted(hc)]
+        assert ipc_ccd_strategy(*args, min_distance=1e-3, config=cfg, device=cuda) == \
+            pytest.approx(ipc_ccd_strategy(*args, min_distance=1e-3, config=cfg, device="cpu"),
+                          abs=1e-7)
