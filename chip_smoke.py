@@ -82,7 +82,19 @@ when it fails:
     not) and timed beside the f32 frame; grid-600 in f64 once; the stage
     tool (``scalable_ccd_tpu_torch.tools.stages``) on the bench scene and
     grid-600 in f32 and on the bench scene in f64, its lines printed as they
-    are; last, grid-1000 in f32 timed once.
+    are;
+15. kernel B on the rows the main path gives it, recorded from its frames
+    (``scalable_ccd_tpu_torch.tools.stages --kernel-b``): the bench frame's
+    16,384-row round-limited passes and frame pool blocks, the bench frame
+    without escalation, grid-600's first four batches per phase and the
+    per-query rows of ``fused_ccd(collisions=[])`` on
+    ``cloth_on_sphere(64, 3)``, in each of their modes, against the plain
+    version (equal TOIs, and equal checks and unfinished rows where the
+    order fixes them), with the spread of the per-query checks (mean, p50,
+    p99, max; the lane efficiency of warps of 32 queries, the one-thread
+    layout, and of groups of 4) and both times; and ``ptxas``'s registers,
+    spills and shared memory for every instantiation of kernel B;
+last, grid-1000 in f32 timed once.
 
 Each kernel row carries its bound: the least time the card could take,
 the larger of the bytes the call must move over 3.35 TB/s (the H100 SXM's
@@ -96,7 +108,12 @@ under ``any_order`` 7 per slot that the walk tests (the stop, both major
 directions, four minor tests) and 2 per partner-row union it reads, counted
 from this run's ``fwd_min``, row unions and run lengths.  The solver moves
 125 bytes per query row in and does about 300 f32 operations per domain
-evaluation, over 67 TFLOP/s.  In f64 a box is 64 bytes and a query row 249,
+evaluation, over 67 TFLOP/s.  Its unbounded modes count the evaluations that
+any search must make: the plain version's on the same rows seeded with the
+answer (``least_checks``), which no order can undercut, and which neither the
+kernel's order nor the plain frontier's late pruning inflates; its capped
+and round-limited modes count their checks, which each query's order fixes
+and kernel and plain version share.  In f64 a box is 64 bytes and a query row 249,
 and the card's non-tensor f64 rate is half its f32 rate: 33.5e12 operations
 and 16.75e12 compares per second.  ``count_only`` moves no pair bytes.  No
 single PyTorch call computes a sweep or a root search, so ``library_ms`` is
@@ -302,6 +319,19 @@ def solve_bound(queries, checks, out_bytes=0, f64=False):
                  F32_OPS_PER_S / (2 if f64 else 1))
 
 
+def least_checks(solver, batches, is_vf, toi, per_query_toi=None):
+    """The evaluations any unbounded search of the rows in ``batches`` must
+    make to find ``toi`` (or, per query, ``per_query_toi``): the plain
+    version seeded with the answer (``ops/solver.py:_least_checks``).  A
+    kernel B bound counts these, not the kernel's own checks, which follow
+    its order, nor the unseeded plain version's, which prunes late."""
+    import torch
+
+    rows = torch.cat(batches)
+    valid = torch.ones((rows.shape[0],), dtype=torch.bool, device=rows.device)
+    return solver._least_checks(rows, valid, is_vf, toi, TOL, per_query_toi)
+
+
 def max_abs(a, b):
     """Largest |a - b| over two tensors of one shape (0.0 when empty)."""
     return float((a - b).abs().max()) if a.numel() else 0.0
@@ -435,12 +465,13 @@ def main():
         kms, pms = alternate(lambda: run(solver.solve_packed_reference),
                              lambda: run(solver.solve_packed), 2)
         b_ms, b_plain_ms, b_err = b_ms + kms, b_plain_ms + pms, max(b_err, err)
-        b_bound = add_bounds(b_bound, solve_bound(rows.shape[0], int(ck)))
+        least = least_checks(solver, batches, is_vf, tp)
+        b_bound = add_bounds(b_bound, solve_bound(rows.shape[0], least))
         bench_rows[is_vf] = (batches, valids, float(tk))
         emit(phase="kernel_b", which=ph, queries=rows.shape[0], batches=len(batches),
              toi=float(tk), plain_toi=float(tp), abs_err=err, checks=int(ck),
-             plain_checks=int(cp), overflow=bool(ok_), plain_overflow=bool(op_),
-             ms=kms, plain_ms=pms)
+             plain_checks=int(cp), least_checks=least, overflow=bool(ok_),
+             plain_overflow=bool(op_), ms=kms, plain_ms=pms)
 
     # ---- 4. the main path ---------------------------------------------------
     mid = cloth_on_sphere(grid_n=64, sphere_subdiv=3)
@@ -478,8 +509,8 @@ def main():
     main_modes = read_counts(sweep_ap, solver)
     check(all(n > 0 for n in launches.values()), f"main path skipped a kernel: {launches}")
     # the bench scene's defaults: the major sort and the frame straggler pool
-    check(main_modes["sweep_whole"] > 0 and main_modes["solve_round_limit"] > 0,
-          f"main path skipped a kernel mode: {main_modes}")
+    check(main_modes["sweep_whole"] > 0 and main_modes["solve_round_limit"] > 0
+          and main_modes["solve_global"] > 0, f"main path skipped a kernel mode: {main_modes}")
     check(not bool(res.overflowed), "bench: overflowed")
     toi = float(res.toi)
     check(0.0 <= toi <= 1.0, f"bench: toi {toi} outside [0, 1]")
@@ -530,6 +561,7 @@ def main():
     f64_rows = phase_f64_kernels(torch, dev, scene, mid, phases)
     counting = phase_count_only(torch, dev, scene, grid600_scene)
     precise = phase_precision_path(torch, dev, scene, mid, grid600_scene, res)
+    phase_kernel_b_rows()
     phase_grid1000(torch, dev, cloth_on_sphere)
 
     launched = lambda run, key: precise[run].get(key, 0)  # noqa: E731
@@ -699,10 +731,14 @@ def phase_exact_modes(torch, dev, cloth_on_sphere, types, solver):
             errs.append(err)
             kms_sum, pms_sum = kms_sum + kms, pms_sum + pms
             n_q = sum(b.shape[0] for b in rows[is_vf][ms])
+            # capped per-query work is fixed by each query's order: the
+            # plain version's checks are the kernel's
+            need = (cp if kw.get("per_query") and "max_iterations" in kw
+                    else least_checks(solver, rows[is_vf][ms], is_vf, tp, pp))
             info.update({ph + "_toi": float(tk), ph + "_checks": ck, ph + "_plain_checks": cp,
-                         ph + "_queries": n_q})
+                         ph + "_least_checks": need, ph + "_queries": n_q})
             # a per-query call also writes one f32 TOI per row
-            bnd = add_bounds(bnd, solve_bound(n_q, ck, 4 * n_q if pk is not None else 0))
+            bnd = add_bounds(bnd, solve_bound(n_q, need, 4 * n_q if pk is not None else 0))
         out[label] = {"max_abs_err": max(errs), "ms": kms_sum, "plain_ms": pms_sum, **bnd}
         emit(phase="kernel_b_mode", mode=label, **out[label], **info)
     bounded = [out[k] for k in ("per_query_cap10", "per_query_cap100", "global_cap")]
@@ -1161,7 +1197,7 @@ def phase_grid_solver(torch, dev, args, samples, types, solver):
                 toi, checks = torch.minimum(toi, t), checks + c
             return toi, checks
 
-        (tk, ck), (tp, _) = cold(solver.solve_packed), cold(solver.solve_packed_reference)
+        (tk, ck), (tp, cp) = cold(solver.solve_packed), cold(solver.solve_packed_reference)
         err = abs(float(tk) - float(tp))
         check(err <= 1e-7, f"grid-600 kernel B {ph}: toi {float(tk)} vs plain {float(tp)}")
         g_ms, g_plain_ms = alternate(lambda: cold(solver.solve_packed_reference),
@@ -1182,10 +1218,11 @@ def phase_grid_solver(torch, dev, args, samples, types, solver):
                   f"grid-600 round_limit {ph} batch {i}: toi moved")
             unfin, checks = unfin + int(k[3].sum()), checks + int(k[2])
         n_q = rows.shape[0]
-        gb, rb = solve_bound(n_q, int(ck)), solve_bound(n_q, checks, n_q)
+        least = least_checks(solver, batches, is_vf, tp)
+        gb, rb = solve_bound(n_q, least), solve_bound(n_q, checks, n_q)
         emit(phase="grid600_solver", which=ph, queries=n_q, batches=len(batches),
              toi=float(tk), plain_toi=float(tp), abs_err=err, checks=int(ck),
-             global_ms=g_ms, global_plain_ms=g_plain_ms, global_bound_ms=gb["bound_ms"],
+             plain_checks=int(cp), least_checks=least, global_ms=g_ms, global_plain_ms=g_plain_ms, global_bound_ms=gb["bound_ms"],
              global_bound_by=gb["bound_by"], unfinished=unfin, seeded_checks=checks,
              round_limit_ms=r_ms, round_limit_plain_ms=r_plain_ms,
              round_limit_bound_ms=rb["bound_ms"], round_limit_bound_by=rb["bound_by"])
@@ -1236,8 +1273,8 @@ def phase_congested_main(torch, dev, grid600, bench_args, cloth_on_sphere, bench
     res = run(grid600)
     torch.cuda.synchronize()
     counts = read_counts()
-    check(counts["sweep_any_order"] > 0 and counts["solve_round_limit"] > 0,
-          f"grid-600 main path skipped a new kernel mode: {counts}")
+    check(counts["sweep_any_order"] > 0 and counts["solve_round_limit"] > 0
+          and counts["solve_global"] > 0, f"grid-600 main path skipped a kernel mode: {counts}")
     ref = run(grid600, bucket_minor=False, escalate_rounds=-1)
     err = same(res, ref, "grid-600 defaults vs plain ordering unbounded")
     # in turns: defaults, plain ordering unbounded, congestion ordering
@@ -1468,8 +1505,10 @@ def phase_f64_kernels(torch, dev, bench_scene, mid_scene, f32_phases):
                                  lambda: run(solver.solve_packed), 1)
             n_q = sum(b.shape[0] for b in batches)
             if not comp:
-                add("global", kms, pms, solve_bound(n_q, int(ck), f64=True), err)
+                least = least_checks(solver, batches, is_vf, tp)
+                add("global", kms, pms, solve_bound(n_q, least, f64=True), err)
                 final, f64_batches, f64_valids = float(tk), batches, valids
+                info["f64_least_checks"] = least
             info.update({label + "_toi": float(tk), label + "_bitwise": err == 0.0,
                          label + "_checks": int(ck), label + "_plain_checks": int(cp),
                          label + "_ms": kms, label + "_plain_ms": pms})
@@ -1532,8 +1571,10 @@ def phase_f64_kernels(torch, dev, bench_scene, mid_scene, f32_phases):
                                  lambda: run(solver.solve_packed), 1)
             n_q = pk.shape[0]
             kms_sum, pms_sum, err_max = kms_sum + kms, pms_sum + pms, max(err_max, err)
-            bnd = add_bounds(bnd, solve_bound(n_q, ck, 8 * n_q, f64=True))
+            need = cp if "max_iterations" in kw else least_checks(solver, batches, is_vf, tp, pp)
+            bnd = add_bounds(bnd, solve_bound(n_q, need, 8 * n_q, f64=True))
             info.update({ph + "_hits": int((pk < 1).sum()), ph + "_checks": ck,
+                         ph + "_least_checks": need,
                          ph + "_bitwise": bool(torch.equal(pk, pp)), ph + "_queries": n_q})
         modes[label] = {"max_abs_err": err_max, "ms": kms_sum, "plain_ms": pms_sum, **bnd}
         emit(phase="f64_kernel_b_mode", mode=label, **modes[label], **info)
@@ -1547,6 +1588,8 @@ def phase_f64_kernels(torch, dev, bench_scene, mid_scene, f32_phases):
                        **add_bounds(caps[0], caps[1])}
     rows["f32_any_order_bench"] = {"ms": f32_any[0], "plain_ms": f32_any[1]}
     emit(phase="f32_any_order_bench", ms=f32_any[0], plain_ms=f32_any[1])
+    # the f64 any_order sweep of the bench scene (its kernels row is grid-600's)
+    emit(phase="f64_any_order_bench", **rows["any_order"])
     return rows
 
 
@@ -1793,7 +1836,9 @@ def phase_precision_path(torch, dev, bench_scene, mid_scene, grid600_scene, f32_
     for grid, subdiv, drop, dtype in ((128, 4, 0.25, "float32"), (600, 4, 0.25, "float32"),
                                       (128, 4, 0.25, "float64")):
         zero_counts()
-        lines = stages.run_stages(grid, subdiv, drop, dtype=dtype, device=dev)
+        # one timed repetition: the script checks the tool; the standalone
+        # tool, run with more, gives PERF.md's breakdown
+        lines = stages.run_stages(grid, subdiv, drop, dtype=dtype, device=dev, reps=1)
         torch.cuda.synchronize()
         counts[f"stages_{grid}_{dtype}"] = {k: v for k, v in read_counts().items() if v}
         frame = lines[-1]
@@ -1806,6 +1851,44 @@ def phase_precision_path(torch, dev, bench_scene, mid_scene, grid600_scene, f32_
           and counts["stages_128_float64"].get(key + "_f64", 0) > 0,
           "the stage tool launched no count_only kernel")
     return counts
+
+
+# ---- 15. kernel B on the main path's rows -------------------------------------------
+
+def ptxas_by_instantiation(log_text):
+    """``{instantiation: "N registers, ..."}`` of kernel B from its ``ptxas
+    -v`` build log: the scalar type and the template flags (VF, per-query,
+    shared domains) of each entry function."""
+    import re
+
+    out, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"solve_kernelI([fd])((?:Lb[01]E)+)", line)
+        if "Compiling entry function" in line and m:
+            vf, pq, share = (f == "1" for f in re.findall(r"Lb([01])E", m.group(2)))
+            name = (f"{'f32' if m.group(1) == 'f' else 'f64'} {'vf' if vf else 'ee'}"
+                    f"{' per_query' if pq else ''}{' shared' if share else ''}")
+            out[name] = ""
+        elif name and ("stack frame" in line or "Used" in line):
+            out[name] = (out[name] + "; " if out[name] else "") + line.split(":", 1)[-1].strip()
+    return out
+
+
+def phase_kernel_b_rows():
+    """Kernel B on the rows the main path gives it (module docstring, phase
+    15; ``tools/stages.py:run_kernel_b``), each line as the tool prints it,
+    and kernel B's ``ptxas`` lines."""
+    from scalable_ccd_tpu_torch.ops import _build
+    from scalable_ccd_tpu_torch.tools import stages
+
+    t = time.perf_counter()
+    lines = stages.run_kernel_b(reps=3, plain=True, emit=lambda line: print(line, flush=True))
+    bad = [(o["set"], o["phase"], o["mode"]) for o in lines if not o["equal"] or o["overflow"]]
+    check(not bad, f"kernel B on the main path's rows differs from its plain version: {bad}")
+    log = _build.build_library("solver").with_suffix(".log").read_text()
+    emit(phase="kernel_b_rows", sets=len(lines), seconds=time.perf_counter() - t,
+         ptxas=ptxas_by_instantiation(log))
+    return lines
 
 
 if __name__ == "__main__":

@@ -120,7 +120,7 @@ def _bind(lib):
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_double, ctypes.c_double,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     lib.sccd_solver_error_string.argtypes = [ctypes.c_int]
@@ -181,14 +181,23 @@ def solve_packed(qrows, valid, is_vf: bool, toi_init, tolerance,
     the ``(Q,)`` bool ``unfin`` plane of the queries still mid-search; those
     neither lower the TOI nor set ``overflow``.
     """
-    global LAUNCHES
-    dev = qrows.device
     _check_round_limit(round_limit, per_query, max_iterations)
-    if dev.type == "cpu":
+    if qrows.device.type == "cpu":
         return solve_packed_reference(
             qrows, valid, is_vf, toi_init, tolerance, allow_zero_toi,
             per_query, max_iterations, round_limit, widened,
         )
+    return _launch(qrows, valid, is_vf, toi_init, tolerance, allow_zero_toi, per_query,
+                   max_iterations, round_limit, widened)[0]
+
+
+def _launch(qrows, valid, is_vf, toi_init, tolerance, allow_zero_toi, per_query,
+            max_iterations, round_limit, widened, query_checks=False):
+    """Kernel B on CUDA tensors: ``(outputs of solve_packed, plane)``, the
+    plane each query's evaluation count (``(Q,)`` int64) where
+    ``query_checks`` asks for it, else ``None``."""
+    global LAUNCHES
+    dev = qrows.device
     if dev.type != "cuda":
         raise ValueError(f"solve_packed: unsupported device {dev}")
     _check_rows(qrows, widened)
@@ -212,6 +221,7 @@ def solve_packed(qrows, valid, is_vf: bool, toi_init, tolerance,
     ovf = torch.zeros((1,), dtype=torch.int32, device=dev)
     pq = torch.full((Q,), float("inf"), dtype=dt, device=dev) if per_query else None
     unfin = torch.zeros((Q,), dtype=torch.bool, device=dev) if round_limit >= 0 else None
+    plane = torch.zeros((Q,), dtype=torch.int64, device=dev) if query_checks else None
     if Q > 0:
         lib = load_library("solver")
         fn = _bind(lib)
@@ -224,6 +234,7 @@ def solve_packed(qrows, valid, is_vf: bool, toi_init, tolerance,
                 toi.data_ptr(), pq.data_ptr() if per_query else None,
                 unfin.data_ptr() if unfin is not None else None,
                 checks.data_ptr(), ovf.data_ptr(),
+                plane.data_ptr() if plane is not None else None,
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         if rc != 0:
@@ -236,8 +247,66 @@ def solve_packed(qrows, valid, is_vf: bool, toi_init, tolerance,
         count_launch(LAUNCHES_BY_MODE, modes or ["global"], f64)
     out = (toi[0], ovf[0] != 0, checks[0])
     if per_query:
-        return out + (pq,)
-    return out + (unfin,) if unfin is not None else out
+        out += (pq,)
+    elif unfin is not None:
+        out += (unfin,)
+    return out, plane
+
+
+def _solve_query_checks(qrows, valid, is_vf, toi_init, tolerance, allow_zero_toi=True,
+                        per_query=False, max_iterations=-1, round_limit=-1, widened=False):
+    """:func:`solve_packed` on CUDA tensors with one more output: the
+    ``(Q,)`` int64 plane of each query's domain evaluations (0 for invalid
+    rows).  For measurements only (``chip_smoke.py``, the stage tool); no
+    caller on the main path asks for the plane."""
+    _check_round_limit(round_limit, per_query, max_iterations)
+    out, plane = _launch(qrows, valid, is_vf, toi_init, tolerance, allow_zero_toi,
+                         per_query, max_iterations, round_limit, widened, query_checks=True)
+    return out + (plane,)
+
+
+def _checks_spread(plane) -> dict:
+    """The spread of per-query evaluation counts (:func:`_solve_query_checks`):
+    mean, median, 99th percentile and maximum, and the lane efficiency of
+    running them in groups of consecutive rows, each group as long as its
+    longest member, for groups of 32 queries (one query per thread, a warp)
+    and of 4 (eight lanes per query, a warp): ``sum(checks) / sum over
+    groups of (size * the group's max)``."""
+    c = plane.to(torch.float64)
+    if c.numel() == 0:
+        return {"queries": 0}
+    out = {"queries": int(c.numel()), "mean": float(c.mean()),
+           "p50": float(c.quantile(0.5)), "p99": float(c.quantile(0.99)),
+           "max": int(c.max())}
+    for size in (32, 4):
+        pad = (-c.numel()) % size
+        g = torch.cat([c, c.new_zeros(pad)]).reshape(-1, size)
+        busy = float(g.amax(dim=1).sum()) * size
+        out[f"lane_efficiency_{size}"] = float(c.sum()) / busy if busy else 1.0
+    return out
+
+
+def _least_checks(qrows, valid, is_vf, toi, tolerance, per_query_toi=None,
+                  allow_zero_toi=True, widened=False) -> int:
+    """The domain evaluations that any unbounded search of these rows must
+    make: the plain frontier seeded with the answer, the final TOI ``toi``
+    (global mode) or each query's final TOI ``per_query_toi`` (per-query
+    mode), so that it prunes against it from the start.  A search that does
+    not know the answer prunes against a bound at or above it, and a larger
+    bound prunes less and culls fewer siblings, so whatever its order it
+    evaluates a superset of these domains.  For measurements only
+    (``chip_smoke.py``'s bounds); no caller on the main path uses it."""
+    _check_rows(qrows, widened)
+    dev, dt = qrows.device, qrows.dtype
+    caps = search_caps(dt, widened)
+    co_tol = torch.tensor(_co_tolerance(tolerance, dt, widened), dtype=dt, device=dev)
+    seed = torch.as_tensor(toi, dtype=dt, device=dev).reshape(()).clone()
+    per_query = per_query_toi is not None
+    tpq = (per_query_toi.to(dt).clone() if per_query
+           else torch.full((qrows.shape[0],), float("inf"), dtype=dt, device=dev))
+    out = _frontier(qrows, valid.to(torch.bool), is_vf, seed, tpq, co_tol, caps,
+                    allow_zero_toi, per_query, -1)
+    return int(out[2])
 
 
 def solve_packed_reference(qrows, valid, is_vf: bool, toi_init, tolerance,
@@ -280,8 +349,19 @@ def solve_packed_reference(qrows, valid, is_vf: bool, toi_init, tolerance,
         return dfs_lockstep(q, tol, err, ms, valid, co_tol, toi_init, is_vf,
                             allow_zero_toi, max_iterations, round_limit, caps)
     toi = torch.as_tensor(toi_init, dtype=dt, device=dev).reshape(()).clone()
+    tpq = torch.full((qrows.shape[0],), float("inf"), dtype=dt, device=dev)
+    return _frontier(qrows, valid, is_vf, toi, tpq, co_tol, caps, allow_zero_toi,
+                     per_query, max_iterations)
+
+
+def _frontier(qrows, valid, is_vf, toi, tpq, co_tol, caps, allow_zero_toi, per_query,
+              max_iterations):
+    """The frontier bisection of :func:`solve_packed_reference` from the
+    running TOI ``toi`` (0-d) and, in ``per_query`` mode, the per-query
+    TOIs ``tpq`` (``(Q,)``, lowered in place); returns the outputs of
+    :func:`solve_packed_reference`."""
+    dev, dt = qrows.device, qrows.dtype
     n_rows = qrows.shape[0]
-    tpq = torch.full((n_rows,), float("inf"), dtype=dt, device=dev)
     qchecks = torch.zeros((n_rows,), dtype=torch.int64, device=dev)
     ovf = torch.zeros((), dtype=torch.bool, device=dev)
     checks = 0

@@ -19,7 +19,10 @@ times, per phase (VF, EE) where the stage has one:
 - ``gather_pack``: the query gather and row packing of every candidate, in
   the main path's narrow batches;
 - ``solve``: kernel B over those batches, one unbounded global pass each,
-  the running TOI threaded through VF and then EE;
+  the running TOI threaded through VF and then EE; on CUDA one more,
+  untimed pass reads each query's evaluation count and the line carries
+  their spread (``checks_spread``, ``ops/solver.py:_checks_spread``; ``null``
+  on the CPU);
 
 and ``fused_ccd``, the whole frame at its defaults.  Every pair budget is
 the power of two above the ``sweep_count_only`` total, never a constant.
@@ -29,11 +32,17 @@ median host time of the whole stage, ending in a device synchronize, and
 work (``null`` on the CPU).  One JSON line per stage, with the scene, the
 dtype, the device and the stage's counts.  ``device`` is as for the entry
 points: CUDA unless the caller asks for the CPU.
+
+``--kernel-b [--plain]`` measures kernel B alone on the rows the main path
+gives it (:func:`run_kernel_b`), on a CUDA device::
+
+    python -m scalable_ccd_tpu_torch.tools.stages --kernel-b --plain
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import time
@@ -47,6 +56,7 @@ from scalable_ccd_tpu_torch.geometry.aabb import (
     build_vertex_boxes,
 )
 from scalable_ccd_tpu_torch.geometry.scenes import cloth_on_sphere
+from scalable_ccd_tpu_torch.ops import solver
 from scalable_ccd_tpu_torch.ops.sweep_ap import partner_planes, sweep_pairs
 from scalable_ccd_tpu_torch.ops.sweep_records import (
     decode_records_range,
@@ -64,7 +74,7 @@ from scalable_ccd_tpu_torch.pipeline.fused import (
     resolve_knobs,
 )
 
-__all__ = ["run_stages", "main"]
+__all__ = ["run_stages", "kernel_b_sets", "run_kernel_b", "main"]
 
 
 def _timed(fn, reps: int, device: torch.device):
@@ -162,14 +172,204 @@ def run_stages(grid: int = 128, subdiv: int = 4, drop: float = 0.25,
                 toi, checks = torch.minimum(toi, t), checks + c
             return toi, checks
 
+        def spread(_, toi=toi):
+            if device.type != "cuda" or not rows:
+                return None
+            planes = []
+            for r, v in zip(rows, valids):
+                t, *_, plane = solver._solve_query_checks(r, v, is_vf, toi, 1e-6)
+                toi = torch.minimum(toi, t)
+                planes.append(plane)
+            return solver._checks_spread(torch.cat(planes))
+
         toi = stage("solve", phase, solve, queries=total, batches=len(cuts),
-                    toi=lambda r: float(r[0]), checks=lambda r: int(r[1]))[0]
+                    toi=lambda r: float(r[0]), checks=lambda r: int(r[1]),
+                    checks_spread=spread)[0]
 
     stage("fused_ccd", None,
           lambda: fused_ccd(v0, v1, e, f, device=device, validate=False, dtype=dtype),
           toi=lambda r: float(r.toi), vf_total=lambda r: int(r.vf_total),
           ee_total=lambda r: int(r.ee_total), total_checks=lambda r: int(r.total_checks),
           overflowed=lambda r: bool(r.overflowed))
+    return out
+
+
+# ---- kernel B on the main path's rows -----------------------------------------
+
+@contextlib.contextmanager
+def _recorded_launches(calls, keep=lambda kw: True):
+    """Append the inputs of every kernel B launch made inside the block to
+    ``calls`` (copies, as :func:`scalable_ccd_tpu_torch.ops.solver.
+    solve_packed`'s keywords plus ``qrows`` and ``valid``), those that
+    ``keep`` accepts."""
+    launch = solver._launch
+
+    def record(qrows, valid, is_vf, toi_init, tolerance, allow_zero_toi, per_query,
+               max_iterations, round_limit, widened, query_checks=False):
+        kw = {"is_vf": bool(is_vf), "tolerance": tolerance,
+              "allow_zero_toi": bool(allow_zero_toi), "per_query": bool(per_query),
+              "max_iterations": int(max_iterations), "round_limit": int(round_limit),
+              "widened": bool(widened)}
+        if keep(kw):
+            calls.append({"qrows": qrows.clone(), "valid": valid.clone(),
+                          "toi_init": torch.as_tensor(toi_init).clone(), **kw})
+        return launch(qrows, valid, is_vf, toi_init, tolerance, allow_zero_toi, per_query,
+                      max_iterations, round_limit, widened, query_checks)
+
+    solver._launch = record
+    try:
+        yield calls
+    finally:
+        solver._launch = launch
+
+
+def _mode(call):
+    if call["round_limit"] >= 0:
+        return "round_limit"
+    if call["per_query"]:
+        return "per_query" if call["max_iterations"] < 0 else "bounded"
+    return "global" if call["max_iterations"] < 0 else "bounded"
+
+
+def kernel_b_sets(device=None) -> list:
+    """``[(set, phase, mode, calls)]``: kernel B's launches on the main path,
+    recorded from the frames that make them, grouped by phase and mode:
+
+    - ``bench``: ``fused_ccd`` of the bench scene at its defaults (the
+      presample and the frame straggler pool: 16,384-row ``round_limit``
+      passes, then the pool's blocks of at most 2,048 rows, ``global``);
+    - ``bench_unbounded``: the same frame with ``escalate_rounds=-1`` (every
+      batch one ``global`` pass);
+    - ``grid600``: ``fused_ccd`` of ``cloth_on_sphere(600, 4)`` at its
+      defaults (the batch ladder), the launches of each phase's first four
+      batches;
+    - ``grid64_collisions``: ``fused_ccd(collisions=[])`` of
+      ``cloth_on_sphere(64, 3)`` (``per_query``), and the same rows with
+      ``max_iterations`` 10 and 100 (``bounded``, the IPC path's mode).
+
+    A ``round_limit`` set is seeded with its frame's TOI, as the pool's
+    passes are once the presample has found it: a pass whose shared TOI no
+    other query lowers has one result, which its plain version reproduces.
+    Every other launch keeps the running TOI the frame gave it."""
+    device = resolve_device(device)
+    if device.type != "cuda":
+        raise RuntimeError("kernel_b_sets records kernel B launches: it needs a CUDA device")
+    out = []
+
+    def frame(name, scene, keep=lambda kw: True, **kw):
+        s = cloth_on_sphere(*scene)
+        v0, v1, e, f = mesh_tensors(s.vertices_t0, s.vertices_t1, s.edges, s.faces, device,
+                                    pca=False)
+        with _recorded_launches([], keep) as calls:
+            res = fused_ccd(v0, v1, e, f, device=device, validate=False, **kw)
+        groups = {}
+        for c in calls:
+            if c["round_limit"] >= 0:
+                c["toi_init"] = res.toi.clone()
+            groups.setdefault(("vf" if c["is_vf"] else "ee", _mode(c)), []).append(c)
+        out.extend((name, ph, mode, cs) for (ph, mode), cs in groups.items())
+
+    frame("bench", (128, 4, 0.25))
+    frame("bench_unbounded", (128, 4, 0.25), escalate_rounds=-1)
+    passes = {True: 0, False: 0}
+
+    def first_batches(kw):
+        # a batch is one round-limited pass and the ladder's solves after it
+        passes[kw["is_vf"]] += kw["round_limit"] >= 0
+        return passes[kw["is_vf"]] <= 4
+
+    frame("grid600", (600, 4, 0.25), first_batches)
+    frame("grid64_collisions", (64, 3, 0.25), collisions=[])
+    for cap in (10, 100):
+        out.extend(("grid64_collisions", ph, f"bounded{cap}",
+                    [{**c, "max_iterations": cap} for c in cs])
+                   for name, ph, mode, cs in list(out)
+                   if name == "grid64_collisions" and mode == "per_query")
+    return out
+
+
+#: GPU cycles of the sleep queued ahead of a timed pass (~25 ms at 1.98 GHz)
+_SLEEP_CYCLES = 50_000_000
+
+
+def _events_ms(fn, reps):
+    """Device milliseconds of one pass of ``fn``, the mean of ``reps``.
+    Each pass is queued behind a GPU-side sleep long enough for the host to
+    enqueue all of it, so the CUDA events measure the card's work and not
+    the host's gaps between launches."""
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(_SLEEP_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def _solve_calls(fn, calls):
+    """``fn`` (a :func:`solver.solve_packed`-like call) on each recorded
+    launch's inputs; the list of their outputs."""
+    return [fn(c["qrows"], c["valid"], c["is_vf"], c["toi_init"], c["tolerance"],
+               c["allow_zero_toi"], c["per_query"], c["max_iterations"], c["round_limit"],
+               c["widened"]) for c in calls]
+
+
+def run_kernel_b(device=None, reps=3, plain=False, emit=print) -> list:
+    """Kernel B on each set of :func:`kernel_b_sets`: one JSON line per set,
+    with its launches, rows, checks, TOI, the spread of the per-query
+    checks (``ops/solver.py:_checks_spread``: mean, p50, p99, max, and the
+    lane efficiency of warps of 32 queries and of 4) and ``ms``, the
+    device time of one pass over the set (the mean of ``reps``, each pass
+    behind a GPU sleep).  With ``plain`` the plain version runs once on the
+    same inputs (``plain_ms``, ``plain_checks``), and the line says whether
+    they agree (``equal``): every TOI bitwise, and where the order fixes
+    them (``round_limit`` seeded, bounded per-query) the checks and the
+    unfinished rows; ``least_checks`` (``ops/solver.py:_least_checks``) is
+    the work of an unbounded set that any order must do."""
+    lines = []
+    for name, ph, mode, calls in kernel_b_sets(device):
+        outs = _solve_calls(solver._solve_query_checks, calls)
+        plane = torch.cat([o[-1] for o in outs])
+        line = {"set": name, "phase": ph, "mode": mode, "launches": len(calls),
+                "queries": int(plane.numel()), "checks": sum(int(o[2]) for o in outs),
+                "spread": solver._checks_spread(plane),
+                "ms": _events_ms(lambda: _solve_calls(solver.solve_packed, calls), reps),
+                "toi": min(float(o[0]) for o in outs),
+                "overflow": any(bool(o[1]) for o in outs)}
+        if mode == "round_limit":
+            line["unfinished"] = sum(int(o[3].sum()) for o in outs)
+        if plain:
+            line.update(_against_plain(calls, mode, outs))
+        lines.append(line)
+        emit(json.dumps(line))
+    return lines
+
+
+def _against_plain(calls, mode, outs):
+    """The plain version once on the same inputs: its time and checks, and
+    the equalities the kernel must meet (:func:`run_kernel_b`)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = _solve_calls(solver.solve_packed_reference, calls)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    equal = all(float(k[0]) == float(p[0]) for k, p in zip(outs, ref))
+    if len(ref[0]) > 3:  # per-query TOIs or unfinished rows
+        equal &= all(torch.equal(k[3], p[3]) for k, p in zip(outs, ref))
+    if mode != "global" and mode != "per_query":
+        equal &= all(int(k[2]) == int(p[2]) for k, p in zip(outs, ref))
+    out = {"plain_ms": plain_ms, "plain_checks": sum(int(p[2]) for p in ref),
+           "equal": bool(equal)}
+    if mode in ("global", "per_query"):
+        out["least_checks"] = sum(
+            solver._least_checks(c["qrows"], c["valid"], c["is_vf"], p[0], c["tolerance"],
+                                 p[3] if mode == "per_query" else None,
+                                 c["allow_zero_toi"], c["widened"])
+            for c, p in zip(calls, ref))
     return out
 
 
@@ -181,7 +381,14 @@ def main(argv=None) -> int:
     ap.add_argument("--dtype", default="float32", choices=("float32", "float64"))
     ap.add_argument("--device", default=None)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--kernel-b", action="store_true",
+                    help="kernel B alone on the main path's rows (CUDA only)")
+    ap.add_argument("--plain", action="store_true",
+                    help="with --kernel-b: the plain version on the same inputs, compared")
     a = ap.parse_args(argv)
+    if a.kernel_b:
+        lines = run_kernel_b(a.device, a.reps, a.plain)
+        return 0 if all(o.get("equal", True) and not o["overflow"] for o in lines) else 1
     run_stages(a.grid, a.subdiv, a.drop, a.dtype, a.device, a.reps)
     return 0
 

@@ -485,3 +485,145 @@ def test_ccd_precision_cuda_equals_cpu(cuda):
         assert ipc_ccd_strategy(*args, min_distance=1e-3, config=cfg, device=cuda) == \
             pytest.approx(ipc_ccd_strategy(*args, min_distance=1e-3, config=cfg, device="cpu"),
                           abs=1e-7)
+
+
+# ---- kernel B's layout: ragged blocks, empty blocks, every mode and type ---------
+
+_KINDS = {"f32": (torch.float32, False), "f64": (torch.float64, False),
+          "widened": (torch.float64, True)}
+
+
+def _rows_kind(device, is_vf, kind, scene=None):
+    """Packed rows of every candidate of ``scene`` (the small cloth by
+    default) in ``kind``'s type: f32, f64, or f32 rows with the compensated
+    filter widened to f64; every seventh row invalid."""
+    dtype, widened = _KINDS[kind]
+    s = from_numpy_scene(scene if scene is not None else _scene(), device)
+    vb = aabb.build_vertex_boxes(s.vertices_t0, s.vertices_t1, dtype=torch.float64)
+    boxes = (merge_two_lists(vb, aabb.build_face_boxes(vb, s.faces)) if is_vf
+             else aabb.build_edge_boxes(vb, s.edges))
+    pairs, n, _, _ = sweep_ap.sweep_pairs_reference(sort_boxes(boxes), is_vf, 1 << 18)
+    pairs = pairs[: int(n)]
+    vcat = types.concat_frames(s.vertices_t0, s.vertices_t1,
+                               torch.float32 if widened else dtype)
+    if is_vf:
+        q = types.gather_vf_queries(vcat, types.pack_face_table(vcat, s.faces), pairs)
+    else:
+        q = types.gather_ee_queries(types.pack_edge_table(vcat, s.edges), pairs)
+    rows = solver.pack_query_rows(q, is_vf, 0.0, TOL, compensated=widened).to(dtype)
+    valid = torch.ones((rows.shape[0],), dtype=torch.bool, device=device)
+    valid[::7] = False
+    return rows, valid
+
+
+def _every_mode_equals_plain(rows, valid, is_vf, widened=False, toi_init=1.0):
+    """Kernel B against its plain version in every mode on ``rows``: global
+    and per-query TOIs bitwise, per-query bounded checks, and the unfinished
+    rows and checks of round-limited passes seeded with the final TOI; the
+    ladder's TOI is the unbounded one; no conservative accept.  Returns the
+    global TOI."""
+    kw = dict(widened=widened)
+    g = solver.solve_packed(rows, valid, is_vf, toi_init, TOL, **kw)
+    torch.cuda.synchronize()
+    gp = solver.solve_packed_reference(rows, valid, is_vf, toi_init, TOL, **kw)
+    assert float(g[0]) == float(gp[0]) and not bool(g[1]) and not bool(gp[1])
+    for cap in (-1, 10, 100):
+        k = solver.solve_packed(rows, valid, is_vf, toi_init, TOL, per_query=True,
+                                max_iterations=cap, **kw)
+        p = solver.solve_packed_reference(rows, valid, is_vf, toi_init, TOL, per_query=True,
+                                          max_iterations=cap, **kw)
+        assert torch.equal(k[3], p[3]) and float(k[0]) == float(p[0]), cap
+        assert torch.isinf(k[3][~valid]).all()
+        if cap >= 0:
+            assert int(k[2]) == int(p[2]), cap
+    final = g[0]
+    for limit in (0, 7, 30, 128):
+        k = solver.solve_packed(rows, valid, is_vf, final, TOL, round_limit=limit, **kw)
+        p = solver.solve_packed_reference(rows, valid, is_vf, final, TOL, round_limit=limit,
+                                          **kw)
+        assert torch.equal(k[3], p[3]) and int(k[2]) == int(p[2]), limit
+        assert float(k[0]) == float(p[0]) == float(final) and not k[3][~valid].any()
+    esc = solver.solve_escalated(rows, valid, is_vf, toi_init, TOL, round_limit=(4, 32),
+                                 widened=widened)
+    assert float(esc[0]) == float(final) and not bool(esc[1])
+    return float(final)
+
+
+@pytest.mark.parametrize("kind", ["f32", "f64", "widened"])
+@pytest.mark.parametrize("is_vf", [True, False])
+def test_solver_kernel_every_mode_and_type_equals_plain(cuda, is_vf, kind):
+    rows, valid = _rows_kind(cuda, is_vf, kind)
+    before = dict(solver.LAUNCHES_BY_MODE)
+    toi = _every_mode_equals_plain(rows, valid, is_vf, widened=kind == "widened")
+    assert 0.0 < toi < 1.0
+    f64 = kind != "f32"
+    for mode in ("global", "per_query", "bounded", "round_limit"):
+        key = mode + "_f64" if f64 else mode
+        assert solver.LAUNCHES_BY_MODE[key] > before[key], mode
+
+
+@pytest.mark.parametrize("n", [1, 5, 31, 33, 100])
+def test_solver_kernel_ragged_row_counts(cuda, n):
+    """Row counts that fill no whole group of eight lanes or block of 32
+    queries, the earliest contacts among them."""
+    rows, valid = _rows_kind(cuda, False, "f32")
+    pq = solver.solve_packed_reference(rows, valid, False, 1.0, TOL, per_query=True)[3]
+    pick = torch.sort(torch.argsort(pq)[:n]).values
+    sub, sub_valid = rows[pick].contiguous(), valid[pick].contiguous()
+    sub_valid[0] = True
+    _every_mode_equals_plain(sub, sub_valid, False)
+
+
+def test_solver_kernel_all_rows_invalid(cuda):
+    rows, _ = _rows_kind(cuda, True, "f32")
+    none = torch.zeros((rows.shape[0],), dtype=torch.bool, device=cuda)
+    toi, ovf, checks = solver.solve_packed(rows, none, True, 0.75, TOL)
+    assert float(toi) == 0.75 and not bool(ovf) and int(checks) == 0
+    toi, _, checks, pq = solver.solve_packed(rows, none, True, 0.75, TOL, per_query=True)
+    assert float(toi) == 0.75 and int(checks) == 0 and torch.isinf(pq).all()
+    toi, _, checks, unfin = solver.solve_packed(rows, none, True, 0.75, TOL, round_limit=3)
+    assert float(toi) == 0.75 and int(checks) == 0 and not unfin.any()
+    *_, plane = solver._solve_query_checks(rows, none, True, 0.75, TOL)
+    assert int(plane.abs().sum()) == 0
+
+
+def test_solver_kernel_zero_toi_init(cuda):
+    """A seed of 0 prunes every root at its first evaluation in global mode;
+    per-query mode ignores the seed."""
+    rows, valid = _rows_kind(cuda, True, "f32")
+    n_valid = int(valid.sum())
+    toi, ovf, checks = solver.solve_packed(rows, valid, True, 0.0, TOL)
+    assert float(toi) == 0.0 and not bool(ovf) and int(checks) == n_valid
+    k = solver.solve_packed(rows, valid, True, 0.0, TOL, per_query=True)
+    free = solver.solve_packed(rows, valid, True, 1.0, TOL, per_query=True)
+    assert float(k[0]) == 0.0 and torch.equal(k[3], free[3])
+    _, _, checks, unfin = solver.solve_packed(rows, valid, True, 0.0, TOL, round_limit=1)
+    assert int(checks) == n_valid and not unfin.any()
+    _every_mode_equals_plain(rows, valid, True, toi_init=0.0)
+
+
+@pytest.mark.parametrize("kind", ["f32", "f64", "widened"])
+@pytest.mark.parametrize("is_vf", [True, False])
+def test_solver_kernel_deep_query_among_shallow(cuda, is_vf, kind):
+    """The dense-cluster golden scene's candidates: a few deep searches
+    among shallow ones, the case sharing domains inside a block is for.
+    Every mode equals the plain version, and the per-query checks plane
+    adds up to the checks."""
+    import os
+
+    from scalable_ccd_tpu_torch.geometry import read_ply
+    from scalable_ccd_tpu_torch.geometry.scenes import Scene
+
+    gdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
+                        "dense-cluster", "frames")
+    v0, faces = read_ply(os.path.join(gdir, "f0.ply"))
+    v1, _ = read_ply(os.path.join(gdir, "f1.ply"))
+    scene = Scene(v0, v1, faces)
+    rows, valid = _rows_kind(cuda, is_vf, kind, scene)
+    _every_mode_equals_plain(rows, valid, is_vf, widened=kind == "widened")
+    for per_query in (False, True):
+        out = solver._solve_query_checks(rows, valid, is_vf, 1.0, TOL, per_query=per_query,
+                                         widened=kind == "widened")
+        plane = out[-1]
+        assert int(plane.sum()) == int(out[2]) and int(plane[~valid].abs().sum()) == 0
+        assert int(plane.max()) > float(plane[valid].double().median())

@@ -142,3 +142,16 @@ def test_timer():
     assert t.get_elapsed_us() == pytest.approx(t.get_elapsed_s() * 1e6)
     t.stop()  # stopping a stopped timer keeps the reading
     assert t.get_elapsed_s() > 0.0
+
+
+def test_kernel_b_rows_need_cuda():
+    """``--kernel-b`` records kernel B's launches on the main path, which
+    exist only on a CUDA device; elsewhere it raises before any frame."""
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        stages.run_kernel_b(device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        stages.main(["--kernel-b", "--device", "cpu"])
+    modes = [stages._mode({"round_limit": r, "per_query": p, "max_iterations": m})
+             for r, p, m in ((128, False, -1), (-1, False, -1), (-1, True, -1),
+                             (-1, True, 10), (-1, False, 10))]
+    assert modes == ["round_limit", "global", "per_query", "bounded", "bounded"]
