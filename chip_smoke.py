@@ -36,8 +36,9 @@ when it fails:
 8. congestion on grid-600 (``cloth_on_sphere(600, 4)``, 1,085,284 VF
    boxes): the bucket-ordered sort, kernel A ``any_order`` against its
    plain version (equal pair sets and totals) and against kernel A on the
-   major sort (equal sets, also against the plain version there), both
-   kernel variants and both plain versions timed;
+   major sort (equal sets, also against the plain version there), each
+   launch counted by mode, both kernel variants and both plain versions
+   timed;
 9. kernel A' (records) against its plain version on the bench scene and on
    grid-600, in both orderings: equal record multisets and counts, its
    pair total equal to kernel A's, its decoded pairs equal to kernel A's,
@@ -93,7 +94,7 @@ when it fails:
     order fixes them), with the spread of the per-query checks (mean, p50,
     p99, max; the lane efficiency of warps of 32 queries, the one-thread
     layout, and of groups of 4) and both times; and ``ptxas``'s registers,
-    spills and shared memory for every instantiation of kernel B;
+    spills and shared memory for every instantiation of kernels B and A;
 last, grid-1000 in f32 timed once.
 
 Each kernel row carries its bound: the least time the card could take,
@@ -1007,8 +1008,12 @@ def phase_congestion(torch, args, sweep_ap):
         planes = sweep_ap.partner_planes(bucket)
         n_true = int(sweep_ap.sweep_pairs(major, two, 64)[2])
         budget = pow2ceil(n_true)
+        zero_counts()
         k = sweep_ap.sweep_pairs(bucket, two, budget, any_order=True, planes=planes)
         w = sweep_ap.sweep_pairs(major, two, budget)
+        counts = {m: sweep_ap.LAUNCHES_BY_MODE[m] for m in ("whole", "any_order")}
+        check(counts == {"whole": 2, "any_order": 1},
+              f"congestion {ph}: kernel A launches by mode {counts}")
         p, plain_ms = timed_once(
             lambda: sweep_ap.sweep_pairs_reference(bucket, two, budget, any_order=True,
                                                    planes=planes))
@@ -1856,19 +1861,32 @@ def phase_precision_path(torch, dev, bench_scene, mid_scene, grid600_scene, f32_
 # ---- 15. kernel B on the main path's rows -------------------------------------------
 
 def ptxas_by_instantiation(log_text):
-    """``{instantiation: "N registers, ..."}`` of kernel B from its ``ptxas
-    -v`` build log: the scalar type and the template flags (VF, per-query,
-    shared domains) of each entry function."""
+    """``{instantiation: "N registers, ..."}`` from a ``ptxas -v`` build log:
+    kernel B's entry functions by scalar type and template flags (VF,
+    per-query, shared domains), kernel A's by scalar type and mode
+    (``any_order``, ``count_only``) with its two unit-count launches."""
     import re
 
     out, name = {}, None
     for line in log_text.splitlines():
-        m = re.search(r"solve_kernelI([fd])((?:Lb[01]E)+)", line)
-        if "Compiling entry function" in line and m:
-            vf, pq, share = (f == "1" for f in re.findall(r"Lb([01])E", m.group(2)))
-            name = (f"{'f32' if m.group(1) == 'f' else 'f64'} {'vf' if vf else 'ee'}"
-                    f"{' per_query' if pq else ''}{' shared' if share else ''}")
-            out[name] = ""
+        if "Compiling entry function" in line:
+            name = None
+            flags = lambda m: [f == "1" for f in re.findall(r"Lb([01])E", m.group(2))]  # noqa: E731
+            fp = lambda m: "f32" if m.group(1) == "f" else "f64"  # noqa: E731
+            if m := re.search(r"solve_kernelI([fd])((?:Lb[01]E)+)", line):
+                vf, pq, share = flags(m)
+                name = (f"{fp(m)} {'vf' if vf else 'ee'}{' per_query' if pq else ''}"
+                        f"{' shared' if share else ''}")
+            elif m := re.search(r"sweep_units_kernelI([fd])((?:Lb[01]E)+)", line):
+                any_order, count_only = flags(m)
+                name = (f"sweep {fp(m)} {'any_order' if any_order else 'whole'}"
+                        f"{' count_only' if count_only else ''}")
+            elif m := re.search(r"tile_units_kernelI([fd])((?:Lb[01]E)+)", line):
+                name = f"tile_units {fp(m)}{' any_order' if flags(m)[0] else ''}"
+            elif "unit_prefix_kernel" in line:
+                name = "unit_prefix"
+            if name:
+                out[name] = ""
         elif name and ("stack frame" in line or "Used" in line):
             out[name] = (out[name] + "; " if out[name] else "") + line.split(":", 1)[-1].strip()
     return out
@@ -1886,8 +1904,9 @@ def phase_kernel_b_rows():
     bad = [(o["set"], o["phase"], o["mode"]) for o in lines if not o["equal"] or o["overflow"]]
     check(not bad, f"kernel B on the main path's rows differs from its plain version: {bad}")
     log = _build.build_library("solver").with_suffix(".log").read_text()
+    sweep_log = _build.build_library("sweep_ap").with_suffix(".log").read_text()
     emit(phase="kernel_b_rows", sets=len(lines), seconds=time.perf_counter() - t,
-         ptxas=ptxas_by_instantiation(log))
+         ptxas=ptxas_by_instantiation(log), kernel_a_ptxas=ptxas_by_instantiation(sweep_log))
     return lines
 
 

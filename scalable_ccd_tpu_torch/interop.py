@@ -104,17 +104,18 @@ def config_from_jax(cfg):
 
 def fused_kwargs_from_jax(**kwargs) -> dict:
     """JAX ``fused_ccd`` options as the port's: ``escalate_rounds``,
-    ``escalate_pool``, ``bucket_minor`` and ``precision`` carry over as they
-    are (``None`` and ``"auto"`` mean auto in both), ``dtype`` (a numpy or
-    jax.numpy scalar type, or its name) becomes ``"float32"`` or
+    ``escalate_pool``, ``bucket_minor``, ``precision``, ``presample`` (a
+    bool, a ``(vf, ee)`` pair or auto) and ``narrow_batch`` carry over as
+    they are (``None`` and ``"auto"`` mean auto in both), ``dtype`` (a
+    numpy or jax.numpy scalar type, or its name) becomes ``"float32"`` or
     ``"float64"``, and ``sweep_impl`` maps to ``"pairs"`` (``xla``,
     ``pallas_ap``) or ``"records"`` (the record layouts).  Options that
     choose between the JAX package's own implementations (``solver``,
-    ``narrow_order``, ``presample``, ...) have no counterpart and raise
-    ``ValueError``."""
+    ``narrow_order``, ...) have no counterpart and raise ``ValueError``."""
     out = {}
     for name, value in kwargs.items():
-        if name in ("escalate_rounds", "escalate_pool", "bucket_minor", "precision"):
+        if name in ("escalate_rounds", "escalate_pool", "bucket_minor", "precision",
+                    "presample", "narrow_batch"):
             out[name] = value
         elif name == "dtype":
             out[name] = np.dtype(value).name

@@ -27,7 +27,16 @@ both); the pair set of f64 boxes is a subset of the f32 one, whose boxes are
 rounded outward.  ``count_only`` walks and tests as always and returns only
 the exact survivor total: no pair buffer exists, and the kernel sums its
 survivors per thread, warp and block and takes one atomic per block, so its
-time against the emitting kernel's is what the atomic append costs.
+time against the emitting kernel's is what the append costs.
+
+The kernel works in units (``csrc/sweep_ap.cu``): a tile of :data:`TILE`
+sorted boxes of the box range against one :data:`ROW`-partner row of the
+tile's partner range, which ends where the stops (``major_min``, or
+``fwd_min`` under ``any_order``) pass the tile's largest ``major_max``;
+under ``any_order`` only the rows the row skip keeps for the tile count.
+:func:`sweep_tiles` is the plain version of its first two launches, which
+find each tile's range and number the units; each box's own run lies in
+its tile's range, so the units cover every candidate slot once.
 
 :func:`sweep_pairs` runs the CUDA kernel on CUDA tensors and the plain
 version on CPU tensors; any other device raises.  Nothing falls back.
@@ -53,9 +62,11 @@ __all__ = [
     "sweep_pairs",
     "sweep_pairs_reference",
     "sweep_positions",
+    "sweep_tiles",
     "LAUNCHES",
     "LAUNCHES_BY_MODE",
     "ROW",
+    "TILE",
 ]
 
 #: kernel launches made by :func:`sweep_pairs` in this process
@@ -69,6 +80,10 @@ LAUNCHES_BY_MODE = launch_counts("whole", "range", "any_order", "count_only")
 
 #: partners per row of the row-skip planes (the JAX kernel's 128-lane row)
 ROW = 128
+
+#: boxes per tile of the kernel's work units (one warp; a unit is a tile
+#: against one row of partners)
+TILE = 32
 
 #: fill of the pair buffer rows past ``n_pairs`` in the plain version
 _SENTINEL = -(2**31) + 1
@@ -105,8 +120,11 @@ def _bind(lib):
     fn = lib.sccd_sweep_pairs
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
+    lib.sccd_sweep_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.sccd_sweep_scratch_bytes.restype = ctypes.c_longlong
     lib.sccd_sweep_error_string.argtypes = [ctypes.c_int]
     lib.sccd_sweep_error_string.restype = ctypes.c_char_p
     return fn
@@ -209,38 +227,100 @@ def sweep_pairs(sorted_boxes: SortedBoxes, is_two_lists: bool, budget=None,
     check_boxes(sorted_boxes, "sweep_pairs", planes if any_order else None)
     pairs = None if count_only else torch.empty((budget, 2), dtype=torch.int32, device=dev)
     n_true = torch.zeros((1,), dtype=torch.int64, device=dev)
-    n = sorted_boxes.n
-    b0, b1 = _resolve_range(box_range, n)
+    b0, b1 = _resolve_range(box_range, sorted_boxes.n)
     if b1 > b0:
-        lib = load_library("sweep_ap")
-        fn = _bind(lib)
-        sb = sorted_boxes
-        f64 = sb.major_min.dtype == torch.float64
-        pl = (planes.fwd_min.data_ptr(), planes.row_umin.data_ptr(),
-              planes.row_umax.data_ptr()) if any_order else (None, None, None)
-        with torch.cuda.device(dev):
-            rc = fn(
-                sb.major_min.data_ptr(), sb.major_max.data_ptr(),
-                sb.minor_min.data_ptr(), sb.minor_max.data_ptr(),
-                sb.vertex_ids.data_ptr(), sb.element_id.data_ptr(), *pl,
-                n, b0, b1, int(bool(is_two_lists)), int(bool(any_order)),
-                int(f64), int(count_only),
-                None if count_only else pairs.data_ptr(),
-                0 if count_only else budget, n_true.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream,
-            )
-        if rc != 0:
-            msg = lib.sccd_sweep_error_string(rc)
-            raise RuntimeError(f"sweep_ap kernel launch failed: {msg.decode()}")
+        _launch(sorted_boxes, is_two_lists, (b0, b1), any_order, planes, pairs, budget,
+                n_true)
         LAUNCHES += 1
         modes = ["whole" if box_range is None else "range"]
         modes += ["any_order"] if any_order else []
         modes += ["count_only"] if count_only else []
-        count_launch(LAUNCHES_BY_MODE, modes, f64)
+        count_launch(LAUNCHES_BY_MODE, modes, sorted_boxes.major_min.dtype == torch.float64)
     n_true = n_true[0]
     if count_only:
         return n_true
     return pairs, torch.clamp(n_true, max=budget), n_true, n_true > budget
+
+
+def _launch(sb: SortedBoxes, is_two_lists, box_range, any_order, planes, pairs, budget,
+            n_true):
+    """Launch kernel A over the non-empty ``box_range``; ``pairs`` is None
+    with ``count_only``.  Returns the kernel's scratch (int64), which
+    :func:`_scratch_tiles` reads."""
+    b0, b1 = box_range
+    dev = sb.major_min.device
+    lib = load_library("sweep_ap")
+    fn = _bind(lib)
+    scratch = torch.empty((-(-lib.sccd_sweep_scratch_bytes(b0, b1) // 8),),
+                          dtype=torch.int64, device=dev)
+    pl = (planes.fwd_min.data_ptr(), planes.row_umin.data_ptr(),
+          planes.row_umax.data_ptr()) if any_order else (None, None, None)
+    with torch.cuda.device(dev):
+        rc = fn(
+            sb.major_min.data_ptr(), sb.major_max.data_ptr(),
+            sb.minor_min.data_ptr(), sb.minor_max.data_ptr(),
+            sb.vertex_ids.data_ptr(), sb.element_id.data_ptr(), *pl,
+            sb.n, b0, b1, int(bool(is_two_lists)), int(bool(any_order)),
+            int(sb.major_min.dtype == torch.float64), int(pairs is None),
+            None if pairs is None else pairs.data_ptr(),
+            0 if pairs is None else budget, n_true.data_ptr(), scratch.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        msg = lib.sccd_sweep_error_string(rc)
+        raise RuntimeError(f"sweep_ap kernel launch failed: {msg.decode()}")
+    return scratch
+
+
+def _scratch_tiles(scratch: torch.Tensor, n_tiles: int):
+    """``(end, prefix)`` of :func:`sweep_tiles` as the kernel's first two
+    launches left them in ``scratch`` (``csrc/sweep_ap.cu:scratch_at``: the
+    prefix, the grab counter, a sum per block of 256 tiles, the ends)."""
+    blocks = -(-n_tiles // 256)
+    end = scratch[n_tiles + 2 + blocks:].view(torch.int32)[:n_tiles]
+    return end.to(torch.int64), scratch[:n_tiles + 1]
+
+
+def sweep_tiles(sorted_boxes: SortedBoxes, box_range=None, any_order: bool = False,
+                planes=None):
+    """Plain version of the work units of kernel A: ``(begin, end,
+    prefix)``, int64.  Tile ``t`` holds the sorted boxes ``[b0 + TILE * t,
+    min(b0 + TILE * (t + 1), b1))`` of ``box_range = (b0, b1)``; its partners
+    are ``[begin[t], end[t])``, ``begin`` the tile's first box plus one and
+    ``end`` the first position whose stop (``major_min``, or ``fwd_min``
+    under ``any_order``) exceeds the tile's largest ``major_max``.  Tile
+    ``t`` owns units ``[prefix[t], prefix[t + 1])``, one per :data:`ROW`
+    -partner row its range touches, in order; under ``any_order`` only the
+    rows whose union of minor axis 0 meets the union of the tile's."""
+    sb = sorted_boxes
+    dev = sb.major_min.device
+    b0, b1 = _resolve_range(box_range, sb.n)
+    if any_order and planes is None:
+        planes = partner_planes(sb)
+    begin = torch.arange(b0, b1, TILE, device=dev) + 1
+    pad = begin.numel() * TILE - (b1 - b0)
+    inf = float("inf")
+
+    def per_tile(x, fill, reduce):
+        return reduce(torch.nn.functional.pad(x[b0:b1], (0, pad), value=fill).view(-1, TILE), 1)
+
+    reach = per_tile(sb.major_max, -inf, torch.amax)
+    stops = planes.fwd_min if any_order else sb.major_min
+    # the stops up to a tile's first box lie at or below its reach
+    end = torch.maximum(torch.searchsorted(stops, reach, right=True), begin)
+    row0, row1 = begin // ROW, (end - 1) // ROW
+    units = torch.where(end > begin, row1 - row0 + 1, 0)
+    if any_order:
+        u_lo = per_tile(sb.minor_min[:, 0], inf, torch.amin)
+        u_hi = per_tile(sb.minor_max[:, 0], -inf, torch.amax)
+        tile = torch.repeat_interleave(torch.arange(begin.numel(), device=dev), units)
+        first = torch.cumsum(units, 0) - units
+        row = row0[tile] + torch.arange(tile.numel(), device=dev) - first[tile]
+        kept = (planes.row_umin[row] <= u_hi[tile]) & (planes.row_umax[row] >= u_lo[tile])
+        units = torch.zeros_like(units).index_add_(0, tile, kept.to(units.dtype))
+    prefix = torch.cat([torch.zeros((1,), dtype=torch.int64, device=dev),
+                        torch.cumsum(units, 0)])
+    return begin, end, prefix
 
 
 def sweep_positions(sorted_boxes: SortedBoxes, is_two_lists: bool,

@@ -12,13 +12,13 @@ Counterpart of ``scalable_ccd_tpu/pipeline/fused.py:fused_ccd``.  In order:
    :func:`scalable_ccd_tpu_torch.ops.sweep_records.sweep_records` (kernel
    A', ``sweep_impl="records"``), each with ``any_order`` under the
    congestion ordering;
-4. take the candidates in narrow batches of 16,384 pairs (records decode
-   each batch's range), gather and pack them with tolerances, error filters
-   and the minimum separation, and solve them with kernel B
-   (:mod:`scalable_ccd_tpu_torch.ops.solver`).  VF runs before EE and one
-   running TOI is threaded through both; below 2^20 boxes a phase starts
-   with one warm-start batch spread over its candidates (presample), and it
-   stops early once the TOI reaches 0;
+4. take the candidates in narrow batches of ``narrow_batch`` (16,384) pairs
+   (records decode each batch's range), gather and pack them with
+   tolerances, error filters and the minimum separation, and solve them
+   with kernel B (:mod:`scalable_ccd_tpu_torch.ops.solver`).  VF runs before
+   EE and one running TOI is threaded through both; below 2^20 boxes (or as
+   ``presample`` says) a phase starts with one warm-start batch spread over
+   its candidates, and it stops early once the TOI reaches 0;
 5. staged escalation (``escalate_rounds``, 128 rounds on the global path):
    below 2^20 VF boxes the frame straggler pool (every batch runs one
    bounded pass and appends its unfinished rows to a phase-wide pool,
@@ -123,7 +123,7 @@ CONGESTION_MIN_BOXES = 1 << 20
 #: staged-escalation rounds of the auto policy (``_AUTO_ESCALATE_ROUNDS``)
 AUTO_ESCALATE_ROUNDS = 128
 
-#: candidate pairs per solver call
+#: candidate pairs per solver call (``fused_ccd(narrow_batch=)``'s default)
 _NARROW_BATCH = 1 << 14
 
 #: smallest budget the auto mode picks (16k pair rows)
@@ -209,7 +209,8 @@ def resolve_dtype(dtype):
 def resolve_knobs(n_vf: int, n_ee: int, *, bucket_minor="auto", escalate_rounds=None,
                   escalate_pool="auto", sweep_impl: str = "pairs",
                   max_iterations: int = -1, collisions: bool = False,
-                  ipc_refine: bool = False, plain_f32: bool = True) -> Knobs:
+                  ipc_refine: bool = False, plain_f32: bool = True,
+                  presample="auto") -> Knobs:
     """The auto policies as functions of the phases' box counts ``n_vf``
     (vertices + faces) and ``n_ee`` (edges), as JAX ``fused_ccd`` resolves
     them (``fused.py:1880-1947``): congestion ordering from
@@ -219,7 +220,10 @@ def resolve_knobs(n_vf: int, n_ee: int, *, bucket_minor="auto", escalate_rounds=
     phase below the threshold.  Unless ``plain_f32`` (an f64 or compensated
     request) auto escalation is off and the auto pool is the batch ladder.
     An explicit ``escalate_pool="frame"`` where the frame pool cannot run
-    raises (the JAX package warns and takes the batch ladder)."""
+    raises (the JAX package warns and takes the batch ladder).
+    ``presample`` is ``"auto"`` (or ``None``), a bool for both phases, or a
+    ``(vf, ee)`` pair (JAX ``_resolve_auto_presample``, ``fused.py:150-170,
+    1939-1947``, and ``fused_ccd_core``'s tuple, ``:1644-1648``)."""
     if sweep_impl not in ("pairs", "records"):
         raise ValueError(f"unknown sweep_impl {sweep_impl!r}: 'pairs' or 'records'")
     if escalate_pool not in ("auto", None, "batch", "frame"):
@@ -242,8 +246,15 @@ def resolve_knobs(n_vf: int, n_ee: int, *, bucket_minor="auto", escalate_rounds=
             f"got escalate_rounds={er!r}, max_iterations={max_iterations}, "
             f"collisions={collisions}, ipc_refine={ipc_refine}"
         )
-    return Knobs(bool(bucket_minor), er, escalate_pool, n_vf < CONGESTION_MIN_BOXES,
-                 n_ee < CONGESTION_MIN_BOXES, sweep_impl)
+    if presample in ("auto", None):
+        presample = (n_vf < CONGESTION_MIN_BOXES, n_ee < CONGESTION_MIN_BOXES)
+    elif isinstance(presample, (tuple, list)):
+        if len(presample) != 2:
+            raise ValueError(f"presample={presample!r}: a (vf, ee) pair, a bool or 'auto'")
+    else:
+        presample = (presample, presample)
+    return Knobs(bool(bucket_minor), er, escalate_pool, bool(presample[0]),
+                 bool(presample[1]), sweep_impl)
 
 
 def _pow2ceil(n: int) -> int:
@@ -570,6 +581,8 @@ def fused_ccd(
     sweep_impl: str = "pairs",
     dtype=torch.float32,
     precision: str = "f32",
+    presample="auto",
+    narrow_batch: int = _NARROW_BATCH,
 ) -> FusedCCDResult:
     """Earliest time of impact of a linearly moving triangle mesh.
 
@@ -597,8 +610,12 @@ def fused_ccd(
     ``"frame"`` below 2^20 VF boxes on the global path, ``"batch"``
     otherwise) are the staged escalation; the TOI is the unbounded one
     bitwise unless a conservative accept fires.  ``sweep_impl`` is
-    ``"pairs"`` (kernel A) or ``"records"`` (kernel A').  See
-    :func:`resolve_knobs`.
+    ``"pairs"`` (kernel A) or ``"records"`` (kernel A').  ``presample``
+    (``"auto"``: per phase below 2^20 boxes; a bool, or a ``(vf, ee)``
+    pair) runs one warm-start batch spread over a phase's candidates before
+    its loop, where the budget holds four batches; the TOI is the same
+    either way.  See :func:`resolve_knobs`.  ``narrow_batch`` is the number
+    of candidates per solver call, ``min(narrow_batch, budget)`` per phase.
 
     ``vf_budget``/``ee_budget`` bound the candidate pairs per phase;
     ``"auto"`` guesses from the scene size and retries a phase once from
@@ -619,6 +636,8 @@ def fused_ccd(
             "ipc_refine has no per-pair output (the reference discards "
             "collisions in ipc_ccd_strategy, ipc_ccd_strategy.cu:52-54)"
         )
+    if int(narrow_batch) < 1:
+        raise ValueError(f"narrow_batch={narrow_batch!r}: at least one candidate per batch")
     dtype = resolve_dtype(dtype)
     check_precision(precision, dtype == torch.float64)
     compensated = precision == "compensated"
@@ -633,7 +652,7 @@ def fused_ccd(
         escalate_pool=escalate_pool, sweep_impl=sweep_impl,
         max_iterations=max_iterations, collisions=collisions is not None,
         ipc_refine=ipc_refine,
-        plain_f32=dtype == torch.float32 and not compensated,
+        plain_f32=dtype == torch.float32 and not compensated, presample=presample,
     )
     vf_auto, ee_auto = vf_budget == "auto", ee_budget == "auto"
     memo_key = None
@@ -666,7 +685,7 @@ def fused_ccd(
                                      allow_zero_toi, max_iterations, knobs.escalate_rounds,
                                      dtype, compensated)
         toi, checks, capped, refined = _narrow_phase(
-            stream, budget, min(_NARROW_BATCH, budget), ps, nar, toi,
+            stream, budget, min(int(narrow_batch), budget), ps, nar, toi,
             collisions, ipc_refine, frame_pool,
         )
         out.append((n_true, overflow, checks, capped, refined))

@@ -37,6 +37,12 @@ points: CUDA unless the caller asks for the CPU.
 gives it (:func:`run_kernel_b`), on a CUDA device::
 
     python -m scalable_ccd_tpu_torch.tools.stages --kernel-b --plain
+
+``--kernel-a`` measures kernel A alone in each mode and dtype on the bench
+scene and grid-600, and the frames that use it (:func:`run_kernel_a`), on a
+CUDA device; run from two trees in turns, it compares two kernels::
+
+    python -m scalable_ccd_tpu_torch.tools.stages --kernel-a
 """
 
 from __future__ import annotations
@@ -63,6 +69,7 @@ from scalable_ccd_tpu_torch.ops.sweep_records import (
     records_pair_prefix,
     sweep_records,
 )
+from scalable_ccd_tpu_torch.pipeline.ccd import ccd
 from scalable_ccd_tpu_torch.pipeline.fused import (
     _NARROW_BATCH,
     NarrowSolver,
@@ -74,7 +81,7 @@ from scalable_ccd_tpu_torch.pipeline.fused import (
     resolve_knobs,
 )
 
-__all__ = ["run_stages", "kernel_b_sets", "run_kernel_b", "main"]
+__all__ = ["run_stages", "kernel_b_sets", "run_kernel_b", "run_kernel_a", "main"]
 
 
 def _timed(fn, reps: int, device: torch.device):
@@ -373,6 +380,107 @@ def _against_plain(calls, mode, outs):
     return out
 
 
+# ---- kernel A alone, and the frames that use it ------------------------------------
+
+#: the scenes of run_kernel_a: ``cloth_on_sphere`` arguments
+_KERNEL_A_SCENES = {"bench": (128, 4, 0.25), "grid600": (600, 4, 0.25)}
+_FRAME_SCENES = {**_KERNEL_A_SCENES, "grid384": (384, 5, 0.25)}
+
+
+def _phase_boxes(v0, v1, e, f, dtype):
+    vb = build_vertex_boxes(v0, v1, dtype=dtype)
+    return {"vf": (True, merge_two_lists(vb, build_face_boxes(vb, f))),
+            "ee": (False, build_edge_boxes(vb, e))}
+
+
+def _keys_sum(pairs, n):
+    """The sum of the pairs' 64-bit keys, a digest of the pair set that
+    does not depend on the row order."""
+    p = pairs[: int(n)].to(torch.int64)
+    return int((p[:, 0] * (1 << 32) + p[:, 1]).sum())
+
+
+def run_kernel_a(device=None, reps=5, emit=print) -> list:
+    """Kernel A alone, then the frames that use it, on a CUDA device.
+
+    Per scene of ``_KERNEL_A_SCENES``, dtype (f32, f64) and phase, one JSON
+    line per mode: ``whole`` (the major sort), ``range`` (ranged launches
+    over chunks of 2^15 boxes, summed), ``any_order`` (the congestion
+    ordering), ``count_only`` and ``count_only_any_order``; ``ms`` is the
+    device time of one pass (:func:`_events_ms`), ``pairs`` the exact total
+    and ``keys_sum`` a digest of the pair set.  Then per scene of
+    ``_FRAME_SCENES`` and dtype, ``fused_ccd`` at its defaults: the TOI (and
+    its ``float.hex``), totals, checks and the median host ms per frame of
+    ``reps`` after a warm-up; and ``ccd()`` on the bench scene in f32.  Only
+    ``sweep_pairs``'s contract is used, so a tree with another kernel A
+    behind it is timed the same way."""
+    device = resolve_device(device)
+    if device.type != "cuda":
+        raise RuntimeError("run_kernel_a times CUDA kernels: it needs a CUDA device")
+    lines = []
+
+    def out(**line):
+        lines.append(line)
+        emit(json.dumps(line))
+
+    chunk = 1 << 15
+    for name, args in _KERNEL_A_SCENES.items():
+        s = cloth_on_sphere(*args)
+        v0, v1, e, f = mesh_tensors(s.vertices_t0, s.vertices_t1, s.edges, s.faces, device,
+                                    pca=False)
+        for dtype in (torch.float32, torch.float64):
+            for ph, (two, boxes) in _phase_boxes(v0, v1, e, f, dtype).items():
+                major, bucket = sort_boxes(boxes), sort_boxes(boxes, bucket_minor=True)
+                planes = partner_planes(bucket)
+                total = int(sweep_pairs(major, two, count_only=True))
+                budget = _pow2ceil(total)
+                ranges = [(b, min(b + chunk, major.n)) for b in range(0, major.n, chunk)]
+                modes = {
+                    "whole": lambda: [sweep_pairs(major, two, budget)],
+                    "range": lambda: [sweep_pairs(major, two, budget, box_range=r)
+                                      for r in ranges],
+                    "any_order": lambda: [sweep_pairs(bucket, two, budget, any_order=True,
+                                                      planes=planes)],
+                    "count_only": lambda: [sweep_pairs(major, two, count_only=True)],
+                    "count_only_any_order": lambda: [sweep_pairs(
+                        bucket, two, any_order=True, planes=planes, count_only=True)],
+                }
+                # the ranged pass keeps no pair buffer alive, as the
+                # chunked ccd() keeps none
+                timed = {"range": lambda: [sweep_pairs(major, two, budget, box_range=r)[2]
+                                           for r in ranges]}
+                for mode, fn in modes.items():
+                    res = fn()
+                    if mode.startswith("count_only"):
+                        pairs, keys = int(res[0]), None
+                    else:
+                        pairs = sum(int(r[2]) for r in res)
+                        keys = sum(_keys_sum(r[0], r[1]) for r in res)
+                    out(kernel="sweep_pairs", scene=name, dtype=str(dtype)[6:], phase=ph,
+                        mode=mode, boxes=major.n, launches=len(res), pairs=pairs,
+                        keys_sum=keys, ms=_events_ms(timed.get(mode, fn), reps))
+    for name, args in _FRAME_SCENES.items():
+        s = cloth_on_sphere(*args)
+        v0, v1, e, f = mesh_tensors(s.vertices_t0, s.vertices_t1, s.edges, s.faces, device,
+                                    pca=False)
+        for dtype in (torch.float32, torch.float64):
+            res, wall, _ = _timed(
+                lambda: fused_ccd(v0, v1, e, f, device=device, validate=False, dtype=dtype),
+                reps, device)
+            out(frame="fused_ccd", scene=name, dtype=str(dtype)[6:], toi=float(res.toi),
+                toi_hex=float(res.toi).hex(), vf_total=int(res.vf_total),
+                ee_total=int(res.ee_total), total_checks=int(res.total_checks),
+                overflowed=bool(res.overflowed), ms=wall)
+    s = cloth_on_sphere(*_KERNEL_A_SCENES["bench"])
+    v0, v1, e, f = mesh_tensors(s.vertices_t0, s.vertices_t1, s.edges, s.faces, device,
+                                pca=False)
+    toi, wall, _ = _timed(lambda: ccd(v0, v1, e, f, device=device, validate=False), reps,
+                          device)
+    out(frame="ccd", scene="bench", dtype="float32", toi=float(toi), toi_hex=float(toi).hex(),
+        ms=wall)
+    return lines
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("grid", nargs="?", type=int, default=128)
@@ -385,7 +493,12 @@ def main(argv=None) -> int:
                     help="kernel B alone on the main path's rows (CUDA only)")
     ap.add_argument("--plain", action="store_true",
                     help="with --kernel-b: the plain version on the same inputs, compared")
+    ap.add_argument("--kernel-a", action="store_true",
+                    help="kernel A alone in every mode and dtype, and its frames (CUDA only)")
     a = ap.parse_args(argv)
+    if a.kernel_a:
+        lines = run_kernel_a(a.device, a.reps)
+        return 0 if not any(o.get("overflowed") for o in lines) else 1
     if a.kernel_b:
         lines = run_kernel_b(a.device, a.reps, a.plain)
         return 0 if all(o.get("equal", True) and not o["overflow"] for o in lines) else 1

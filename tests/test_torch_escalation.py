@@ -163,7 +163,7 @@ JAX_FUSED = dict(solver="pallas", dtype=F32, vf_budget=1 << 14, ee_budget=1 << 1
 
 
 @pytest.mark.parametrize("pool,rounds", [("frame", 4), ("batch", (2, 8))])
-def test_fused_congested_knobs_match_jax(pool, rounds, monkeypatch):
+def test_fused_congested_knobs_match_jax(pool, rounds):
     """The JAX main path's congested knobs, forced below the threshold:
     the congestion ordering with the ``any_order`` sweep, staged
     escalation through ``pool`` and record emission, against JAX
@@ -179,10 +179,9 @@ def test_fused_congested_knobs_match_jax(pool, rounds, monkeypatch):
                       escalate_pool=pool)
     plain = fused_ccd(*_args(s), bucket_minor=False, escalate_rounds=-1, **CPU)
     # batches of 2,048 put several batches in each phase
-    monkeypatch.setattr(port_fused, "_NARROW_BATCH", 1 << 11)
     for variant in (kw, dict(kw, sweep_impl="pairs"), dict(kw, escalate_rounds=0),
                     dict(kw, escalate_rounds=(0, 4), escalate_pool="batch")):
-        res = fused_ccd(*_args(s), **variant, **CPU)
+        res = fused_ccd(*_args(s), **variant, narrow_batch=1 << 11, **CPU)
         assert not bool(res.overflowed) and not bool(ref.overflowed)
         assert float(res.toi) == pytest.approx(float(ref.toi), abs=1e-7)
         assert float(res.toi) == float(plain.toi)

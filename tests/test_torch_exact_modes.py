@@ -340,9 +340,9 @@ def test_fused_ipc_refine_is_independent_of_pair_row_order(monkeypatch):
     v0, v1 = np.concatenate(v0p), np.concatenate(v1p)
     faces = np.stack(fp).astype(np.int32)
     edges = jmesh.edges_from_faces(faces)
-    monkeypatch.setattr(port_fused, "_NARROW_BATCH", 4)
     real = port_fused.sweep_pairs
-    kw = dict(min_distance=0.05, ipc_refine=True, vf_budget=64, ee_budget=256, **CPU)
+    kw = dict(min_distance=0.05, ipc_refine=True, vf_budget=64, ee_budget=256, narrow_batch=4,
+              **CPU)
     base = fused_ccd(v0, v1, edges, faces, **kw)
     assert int(base.vf_total) > 8 and int(base.ipc_refinements) >= 1
     for seed in range(2):

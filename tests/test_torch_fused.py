@@ -23,7 +23,7 @@ from scalable_ccd_tpu.geometry import scenes as jscenes
 from scalable_ccd_tpu.pipeline.fused import fused_ccd as jax_fused_ccd
 import scalable_ccd_tpu_torch
 from scalable_ccd_tpu_torch import fused_ccd
-from scalable_ccd_tpu_torch.interop import from_numpy_scene
+from scalable_ccd_tpu_torch.interop import from_numpy_scene, fused_kwargs_from_jax
 from scalable_ccd_tpu_torch.ops import solver, sweep_ap
 from scalable_ccd_tpu_torch.pipeline import fused as port_fused
 
@@ -57,6 +57,46 @@ def test_fused_matches_jax(name):
     res = fused_ccd(*_args(s), **CPU)
     _assert_same(res, ref)
     assert 0.0 <= float(res.toi) <= 1.0 and int(res.total_checks) > 0
+
+
+@pytest.mark.parametrize("presample", [True, False])
+def test_fused_presample_and_narrow_batch_match_jax(presample):
+    """Batches of 4,096 (the budget holds four, so a presample runs when
+    asked) with the warm-start batch on and off: TOI and totals of JAX
+    ``fused_ccd`` with the same options, also through ``interop``."""
+    s = SCENES["cloth20"]()
+    jkw = dict(presample=presample, narrow_batch=1 << 12)
+    ref = jax_fused_ccd(*_args(s), dtype=jnp.float32, **jkw)
+    kw = fused_kwargs_from_jax(**jkw)
+    assert kw == jkw
+    res = fused_ccd(*_args(s), **kw, **CPU)
+    _assert_same(res, ref)
+    # per phase
+    mixed = fused_ccd(*_args(s), presample=(presample, not presample), narrow_batch=1 << 12,
+                      **CPU)
+    _assert_same(mixed, ref)
+
+
+def test_fused_defaults_are_auto_presample_and_batches_of_16384(monkeypatch):
+    """The defaults resolve as before the options existed: a presample in
+    each phase below 2^20 boxes and batches of 16,384."""
+    s = SCENES["cloth20"]()
+    calls = []
+    real = port_fused._narrow_phase
+    monkeypatch.setattr(port_fused, "_narrow_phase",
+                        lambda stream, budget, batch, presample, *a: calls.append(
+                            (budget, batch, presample))
+                        or real(stream, budget, batch, presample, *a))
+    res = fused_ccd(*_args(s), **CPU)
+    assert len(calls) == 2
+    assert all(batch == min(budget, 1 << 14) and ps for budget, batch, ps in calls)
+    explicit = fused_ccd(*_args(s), presample=True, narrow_batch=1 << 14, **CPU)
+    for a, b in zip(res, explicit):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="narrow_batch"):
+        fused_ccd(*_args(s), narrow_batch=0, **CPU)
+    with pytest.raises(ValueError, match="presample"):
+        fused_ccd(*_args(s), presample=(True,), **CPU)
 
 
 def test_fused_tensor_inputs_match_numpy_inputs():

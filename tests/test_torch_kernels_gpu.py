@@ -627,3 +627,71 @@ def test_solver_kernel_deep_query_among_shallow(cuda, is_vf, kind):
         plane = out[-1]
         assert int(plane.sum()) == int(out[2]) and int(plane[~valid].abs().sum()) == 0
         assert int(plane.max()) > float(plane[valid].double().median())
+
+
+# ---- kernel A's work units (tiles of 32 boxes against rows of 128 partners) -------
+
+def _unit_case(name, device, dtype):
+    """A case of ``tests/test_torch_sweep_tiles.py`` on the card in ``dtype``."""
+    from test_torch_sweep_tiles import CASES
+
+    sb = CASES[name]()
+    return type(sb)(*[t.to(device, dtype) if t.is_floating_point() else t.to(device)
+                      for t in sb])
+
+
+_UNIT_CASES = ["ragged1", "ragged2", "ragged127", "ragged128", "ragged129", "ragged1000",
+               "stacked", "vf", "ee", "vf_bucket", "ee_bucket"]
+
+
+def _unit_modes(name, n):
+    """``(any_order, box_range)`` of a case: the congestion-ordered cases
+    only with ``any_order``, the whole range and ranges that start or end
+    inside a tile."""
+    from test_torch_sweep_tiles import box_ranges
+
+    orders = [True] if name.endswith("bucket") else [False, True]
+    return [(a, r) for a in orders for r in box_ranges(n)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", _UNIT_CASES)
+def test_sweep_kernel_units_equal_plain(cuda, name, dtype):
+    """Ragged tiles, a stack whose runs are longer than a row, box ranges
+    that start or end inside a tile, ``any_order`` with skipped and
+    unskipped rows; budgets 0, 64 and exactly the total: the plain
+    version's pair set and exact total, ``count_only`` the same total."""
+    sb = _unit_case(name, cuda, dtype)
+    two = not name.startswith("ee")
+    planes = sweep_ap.partner_planes(sb)
+    for any_order, rng in _unit_modes(name, sb.n):
+        kw = dict(box_range=rng, any_order=any_order, planes=planes)
+        p = sweep_ap.sweep_pairs_reference(sb, two, 1 << 20, **kw)
+        want = _set(p[0], p[1])
+        total = int(p[2])
+        for budget in (0, 64, total):
+            k = sweep_ap.sweep_pairs(sb, two, budget, **kw)
+            torch.cuda.synchronize()
+            label = (name, any_order, rng, budget)
+            assert int(k[2]) == total, label
+            assert int(k[1]) == min(total, budget) and bool(k[3]) == (total > budget), label
+            got = _set(k[0], k[1])
+            assert len(got) == int(k[1]) and got <= want, label
+        assert got == want
+        assert int(sweep_ap.sweep_pairs(sb, two, count_only=True, **kw)) == total
+
+
+@pytest.mark.parametrize("name", _UNIT_CASES)
+def test_sweep_kernel_tiles_equal_plain(cuda, name):
+    """The tile ends and unit prefix of the kernel's first two launches
+    equal :func:`sweep_tiles`."""
+    sb = _unit_case(name, cuda, torch.float32)
+    planes = sweep_ap.partner_planes(sb)
+    for any_order, rng in _unit_modes(name, sb.n):
+        b0, b1 = (0, sb.n) if rng is None else rng
+        n_true = torch.zeros((1,), dtype=torch.int64, device=cuda)
+        scratch = sweep_ap._launch(sb, True, (b0, b1), any_order, planes, None, 0, n_true)
+        torch.cuda.synchronize()
+        _, end, prefix = sweep_ap.sweep_tiles(sb, rng, any_order, planes)
+        k_end, k_prefix = sweep_ap._scratch_tiles(scratch, end.numel())
+        assert torch.equal(k_end, end) and torch.equal(k_prefix, prefix), (name, any_order, rng)
