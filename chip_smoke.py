@@ -42,8 +42,9 @@ when it fails:
 9. kernel A' (records) against its plain version on the bench scene and on
    grid-600, in both orderings: equal record multisets and counts, its
    pair total equal to kernel A's, its decoded pairs equal to kernel A's,
-   a budget of 64 that overflows with exact totals; A' plus the full
-   decode timed against kernel A;
+   budgets of 0 and 64 that overflow with exact totals (the 64 records
+   written are records of the full run); A' plus the full decode timed
+   against kernel A;
 10. kernel B ``round_limit`` 128 against its plain version on the bench
     candidates: seeded with the final TOI the unfinished rows and checks
     are equal; from a cold start the ladder gives the unbounded TOI
@@ -71,8 +72,12 @@ when it fails:
 13. kernel A ``count_only``: equal to the emitting kernel's total and to the
     plain count on the bench scene and on grid-600, whole, ranged (2^15-box
     chunks summed) and ``any_order``, f32 and f64, timed in turns with the
-    emitting kernel (the difference is what the atomic append costs); on
-    grid-600 the f64 ``any_order`` kernel also against its plain version;
+    emitting kernel (the difference is what the atomic append costs), each
+    with its bound; on grid-600 the f64 ``any_order`` kernel also against
+    its plain version, and kernel A' in f64 in both orderings (exact pair
+    total, one record per (row, partner), decoded pairs equal to kernel
+    A's; under the major sort the plain version's record multiset), timed
+    in turns with kernel A, with its bound;
 14. the precision path: the three golden scenes through ``fused_ccd`` in
     f32, compensated and f64 (``dense-cluster``: f32 gives 0, the other two
     recover the golden TOI, also through ``ccd()``); ``fused_ccd(dtype=
@@ -93,8 +98,9 @@ when it fails:
     version (equal TOIs, and equal checks and unfinished rows where the
     order fixes them), with the spread of the per-query checks (mean, p50,
     p99, max; the lane efficiency of warps of 32 queries, the one-thread
-    layout, and of groups of 4) and both times; and ``ptxas``'s registers,
-    spills and shared memory for every instantiation of kernels B and A;
+    layout, and of groups of 4) and both times; ``ptxas``'s registers,
+    spills and shared memory for every instantiation of kernels B, A and
+    A', and kernel A''s sweep grid (blocks, dynamic shared memory);
 last, grid-1000 in f32 timed once.
 
 Each kernel row carries its bound: the least time the card could take,
@@ -1054,12 +1060,19 @@ def phase_congestion(torch, args, sweep_ap):
 
 # ---- 9. kernel A' (records) ----------------------------------------------------
 
+def record_keys(rec, n_rec):
+    """The ``(row, partner)`` key of each of the first ``n_rec`` records."""
+    import torch
+
+    r = rec[: int(n_rec)].to(torch.int64)
+    return r[:, 5] * (1 << 32) + r[:, 4]
+
+
 def record_rows(rec, n_rec):
     """Records in a canonical order (each (row, partner) holds one record)."""
     import torch
 
-    r = rec[: int(n_rec)].to(torch.int64)
-    return rec[: int(n_rec)][torch.argsort(r[:, 5] * (1 << 32) + r[:, 4])]
+    return rec[: int(n_rec)][torch.argsort(record_keys(rec, n_rec))]
 
 
 def phase_records(torch, bench_args, grid_sorted, sweep_ap, sweep_records):
@@ -1102,9 +1115,12 @@ def phase_records(torch, bench_args, grid_sorted, sweep_ap, sweep_records):
             dec = decode_all()
             check(torch.equal(pair_keys(dec, n_pairs), pair_keys(a[0], a[1])),
                   f"{label}: decoded pairs differ from kernel A's")
-            small = sweep_records.sweep_records(sb, two, 64, **kw)
-            check(bool(small[3]) and (int(small[1]), int(small[2])) == (n_rec, n_pairs),
-                  f"{label}: budget 64 did not overflow with exact totals")
+            for small_budget in (0, 64):
+                small = sweep_records.sweep_records(sb, two, small_budget, **kw)
+                check(bool(small[3]) and (int(small[1]), int(small[2])) == (n_rec, n_pairs),
+                      f"{label}: budget {small_budget} did not overflow with exact totals")
+            check(bool(torch.isin(record_keys(small[0], 64), record_keys(k[0], n_rec)).all()),
+                  f"{label}: budget 64 wrote a record the full run has not")
             rec_ms, a_ms = alternate(
                 lambda: sweep_ap.sweep_pairs(sb, two, budget, **kw),
                 lambda: sweep_records.sweep_records(sb, two, budget, **kw), 3)
@@ -1122,7 +1138,7 @@ def phase_records(torch, bench_args, grid_sorted, sweep_ap, sweep_records):
                 row[2] = add_bounds(row[2], case_bound)
             emit(phase="records", scene=scene, which=ph, order=order, records=n_rec,
                  pairs=n_pairs, pairs_per_record=n_pairs / max(n_rec, 1), equal=True,
-                 overflow_64_exact=True, records_ms=rec_ms, records_and_decode_ms=dec_ms,
+                 overflow_0_64_exact=True, records_ms=rec_ms, records_and_decode_ms=dec_ms,
                  kernel_a_ms=a_ms, plain_ms=plain_ms, bound_ms=case_bound["bound_ms"],
                  bound_by=case_bound["bound_by"])
     return {order: {"max_abs_err": 0.0, "ms": r[0], "plain_ms": r[1], **r[2]}
@@ -1606,7 +1622,7 @@ def phase_count_only(torch, dev, bench_scene, grid600_scene):
     f64.  Returns the JSON fields of the two ``count_only`` rows and of the
     f64 ``any_order`` row on grid-600."""
     from scalable_ccd_tpu_torch.broad_phase import sort_boxes
-    from scalable_ccd_tpu_torch.ops import sweep_ap
+    from scalable_ccd_tpu_torch.ops import sweep_ap, sweep_records
 
     chunk = 1 << 15
     rows = {"float32": [0.0, 0.0, bound(0, 0)], "float64": [0.0, 0.0, bound(0, 0)]}
@@ -1637,7 +1653,8 @@ def phase_count_only(torch, dev, bench_scene, grid600_scene):
                 p_whole, plain_ms = timed_once(lambda: plain(major))
                 p_any, plain_any_ms = timed_once(
                     lambda: plain(bucket, any_order=True, planes=planes))
-                p_ranged = sum(plain(major, box_range=r) for r in ranges)
+                p_ranged, plain_ranged_ms = timed_once(
+                    lambda: sum(plain(major, box_range=r) for r in ranges))
                 check(p_whole == p_ranged == p_any == whole,
                       f"{label}: plain counts {p_whole}/{p_ranged}/{p_any} vs {whole}")
                 # in turns: emitting, count_only, count_only, emitting; the
@@ -1653,12 +1670,15 @@ def phase_count_only(torch, dev, bench_scene, grid600_scene):
                              for r in ranges],
                     lambda: [launch(major, box_range=r) for r in ranges], 3)
                 congested = scene_name == "grid600"
+                work = any_order_work(bucket, planes)
+                co_bound = sweep_bound(major, 8)
+                co_any_bound = any_order_bound(bucket, planes, work, 8)
                 if not congested:
                     # the rows: the bench scene, which the stage tool sweeps
                     # in the major sort
                     row = rows[name]
                     row[0], row[1], row[2] = row[0] + c_ms, row[1] + plain_ms, \
-                        add_bounds(row[2], sweep_bound(major, 8))
+                        add_bounds(row[2], co_bound)
                 extra = {}
                 if congested and dtype == torch.float64:
                     pa, pa_ms = timed_once(lambda: sweep_ap.sweep_pairs_reference(
@@ -1668,8 +1688,11 @@ def phase_count_only(torch, dev, bench_scene, grid600_scene):
                           f"{label}: f64 any_order kernel and plain pair sets differ")
                     any64[0], any64[1] = any64[0] + ea_ms, any64[1] + pa_ms
                     any64[2] = add_bounds(any64[2], any_order_bound(
-                        bucket, planes, any_order_work(bucket, planes), whole * PAIR_BYTES))
-                    extra = {"any_order_plain_emitting_ms": pa_ms}
+                        bucket, planes, work, whole * PAIR_BYTES))
+                    extra = {"any_order_plain_emitting_ms": pa_ms,
+                             "whole_f64_bound_ms": sweep_bound(major, whole * PAIR_BYTES)["bound_ms"],
+                             **grid_records_f64(torch, sweep_ap, sweep_records, two, major, bucket,
+                                                planes, work, budget, whole, label)}
                 emit(phase="count_only", scene=scene_name, dtype=name, which=ph, boxes=major.n,
                      pairs=whole, chunks=len(ranges), equal=True,
                      count_only_ms=c_ms, emitting_ms=e_ms,
@@ -1677,10 +1700,51 @@ def phase_count_only(torch, dev, bench_scene, grid600_scene):
                      any_order_count_only_ms=ca_ms, any_order_emitting_ms=ea_ms,
                      any_order_append_share=1 - ca_ms / ea_ms,
                      ranged_count_only_ms=cr_ms, ranged_emitting_ms=er_ms,
-                     plain_count_ms=plain_ms, plain_any_order_count_ms=plain_any_ms, **extra)
+                     plain_count_ms=plain_ms, plain_any_order_count_ms=plain_any_ms,
+                     plain_ranged_count_ms=plain_ranged_ms, count_only_bound_ms=co_bound["bound_ms"],
+                     any_order_count_only_bound_ms=co_any_bound["bound_ms"], **extra)
     out = {k: {"max_abs_err": 0.0, "ms": r[0], "plain_ms": r[1], **r[2]}
            for k, r in rows.items()}
     out["any_order_f64"] = {"max_abs_err": 0.0, "ms": any64[0], "plain_ms": any64[1], **any64[2]}
+    return out
+
+
+def grid_records_f64(torch, sweep_ap, sweep_records, two, major, bucket, planes, work,
+                     budget, total, label):
+    """Kernel A' on grid-600's f64 boxes, in both orderings: the exact pair
+    total, one record per (row, partner), decoded pairs equal to kernel A's
+    pair set, no overflow, and under the major sort the plain version's
+    record multiset (timed once); timed in turns with kernel A.  Returns
+    the JSON fields of the phase's line."""
+    out = {}
+    for order, sb in (("sorted", major), ("any_order", bucket)):
+        kw = dict(any_order=True, planes=planes) if order == "any_order" else {}
+        r = sweep_records.sweep_records(sb, two, budget, **kw)
+        a = sweep_ap.sweep_pairs(sb, two, budget, **kw)
+        n_rec, n_pairs = int(r[1]), int(r[2])
+        keys = record_keys(r[0], n_rec)
+        check(n_pairs == int(a[2]) == total and not bool(r[3]) and not bool(a[3])
+              and keys.numel() == torch.unique(keys).numel(),
+              f"{label} records {order}: {n_rec} records, {n_pairs} pairs vs kernel A "
+              f"{int(a[2])} and {total}")
+        cum = sweep_records.records_pair_prefix(r[0], n_rec)
+        dec = sweep_records.decode_records_range(sb, r[0], cum, 0, n_pairs, 0, two)[0]
+        check(torch.equal(pair_keys(dec, n_pairs), pair_keys(a[0], a[1])),
+              f"{label} records {order}: decoded pairs differ from kernel A's")
+        if order == "sorted":
+            p, plain_ms = timed_once(
+                lambda: sweep_records.sweep_records_reference(sb, two, budget))
+            check((int(p[1]), int(p[2])) == (n_rec, n_pairs)
+                  and torch.equal(record_rows(r[0], n_rec), record_rows(p[0], n_rec)),
+                  f"{label} records sorted: the plain record multiset differs")
+            out["records_sorted_f64_plain_ms"] = plain_ms
+        rms, ams = alternate(lambda: sweep_ap.sweep_pairs(sb, two, budget, **kw),
+                             lambda: sweep_records.sweep_records(sb, two, budget, **kw), 3)
+        bnd = (any_order_bound(sb, planes, work, n_rec * RECORD_BYTES) if kw
+               else sweep_bound(sb, n_rec * RECORD_BYTES))
+        out.update({f"records_{order}_f64": n_rec, f"records_{order}_f64_ms": rms,
+                    f"kernel_a_{order}_f64_ms": ams,
+                    f"records_{order}_f64_bound_ms": bnd["bound_ms"]})
     return out
 
 
@@ -1864,7 +1928,8 @@ def ptxas_by_instantiation(log_text):
     """``{instantiation: "N registers, ..."}`` from a ``ptxas -v`` build log:
     kernel B's entry functions by scalar type and template flags (VF,
     per-query, shared domains), kernel A's by scalar type and mode
-    (``any_order``, ``count_only``) with its two unit-count launches."""
+    (``any_order``, ``count_only``) and kernel A''s by scalar type and
+    ordering, each with its two unit-count launches."""
     import re
 
     out, name = {}, None
@@ -1883,6 +1948,10 @@ def ptxas_by_instantiation(log_text):
                         f"{' count_only' if count_only else ''}")
             elif m := re.search(r"tile_units_kernelI([fd])((?:Lb[01]E)+)", line):
                 name = f"tile_units {fp(m)}{' any_order' if flags(m)[0] else ''}"
+            elif m := re.search(r"sweep_records_kernelI([fd])((?:Lb[01]E)+)", line):
+                name = f"records {fp(m)} {'any_order' if flags(m)[0] else 'sorted'}"
+            elif m := re.search(r"record_units_kernelI([fd])((?:Lb[01]E)+)", line):
+                name = f"record_units {fp(m)}{' any_order' if flags(m)[0] else ''}"
             elif "unit_prefix_kernel" in line:
                 name = "unit_prefix"
             if name:
@@ -1896,7 +1965,7 @@ def phase_kernel_b_rows():
     """Kernel B on the rows the main path gives it (module docstring, phase
     15; ``tools/stages.py:run_kernel_b``), each line as the tool prints it,
     and kernel B's ``ptxas`` lines."""
-    from scalable_ccd_tpu_torch.ops import _build
+    from scalable_ccd_tpu_torch.ops import _build, sweep_records
     from scalable_ccd_tpu_torch.tools import stages
 
     t = time.perf_counter()
@@ -1905,8 +1974,14 @@ def phase_kernel_b_rows():
     check(not bad, f"kernel B on the main path's rows differs from its plain version: {bad}")
     log = _build.build_library("solver").with_suffix(".log").read_text()
     sweep_log = _build.build_library("sweep_ap").with_suffix(".log").read_text()
+    records_log = _build.build_library("sweep_records").with_suffix(".log").read_text()
+    # kernel A''s sweep launch: its blocks and dynamic shared memory per block
+    shape = {f"{'f64' if f64 else 'f32'} {'any_order' if ao else 'sorted'}":
+             sweep_records._launch_shape(f64, ao) for f64 in (False, True) for ao in (False, True)}
     emit(phase="kernel_b_rows", sets=len(lines), seconds=time.perf_counter() - t,
-         ptxas=ptxas_by_instantiation(log), kernel_a_ptxas=ptxas_by_instantiation(sweep_log))
+         ptxas=ptxas_by_instantiation(log), kernel_a_ptxas=ptxas_by_instantiation(sweep_log),
+         kernel_a_records_ptxas=ptxas_by_instantiation(records_log),
+         kernel_a_records_blocks_smem=shape)
     return lines
 
 

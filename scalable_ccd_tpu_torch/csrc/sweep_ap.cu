@@ -95,91 +95,29 @@
 // shared memory, and the block takes one atomicAdd.  Its time against the
 // emitting kernel's is what the append costs.
 //
-// Plain C interface, bound with ctypes (ops/sweep_ap.py).  The caller
-// passes scratch of sccd_sweep_scratch_bytes(box_lo, box_hi) bytes, any
-// contents; the kernels allocate nothing.
+// The unit prefix, the grab loop, the stage and the box tests are shared
+// with kernel A' (sweep_common.cuh).  Plain C interface, bound with ctypes
+// (ops/sweep_ap.py).  The caller passes scratch of
+// sccd_sweep_scratch_bytes(box_lo, box_hi) bytes, any contents; the kernels
+// allocate nothing.
 
-#include <cuda_runtime.h>
-#include <cstdint>
+
+#include "sweep_common.cuh"
 
 namespace {
 
-using u64 = unsigned long long;
-
-template <typename T> struct Vec2;
-template <> struct Vec2<float> { using type = float2; };
-template <> struct Vec2<double> { using type = double2; };
-
-constexpr unsigned kFull = 0xffffffffu;
-// boxes per tile (one warp), partners per row (a unit's partners)
+// boxes per tile (one warp)
 constexpr int kTile = 32;
-constexpr int kRow = 128;
 // tiles per block of the unit-count launches
 constexpr int kScanThreads = 256;
 // warps per block of the sweep launch; pairs a warp buffers before a flush
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kHitCap = 64;
-// grabs a warp makes on average (the grab size follows from the total)
-constexpr int kGrabsPerWarp = 8;
-
-// The scratch of one call: the unit prefix per tile, the grab counter, the
-// per-block sums of launch 1 and each tile's partner end.
-struct Scratch {
-  u64* prefix;     // n_tiles + 1
-  u64* grab;       // 1
-  u64* block_sum;  // n_blocks
-  int* tile_end;   // n_tiles
-};
 
 inline int tiles_of(int box_lo, int box_hi) {
   return (box_hi - box_lo + kTile - 1) / kTile;
 }
-
-inline int scan_blocks_of(int n_tiles) {
-  return (n_tiles + kScanThreads - 1) / kScanThreads;
-}
-
-inline long long scratch_bytes(int n_tiles) {
-  return 8LL * (n_tiles + 2 + scan_blocks_of(n_tiles)) + 4LL * n_tiles;
-}
-
-inline Scratch scratch_at(void* base, int n_tiles) {
-  u64* p = (u64*)base;
-  Scratch s;
-  s.prefix = p;
-  s.grab = p + n_tiles + 1;
-  s.block_sum = s.grab + 1;
-  s.tile_end = (int*)(s.block_sum + scan_blocks_of(n_tiles));
-  return s;
-}
-
-// Inclusive sum of v over the block (blockDim.x == kScanThreads).
-__device__ u64 block_inclusive_sum(u64 v) {
-  __shared__ u64 warp_total[kScanThreads / 32];
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const u64 o = __shfl_up_sync(kFull, v, off);
-    if (lane >= off) v += o;
-  }
-  if (lane == 31) warp_total[w] = v;
-  __syncthreads();
-  u64 before = 0;
-  for (int k = 0; k < w; ++k) before += warp_total[k];
-  return v + before;
-}
-
-template <typename T> struct Boxes {
-  const T* major_min;
-  const T* major_max;
-  const typename Vec2<T>::type* minor_min;
-  const typename Vec2<T>::type* minor_max;
-  const int* vertex_ids;
-  const int* element_id;
-  const T* row_umin;  // any_order only
-  const T* row_umax;
-};
 
 // Launch 1: per tile, its partner end and unit count (the rows its range
 // touches; under any_order the rows kept by the row skip); per block, the
@@ -225,87 +163,10 @@ __global__ void __launch_bounds__(kScanThreads) tile_units_kernel(
       }
     }
   }
-  const u64 incl = block_inclusive_sum(units);
+  const u64 incl = block_inclusive_sum<kScanThreads>(units);
   if (t < n_tiles) s.prefix[t + 1] = incl;
   if (threadIdx.x == kScanThreads - 1) s.block_sum[blockIdx.x] = incl;
 }
-
-// Launch 2: prefix[t + 1] += the sums of the blocks before t's; prefix[0]
-// and the grab counter are zeroed.
-__global__ void __launch_bounds__(kScanThreads) unit_prefix_kernel(
-    int n_tiles, Scratch s) {
-  __shared__ u64 partial[kScanThreads];
-  u64 v = 0;
-  for (int b = threadIdx.x; b < (int)blockIdx.x; b += kScanThreads)
-    v += s.block_sum[b];
-  partial[threadIdx.x] = v;
-  __syncthreads();
-  for (int half = kScanThreads / 2; half > 0; half >>= 1) {
-    if ((int)threadIdx.x < half) partial[threadIdx.x] += partial[threadIdx.x + half];
-    __syncthreads();
-  }
-  const int t = blockIdx.x * kScanThreads + threadIdx.x;
-  if (t < n_tiles) s.prefix[t + 1] += partial[0];
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    s.prefix[0] = 0;
-    *s.grab = 0;
-  }
-}
-
-// The first k in [lo, hi] with pred(k), for a pred that is monotone
-// (false, then true) and true at hi; the warp samples 32 points a round.
-template <typename Pred>
-__device__ int warp_first(int lo, int hi, Pred pred) {
-  const int lane = threadIdx.x & 31;
-  while (lo < hi) {
-    const int step = (hi - lo + 31) / 32;
-    const unsigned b = __ballot_sync(kFull, pred(min(lo + lane * step, hi)));
-    if (!b) {  // every sample below hi is false
-      lo += 31 * step + 1;
-      continue;
-    }
-    const int f = __ffs(b) - 1;
-    if (f == 0) return lo;
-    hi = min(lo + f * step, hi);
-    lo += (f - 1) * step + 1;
-  }
-  return lo;
-}
-
-template <typename T> __device__ T warp_min(T v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const T o = __shfl_xor_sync(kFull, v, off);
-    v = o < v ? o : v;
-  }
-  return v;
-}
-
-template <typename T> __device__ T warp_max(T v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const T o = __shfl_xor_sync(kFull, v, off);
-    v = o > v ? o : v;
-  }
-  return v;
-}
-
-// A partner's minor intervals, read with one 16-byte load (f32) or two.
-template <typename T> struct alignas(4 * sizeof(T)) Minor {
-  T lo0, lo1, hi0, hi1;
-};
-
-// One warp's copy of a row's partner planes.  Under any_order each slot
-// tests both major bounds (major[k] = {major_min, major_max}); under the
-// major sort a lane finds where its run ends in the row by binary search
-// of major_min, so the slots test only the minor intervals.
-template <typename T, bool ANY_ORDER> struct Stage {
-  Minor<T> minor[kRow];
-  typename Vec2<T>::type major[ANY_ORDER ? kRow : 1];
-  T major_min[ANY_ORDER ? 1 : kRow];
-  int eid[kRow];
-  int vid[3 * kRow];
-};
 
 // Launch 3: the units, taken by warps from the grab counter.
 template <typename T, bool ANY_ORDER, bool COUNT_ONLY>
@@ -322,15 +183,9 @@ __global__ void __launch_bounds__(kThreads) sweep_units_kernel(
   int2* hits = hit_bufs[warp];
   const unsigned lanes_below = (1u << lane) - 1u;
 
-  const u64 total = s.prefix[n_tiles];
-  const u64 warps = (u64)gridDim.x * kWarps;
-  const u64 grab_size = max(1ull, total / (warps * kGrabsPerWarp));
-
-  // the current tile: its index, units [t_lo, t_hi), partner range
-  // [begin, end), and this lane's box (i = INT_MAX past box_hi)
-  int t = -1, loaded = -1;
-  u64 t_lo = 0, t_hi = 0;
-  int begin = 0, end = 0, i = 0x7fffffff;
+  // this lane's box of the current tile (i = INT_MAX past box_hi) and the
+  // tile's minor-0 union
+  int i = 0x7fffffff;
   T a_reach = 0, a_start = 0, u_lo = 0, u_hi = 0;
   V a_lo = {}, a_hi = {};
   int a0 = 0, a1 = 0, a2 = 0, a_eid = 0;
@@ -348,173 +203,83 @@ __global__ void __launch_bounds__(kThreads) sweep_units_kernel(
     n_hits = 0;
   };
 
-  for (;;) {
-    u64 base = 0;
-    if (lane == 0) base = atomicAdd(s.grab, grab_size);
-    base = __shfl_sync(kFull, base, 0);
-    if (base >= total) break;
-    const u64 stop = min(base + grab_size, total);
-    if (base >= t_hi) {
-      // a warp's grabs only grow: the tile lies past the current one
-      t = warp_first(t + 1, n_tiles - 1, [&](int k) { return s.prefix[k + 1] > base; });
-      t_lo = s.prefix[t];
-      t_hi = s.prefix[t + 1];
+  auto load = [&](int t) {
+    const int first = box_lo + t * kTile;
+    const bool active = first + lane < box_hi;
+    i = active ? first + lane : 0x7fffffff;
+    if (active) {
+      a_reach = __ldg(bx.major_max + i);
+      a_start = __ldg(bx.major_min + i);
+      a_lo = __ldg(bx.minor_min + i);
+      a_hi = __ldg(bx.minor_max + i);
+      a0 = __ldg(bx.vertex_ids + 3 * i + 0);
+      a1 = __ldg(bx.vertex_ids + 3 * i + 1);
+      a2 = __ldg(bx.vertex_ids + 3 * i + 2);
+      a_eid = __ldg(bx.element_id + i);
     }
-    for (u64 u = base; u < stop;) {
-      while (u >= t_hi) {  // tiles of no unit are passed over
-        ++t;
-        t_lo = t_hi;
-        t_hi = s.prefix[t + 1];
-      }
-      if (t != loaded) {
-        loaded = t;
-        const int first = box_lo + t * kTile;
-        begin = first + 1;
-        end = s.tile_end[t];
-        const bool active = first + lane < box_hi;
-        i = active ? first + lane : 0x7fffffff;
-        if (active) {
-          a_reach = __ldg(bx.major_max + i);
-          a_start = __ldg(bx.major_min + i);
-          a_lo = __ldg(bx.minor_min + i);
-          a_hi = __ldg(bx.minor_max + i);
-          a0 = __ldg(bx.vertex_ids + 3 * i + 0);
-          a1 = __ldg(bx.vertex_ids + 3 * i + 1);
-          a2 = __ldg(bx.vertex_ids + 3 * i + 2);
-          a_eid = __ldg(bx.element_id + i);
-        }
-        if constexpr (ANY_ORDER) {
-          u_lo = warp_min(active ? a_lo.x : (T)INFINITY);
-          u_hi = warp_max(active ? a_hi.x : -(T)INFINITY);
-        }
-      }
-      // this tile's units of the grab, its kept rows [u - t_lo, u_end - t_lo):
-      // each lane tests one row of a window of 32 rows, and the warp sweeps
-      // the kept ones
-      const u64 u_end = min(stop, t_hi);
-      int pass = (int)(u - t_lo);  // kept rows of the tile before u
-      int todo = (int)(u_end - u);
-      const int last_row = (end - 1) / kRow;
-      for (int row0 = begin / kRow; todo > 0 && row0 <= last_row; row0 += 32) {
-        const int row = row0 + lane;
-        bool kept = row <= last_row;
-        if constexpr (ANY_ORDER)
-          kept = kept && !(__ldg(bx.row_umin + row) > u_hi || __ldg(bx.row_umax + row) < u_lo);
-        unsigned rows = __ballot_sync(kFull, kept);
-        const int n_kept = __popc(rows);
-        if (pass >= n_kept) {
-          pass -= n_kept;
-          continue;
-        }
-        for (; pass > 0; --pass) rows &= rows - 1;
-        for (; rows && todo > 0; rows &= rows - 1, --todo) {
-          const int r = row0 + __ffs(rows) - 1;
-          const int j0 = max(r * kRow, begin);
-          const int m = min(r * kRow + kRow, end) - j0;
-
-          __syncwarp();  // the previous unit's reads of the stage are done
-#pragma unroll
-          for (int q = 0; q < kRow / 32; ++q) {
-            const int k = lane + 32 * q;
-            if (k < m) {
-              const int j = j0 + k;
-              const V lo = __ldg(bx.minor_min + j), hi = __ldg(bx.minor_max + j);
-              st.minor[k] = {lo.x, lo.y, hi.x, hi.y};
-              if constexpr (ANY_ORDER)
-                st.major[k] = {__ldg(bx.major_min + j), __ldg(bx.major_max + j)};
-              else
-                st.major_min[k] = __ldg(bx.major_min + j);
-              st.eid[k] = __ldg(bx.element_id + j);
-              st.vid[3 * k + 0] = __ldg(bx.vertex_ids + 3 * j + 0);
-              st.vid[3 * k + 1] = __ldg(bx.vertex_ids + 3 * j + 1);
-              st.vid[3 * k + 2] = __ldg(bx.vertex_ids + 3 * j + 2);
-            }
-          }
-          __syncwarp();
-          // major sort: box i's run covers the row's partners below `own`
-          int own = m;
-          if constexpr (!ANY_ORDER) {
-            int lo = 0;
-            while (lo < own) {
-              const int mid = (lo + own) >> 1;
-              if (st.major_min[mid] <= a_reach)
-                lo = mid + 1;
-              else
-                own = mid;
-            }
-          }
-
-          // the row in groups of 32 partners: the box tests of a group
-          // set one bit per partner in each lane, branch-free; the list and
-          // shared-vertex filters and the append run on the set bits only
-          for (int g = 0; g < m; g += 32) {
-            const int jg = j0 + g;
-            const int cnt = min(32, m - g);
-            if constexpr (ANY_ORDER) {
-              // a group whose minor-0 union misses the tile's is skipped
-              const T g_lo = warp_min(lane < cnt ? st.minor[g + lane].lo0 : (T)INFINITY);
-              const T g_hi = warp_max(lane < cnt ? st.minor[g + lane].hi0 : -(T)INFINITY);
-              if (g_lo > u_hi || g_hi < u_lo) continue;
-            }
-            // partner jg + k counts for box i when k < min(cnt, own - g)
-            // and jg + k > i
-            const int upto = min(cnt, own - g);
-            unsigned valid = upto >= 32 ? kFull : upto > 0 ? (1u << upto) - 1u : 0u;
-            const int past = i - jg + 1;  // no overflow: jg >= 1
-            if (past > 0) valid = past >= 32 ? 0u : valid & (kFull << past);
-            unsigned bits = 0;
-#pragma unroll
-            for (int k = 0; k < 32; ++k) {
-              // past cnt the stage holds stale partners: their bits are masked
-              const Minor<T> b = st.minor[g + k];
-              bool hit = (a_lo.x <= b.hi0) & (b.lo0 <= a_hi.x) & (a_lo.y <= b.hi1) &
-                         (b.lo1 <= a_hi.y);
-              if constexpr (ANY_ORDER) {
-                // box i's own stop and the reverse major test
-                const V mj = st.major[g + k];
-                hit &= (mj.x <= a_reach) & (a_start <= mj.y);
-              }
-              bits |= (unsigned)hit << k;
-            }
-            bits &= valid;
-            while (__any_sync(kFull, bits)) {
-              bool keep = false;
-              int b_eid = 0;
-              if (bits) {
-                const int k = g + __ffs(bits) - 1;
-                bits &= bits - 1;
-                b_eid = st.eid[k];
-                const int b0 = st.vid[3 * k + 0];
-                const int b1 = st.vid[3 * k + 1];
-                const int b2 = st.vid[3 * k + 2];
-                const bool share = a0 == b0 || a0 == b1 || a0 == b2 || a1 == b0 ||
-                                   a1 == b1 || a1 == b2 || a2 == b0 || a2 == b1 ||
-                                   a2 == b2;
-                keep = !share && !(is_two_lists && ((a_eid >= 0) == (b_eid >= 0)));
-              }
-              if constexpr (COUNT_ONLY) {
-                count += keep;
-              } else {
-                const unsigned ballot = __ballot_sync(kFull, keep);
-                if (ballot) {
-                  const int k_hits = __popc(ballot);
-                  if (n_hits + k_hits > kHitCap) flush();
-                  if (keep) {
-                    const int lo = min(a_eid, b_eid);
-                    const int hi = max(a_eid, b_eid);
-                    hits[n_hits + __popc(ballot & lanes_below)] =
-                        make_int2(is_two_lists ? -lo - 1 : lo, hi);
-                  }
-                  n_hits += k_hits;
-                }
-              }
-            }
-          }
-        }
-      }
-      u = u_end;
+    if constexpr (ANY_ORDER) {
+      u_lo = warp_min(active ? a_lo.x : (T)INFINITY);
+      u_hi = warp_max(active ? a_hi.x : -(T)INFINITY);
     }
-  }
+    return TileRange<T>{first + 1, s.tile_end[t], u_lo, u_hi};
+  };
+
+  auto unit = [&](int j0, int m) {
+    stage_row(st, bx, j0, m);
+    // major sort: box i's run covers the row's partners below `own`
+    int own = m;
+    if constexpr (!ANY_ORDER) own = run_end(st, m, a_reach);
+
+    // the row in groups of 32 partners: the box tests of a group set one
+    // bit per partner in each lane, branch-free; the list and shared-vertex
+    // filters and the append run on the set bits only
+    for (int g = 0; g < m; g += 32) {
+      const int jg = j0 + g;
+      const int cnt = min(32, m - g);
+      if constexpr (ANY_ORDER) {
+        // a group whose minor-0 union misses the tile's is skipped
+        const T g_lo = warp_min(lane < cnt ? st.minor[g + lane].lo0 : (T)INFINITY);
+        const T g_hi = warp_max(lane < cnt ? st.minor[g + lane].hi0 : -(T)INFINITY);
+        if (g_lo > u_hi || g_hi < u_lo) continue;
+      }
+      // partner jg + k counts for box i when k < min(cnt, own - g)
+      // and jg + k > i
+      const int upto = min(cnt, own - g);
+      unsigned valid = upto >= 32 ? kFull : upto > 0 ? (1u << upto) - 1u : 0u;
+      const int past = i - jg + 1;  // no overflow: jg >= 1
+      if (past > 0) valid = past >= 32 ? 0u : valid & (kFull << past);
+      unsigned bits = box_bits(st, g, a_lo, a_hi, a_reach, a_start) & valid;
+      while (__any_sync(kFull, bits)) {
+        bool keep = false;
+        int b_eid = 0;
+        if (bits) {
+          const int k = g + __ffs(bits) - 1;
+          bits &= bits - 1;
+          b_eid = st.eid[k];
+          keep = keeps(st, k, a0, a1, a2, a_eid, is_two_lists);
+        }
+        if constexpr (COUNT_ONLY) {
+          count += keep;
+        } else {
+          const unsigned ballot = __ballot_sync(kFull, keep);
+          if (ballot) {
+            const int k_hits = __popc(ballot);
+            if (n_hits + k_hits > kHitCap) flush();
+            if (keep) {
+              const int lo = min(a_eid, b_eid);
+              const int hi = max(a_eid, b_eid);
+              hits[n_hits + __popc(ballot & lanes_below)] =
+                  make_int2(is_two_lists ? -lo - 1 : lo, hi);
+            }
+            n_hits += k_hits;
+          }
+        }
+      }
+    }
+  };
+
+  for_each_unit<ANY_ORDER>(bx, n_tiles, s, load, unit);
+
   if constexpr (COUNT_ONLY) {
     // a lane counts fewer than 2^32 survivors; the warp's and the block's
     // sums are 64-bit
@@ -534,16 +299,6 @@ __global__ void __launch_bounds__(kThreads) sweep_units_kernel(
   }
 }
 
-// Blocks of the sweep launch: as many as fit on the card at once.
-template <typename Kernel>
-int resident_blocks(Kernel kernel) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
-  return sms * (per_sm > 0 ? per_sm : 1);
-}
-
 template <typename T, bool ANY_ORDER, bool COUNT_ONLY>
 void launch(cudaStream_t stream, const void* major_min, const void* major_max,
             const void* minor_min, const void* minor_max,
@@ -553,7 +308,7 @@ void launch(cudaStream_t stream, const void* major_min, const void* major_max,
             long long budget, void* n_true, void* scratch) {
   using V = typename Vec2<T>::type;
   const int n_tiles = tiles_of(box_lo, box_hi);
-  const Scratch s = scratch_at(scratch, n_tiles);
+  const Scratch s = scratch_at(scratch, n_tiles, kScanThreads);
   Boxes<T> bx;
   bx.major_min = (const T*)major_min;
   bx.major_max = (const T*)major_max;
@@ -564,12 +319,12 @@ void launch(cudaStream_t stream, const void* major_min, const void* major_max,
   bx.row_umin = ANY_ORDER ? (const T*)row_umin : nullptr;
   bx.row_umax = ANY_ORDER ? (const T*)row_umax : nullptr;
   const T* stops = ANY_ORDER ? (const T*)fwd_min : (const T*)major_min;
-  const int scan_blocks = scan_blocks_of(n_tiles);
+  const int scan_blocks = scan_blocks_of(n_tiles, kScanThreads);
   tile_units_kernel<T, ANY_ORDER><<<scan_blocks, kScanThreads, 0, stream>>>(
       bx, stops, n, box_lo, box_hi, n_tiles, s);
-  unit_prefix_kernel<<<scan_blocks, kScanThreads, 0, stream>>>(n_tiles, s);
+  unit_prefix_kernel<kScanThreads><<<scan_blocks, kScanThreads, 0, stream>>>(n_tiles, s);
   auto kernel = sweep_units_kernel<T, ANY_ORDER, COUNT_ONLY>;
-  static const int blocks = resident_blocks(kernel);
+  static const int blocks = resident_blocks(kernel, kThreads, 0);
   kernel<<<blocks, kThreads, 0, stream>>>(
       bx, box_lo, box_hi, is_two_lists, n_tiles, s,
       COUNT_ONLY ? nullptr : (int2*)pairs, budget, (u64*)n_true);
@@ -594,7 +349,7 @@ void launch_mode(int any_order, int count_only, Args... args) {
 
 // Bytes of scratch that sccd_sweep_pairs needs for the box range.
 extern "C" long long sccd_sweep_scratch_bytes(int box_lo, int box_hi) {
-  return box_hi > box_lo ? scratch_bytes(tiles_of(box_lo, box_hi)) : 0;
+  return box_hi > box_lo ? scratch_bytes(tiles_of(box_lo, box_hi), kScanThreads) : 0;
 }
 
 // is_f64: the float planes are double (minor planes 16-byte aligned), else

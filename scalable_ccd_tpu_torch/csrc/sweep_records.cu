@@ -10,227 +10,401 @@
 // (dense, sparse, mxu, mxu16) only place these records in VMEM and land the
 // same 32 bytes in HBM; here a record is a plain row of an (R, 8) buffer.
 //
-// What bounds it on an H100: the candidate slots, as for kernel A (memory
-// latency and divergence of the partner walk), plus one 32-byte record per
-// (partner, row) with a survivor instead of 8 bytes per pair: on congested
-// scenes a record carries several pairs, so fewer bytes leave the kernel.
+// What bounds it on an H100: the candidate slots, as for kernel A (a
+// handful of compares per slot against partner data in shared memory),
+// plus one 32-byte record per (partner, a-row) with a survivor instead of
+// 8 bytes per pair: on congested scenes a record carries several pairs, so
+// fewer bytes leave the kernel.
 //
-// Design: one 128-thread CTA per a-row, thread t on sorted box i = 128 r + t.
-// The row's reach (max major_max) and its union of minor axis 0 are reduced
-// in shared memory.  Partners stream in chunks of 32, starting at the row's
-// first box (the i < j test drops the rest): warp 0 stages the chunk's
-// partner fields in shared memory, every thread tests its own box against
-// each of the 32 partners, and each warp ballots its 32 lanes per partner.
-// After the chunk, one thread per partner combines the four warps' ballots
-// into the 128-bit mask and, if it is not empty, takes a record slot with
-// atomicAdd on a 64-bit record counter and adds the mask's popcount to a
-// 64-bit pair counter.  Both counters are exact even past the budget; a
-// record is written only when its slot is below rec_budget.  Record order
-// is therefore nondeterministic; the record multiset is not.
-//
-// The stream stops, for the whole CTA, at the first chunk whose first
-// partner's major_min (fwd_min under any_order) exceeds the row's reach.
-// Under any_order each slot also tests major_min[i] <= major_max[j], and a
-// 128-aligned partner row whose minor-0 union misses the a-row's is skipped
-// whole, as in kernel A.
+// Design: kernel A's work units and persistent grid (sweep_common.cuh),
+// with the record's a-row as the tile.  A record can only be formed where
+// all 128 boxes of its a-row meet its partner, so the unit is one a-row
+// against one 128-partner row: each (j, r) arises in exactly one unit and
+// leaves it whole.  Three launches, no host read:
+// - Launch 1 (record_units_kernel), one warp per a-row: the a-row's largest
+//   major_max and minor-0 union, its partner end by a 32-way search of the
+//   stops (major_min, or fwd_min under any_order), its unit count (the rows
+//   of [128 r + 1, end); under any_order the rows the row skip keeps), and
+//   an inclusive scan of the counts over each block of 32 a-rows.
+// - Launch 2 (unit_prefix_kernel): the block offsets; prefix[r] is the first
+//   unit of a-row r, and the grab counter is zeroed.
+// - Launch 3 (sweep_records_kernel): as many blocks as fit on the card.
+//   Each warp grabs units (for_each_unit), keeps the current a-row's 128
+//   boxes in its shared memory (with each 32-box sub-tile's minor-0 union)
+//   and per unit stages the partner row.  The row is tested in groups of
+//   32 partners; per group, each sub-tile of 32 boxes (one lane a box)
+//   whose minor-0 union meets the group's and whose lanes have a partner in
+//   their run tests the group branch-free into one 32-bit mask per lane
+//   (the major sort: j > i and j below the lane's own run end, found by
+//   binary search of the staged row; any_order: j > i and both major
+//   tests).  The list and shared-vertex filters run on the set bits only.
+// - Transpose: for each partner u with a bit in any lane,
+//   __ballot_sync(bit u of the lane's mask) is the record word of partner u
+//   and this sub-tile; lane u keeps it, so after the four sub-tiles lane u
+//   holds the whole record (w0..w3, j0 + 32 g + u, r) in registers.  No
+//   block barrier is needed.
+// - Append: the warp's non-empty records go to its buffer of 64 records in
+//   shared memory; a full buffer, and the warp's last, is flushed with one
+//   atomicAdd on the 64-bit record counter and one on the pair counter (the
+//   buffer's popcounts, summed over the warp).  Both totals are exact even
+//   past the budgets; a record is written only where its slot is below
+//   rec_budget.  Record order is nondeterministic; the record multiset is
+//   not.
 //
 // Scalar type (template T): float or double planes, as in kernel A.  The
 // records hold positions and bits, no floats, so their format and decode do
-// not depend on T.  The partner chunk, the ballots and the reductions take
-// 1.7-1.8 KB of static shared memory per block in float and 2.3-2.7 KB in
-// double (ptxas), far below the 48 KB a block may take statically.
+// not depend on T.  A warp's shared memory (partner stage, a-row, record
+// buffer) is 11-12 KB in float and 16-19 KB in double, taken as dynamic
+// shared memory for the 4-warp blocks: 3-5 blocks fit on an H100's SM.
 //
-// Plain C interface, bound with ctypes (ops/sweep_records.py).
+// Plain C interface, bound with ctypes (ops/sweep_records.py).  The caller
+// passes scratch of sccd_sweep_records_scratch_bytes(n) bytes, any
+// contents; the kernels allocate nothing.
 
-#include <cuda_runtime.h>
-#include <cstdint>
+#include "sweep_common.cuh"
 
 namespace {
 
-constexpr int kRow = 128;   // boxes per a-row, threads per CTA
-constexpr int kChunk = 32;  // partners per chunk
-constexpr int kWarps = kRow / 32;
+// a-rows per block of launch 1 (one warp each)
+constexpr int kRowsPerBlock = 32;
+// warps per block of the sweep launch; records a warp buffers before a flush
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRecCap = 64;
+constexpr int kSubTiles = kRow / 32;
 
-template <typename T> struct Vec2;
-template <> struct Vec2<float> { using type = float2; };
-template <> struct Vec2<double> { using type = double2; };
+inline int rows_of(int n) { return (n + kRow - 1) / kRow; }
 
-__device__ __forceinline__ float tmin(float a, float b) { return fminf(a, b); }
-__device__ __forceinline__ float tmax(float a, float b) { return fmaxf(a, b); }
-__device__ __forceinline__ double tmin(double a, double b) { return fmin(a, b); }
-__device__ __forceinline__ double tmax(double a, double b) { return fmax(a, b); }
+// v[q] and v[q] = x for a runtime q, by static indices (v stays in registers)
+template <typename X> __device__ __forceinline__ X pick(const X (&v)[kSubTiles], int q) {
+  return q == 0 ? v[0] : q == 1 ? v[1] : q == 2 ? v[2] : v[3];
+}
+template <typename X> __device__ __forceinline__ void put(X (&v)[kSubTiles], int q, X x) {
+  v[0] = q == 0 ? x : v[0];
+  v[1] = q == 1 ? x : v[1];
+  v[2] = q == 2 ? x : v[2];
+  v[3] = q == 3 ? x : v[3];
+}
 
+// Launch 1: per a-row (warp), its partner end and unit count; per block, the
+// inclusive scan of the counts (into prefix[r + 1]) and their sum.
 template <typename T, bool ANY_ORDER>
-__global__ void __launch_bounds__(kRow) sweep_records_kernel(
-    const T* __restrict__ major_min, const T* __restrict__ major_max,
-    const typename Vec2<T>::type* __restrict__ minor_min,
-    const typename Vec2<T>::type* __restrict__ minor_max,
-    const int* __restrict__ vertex_ids, const int* __restrict__ element_id,
-    const T* __restrict__ fwd_min, const T* __restrict__ row_umin,
-    const T* __restrict__ row_umax, int n, int is_two_lists,
-    int* __restrict__ records, long long rec_budget,
-    unsigned long long* __restrict__ n_records,
-    unsigned long long* __restrict__ n_pairs) {
-  using V = typename Vec2<T>::type;
-  const T inf = (T)INFINITY;
-  __shared__ T s_reach[kWarps], s_lo0[kWarps], s_hi0[kWarps];
-  __shared__ T p_mmin[kChunk], p_mmax[kChunk];
-  __shared__ V p_lo[kChunk], p_hi[kChunk];
-  __shared__ int p_v0[kChunk], p_v1[kChunk], p_v2[kChunk], p_eid[kChunk];
-  __shared__ unsigned ballots[kWarps][kChunk];
-
-  const int r = blockIdx.x;
-  const int t = threadIdx.x;
-  const int lane = t & 31, warp = t >> 5;
-  const int i = r * kRow + t;
-  const bool live = i < n;
-  T a_reach = -inf, a_start = inf;
-  V a_lo, a_hi;
-  a_lo.x = a_lo.y = inf;
-  a_hi.x = a_hi.y = -inf;
-  int a0 = 0, a1 = 0, a2 = 0, a_eid = 0;
-  if (live) {
-    a_reach = major_max[i];
-    a_start = major_min[i];
-    a_lo = minor_min[i];
-    a_hi = minor_max[i];
-    a0 = vertex_ids[3 * i + 0];
-    a1 = vertex_ids[3 * i + 1];
-    a2 = vertex_ids[3 * i + 2];
-    a_eid = element_id[i];
-  }
-  // the row's reach and minor-0 union (dead lanes carry inverted bounds)
-  T reach = a_reach, lo0 = a_lo.x, hi0 = a_hi.x;
+__global__ void __launch_bounds__(32 * kRowsPerBlock) record_units_kernel(
+    Boxes<T> bx, const T* __restrict__ stops, int n, int n_rows, Scratch s) {
+  __shared__ u64 counts[kRowsPerBlock];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int r = blockIdx.x * kRowsPerBlock + w;
+  u64 units = 0;
+  if (r < n_rows) {  // the whole warp
+    const int first = r * kRow;
+    T reach = -(T)INFINITY, u_lo = (T)INFINITY, u_hi = -(T)INFINITY;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    reach = tmax(reach, __shfl_xor_sync(0xffffffffu, reach, off));
-    lo0 = tmin(lo0, __shfl_xor_sync(0xffffffffu, lo0, off));
-    hi0 = tmax(hi0, __shfl_xor_sync(0xffffffffu, hi0, off));
-  }
-  if (lane == 0) {
-    s_reach[warp] = reach;
-    s_lo0[warp] = lo0;
-    s_hi0[warp] = hi0;
-  }
-  __syncthreads();
-  reach = tmax(tmax(s_reach[0], s_reach[1]), tmax(s_reach[2], s_reach[3]));
-  lo0 = tmin(tmin(s_lo0[0], s_lo0[1]), tmin(s_lo0[2], s_lo0[3]));
-  hi0 = tmax(tmax(s_hi0[0], s_hi0[1]), tmax(s_hi0[2], s_hi0[3]));
-
-  for (int j0 = r * kRow; j0 < n; j0 += kChunk) {
-    // uniform over the CTA: every thread reads the same words
-    if ((ANY_ORDER ? fwd_min[j0] : major_min[j0]) > reach) break;
-    if (ANY_ORDER && (j0 & (kRow - 1)) == 0) {
-      const int pr = j0 / kRow;
-      if (row_umin[pr] > hi0 || row_umax[pr] < lo0) {
-        j0 += kRow - kChunk;  // the loop's increment lands on the next row
-        continue;
-      }
-    }
-    if (t < kChunk) {
-      const int j = j0 + t;
-      if (j < n) {
-        p_mmin[t] = major_min[j];
-        p_mmax[t] = major_max[j];
-        p_lo[t] = minor_min[j];
-        p_hi[t] = minor_max[j];
-        p_v0[t] = vertex_ids[3 * j + 0];
-        p_v1[t] = vertex_ids[3 * j + 1];
-        p_v2[t] = vertex_ids[3 * j + 2];
-        p_eid[t] = element_id[j];
-      } else {
-        p_mmin[t] = inf;  // past the end: fails the major test
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int u = 0; u < kChunk; ++u) {
-      const int j = j0 + u;
-      bool keep = live && i < j && j < n && p_mmin[u] <= a_reach;
-      if (ANY_ORDER) keep = keep && a_start <= p_mmax[u];
-      if (keep) {
-        const V b_lo = p_lo[u], b_hi = p_hi[u];
-        keep = a_lo.x <= b_hi.x && b_lo.x <= a_hi.x && a_lo.y <= b_hi.y &&
-               b_lo.y <= a_hi.y;
-      }
-      if (keep && is_two_lists) keep = (a_eid >= 0) != (p_eid[u] >= 0);
-      if (keep) {
-        const int b0 = p_v0[u], b1 = p_v1[u], b2 = p_v2[u];
-        keep = !(a0 == b0 || a0 == b1 || a0 == b2 || a1 == b0 || a1 == b1 ||
-                 a1 == b2 || a2 == b0 || a2 == b1 || a2 == b2);
-      }
-      const unsigned b = __ballot_sync(0xffffffffu, keep);
-      if (lane == 0) ballots[warp][u] = b;
-    }
-    __syncthreads();
-    if (t < kChunk) {
-      const unsigned w0 = ballots[0][t], w1 = ballots[1][t];
-      const unsigned w2 = ballots[2][t], w3 = ballots[3][t];
-      if (w0 | w1 | w2 | w3) {
-        const unsigned cnt = __popc(w0) + __popc(w1) + __popc(w2) + __popc(w3);
-        const unsigned long long slot = atomicAdd(n_records, 1ull);
-        atomicAdd(n_pairs, (unsigned long long)cnt);
-        if (slot < (unsigned long long)rec_budget) {
-          int4* dst = reinterpret_cast<int4*>(records + 8 * (size_t)slot);
-          dst[0] = make_int4((int)w0, (int)w1, (int)w2, (int)w3);
-          dst[1] = make_int4(j0 + t, r, 0, 0);
+    for (int q = 0; q < kSubTiles; ++q) {
+      const int i = first + 32 * q + lane;
+      if (i < n) {
+        const T v = bx.major_max[i];
+        reach = v > reach ? v : reach;
+        if constexpr (ANY_ORDER) {
+          const T lo = bx.minor_min[i].x, hi = bx.minor_max[i].x;
+          u_lo = lo < u_lo ? lo : u_lo;
+          u_hi = hi > u_hi ? hi : u_hi;
         }
       }
     }
+    reach = warp_max(reach);
+    if constexpr (ANY_ORDER) {
+      u_lo = warp_min(u_lo);
+      u_hi = warp_max(u_hi);
+    }
+    // the first j in [first + 1, n) with stops[j] > reach, else n
+    const int begin = first + 1;
+    const int end = warp_first(begin, n, [&](int k) { return k >= n || stops[k] > reach; });
+    if (lane == 0) s.tile_end[r] = end;
+    if (end > begin) {
+      const int row0 = begin / kRow, row1 = (end - 1) / kRow;
+      if constexpr (ANY_ORDER) {
+        for (int p0 = row0; p0 <= row1; p0 += 32) {
+          const int p = p0 + lane;
+          const bool kept = p <= row1 && !(bx.row_umin[p] > u_hi || bx.row_umax[p] < u_lo);
+          units += __popc(__ballot_sync(kFull, kept));
+        }
+      } else {
+        units = (u64)(row1 - row0 + 1);
+      }
+    }
+  }
+  if (lane == 0) counts[w] = units;
+  __syncthreads();
+  if (w == 0) {
+    u64 v = counts[lane];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const u64 o = __shfl_up_sync(kFull, v, off);
+      if (lane >= off) v += o;
+    }
+    const int rr = blockIdx.x * kRowsPerBlock + lane;
+    if (rr < n_rows) s.prefix[rr + 1] = v;
+    if (lane == 31) s.block_sum[blockIdx.x] = v;
   }
 }
 
-template <typename T>
-void launch(int any_order, int blocks, cudaStream_t s, const void* major_min,
-            const void* major_max, const void* minor_min,
-            const void* minor_max, const void* vertex_ids,
+// A warp's copy of its current a-row: lane-indexed boxes 32 q + lane of
+// sub-tile q, dead lanes (past n) with inverted bounds, and each sub-tile's
+// minor-0 union.
+template <typename T, bool ANY_ORDER> struct ARow {
+  Minor<T> minor[kRow];
+  T reach[kRow];
+  T start[ANY_ORDER ? kRow : 1];
+  int eid[kRow];
+  int vid[3 * kRow];
+  T sub_lo[kSubTiles], sub_hi[kSubTiles];
+};
+
+template <typename T, bool ANY_ORDER> struct WarpSmem {
+  Stage<T, ANY_ORDER> st;
+  ARow<T, ANY_ORDER> a;
+  int4 buf[kRecCap][2];
+};
+
+// Launch 3: the units, taken by warps from the grab counter.
+template <typename T, bool ANY_ORDER>
+__global__ void __launch_bounds__(kThreads) sweep_records_kernel(
+    Boxes<T> bx, int n, int is_two_lists, int n_rows, Scratch s,
+    int4* __restrict__ records, long long rec_budget, u64* __restrict__ n_records,
+    u64* __restrict__ n_pairs) {
+  using V = typename Vec2<T>::type;
+  extern __shared__ __align__(32) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  WarpSmem<T, ANY_ORDER>& ws = reinterpret_cast<WarpSmem<T, ANY_ORDER>*>(smem)[warp];
+  Stage<T, ANY_ORDER>& st = ws.st;
+  ARow<T, ANY_ORDER>& a = ws.a;
+  const unsigned lanes_below = (1u << lane) - 1u;
+
+  int r = 0, first = 0, n_sub = 0;  // the current a-row, its first box, live sub-tiles
+  int n_buf = 0;        // records in this warp's buffer (the same in every lane)
+  unsigned pairs = 0;   // this lane's pairs in the buffer
+
+  auto flush = [&]() {
+    __syncwarp();
+    u64 sum = pairs;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sum += __shfl_down_sync(kFull, sum, off);
+    u64 slot = 0;
+    if (lane == 0) {
+      slot = atomicAdd(n_records, (u64)n_buf);
+      atomicAdd(n_pairs, sum);
+    }
+    slot = __shfl_sync(kFull, slot, 0);
+    const int4* buf = &ws.buf[0][0];
+    for (int q = lane; q < 2 * n_buf; q += 32)
+      if (slot + q / 2 < (u64)rec_budget) records[2 * slot + q] = buf[q];
+    __syncwarp();
+    n_buf = 0;
+    pairs = 0;
+  };
+
+  auto load = [&](int t) {
+    r = t;
+    first = t * kRow;
+    n_sub = min(kSubTiles, (n - first + 31) / 32);
+    T u_lo = (T)INFINITY, u_hi = -(T)INFINITY;
+    __syncwarp();  // the previous a-row's reads are done
+#pragma unroll
+    for (int q = 0; q < kSubTiles; ++q) {
+      const int k = 32 * q + lane, i = first + k;
+      Minor<T> mi = {(T)INFINITY, (T)INFINITY, -(T)INFINITY, -(T)INFINITY};
+      T reach = -(T)INFINITY;
+      if (i < n) {
+        const V lo = __ldg(bx.minor_min + i), hi = __ldg(bx.minor_max + i);
+        mi = {lo.x, lo.y, hi.x, hi.y};
+        reach = __ldg(bx.major_max + i);
+        if constexpr (ANY_ORDER) a.start[k] = __ldg(bx.major_min + i);
+        a.eid[k] = __ldg(bx.element_id + i);
+        a.vid[3 * k + 0] = __ldg(bx.vertex_ids + 3 * i + 0);
+        a.vid[3 * k + 1] = __ldg(bx.vertex_ids + 3 * i + 1);
+        a.vid[3 * k + 2] = __ldg(bx.vertex_ids + 3 * i + 2);
+      }
+      a.minor[k] = mi;
+      a.reach[k] = reach;
+      const T lo = warp_min(mi.lo0), hi = warp_max(mi.hi0);
+      if (lane == 0) {
+        a.sub_lo[q] = lo;
+        a.sub_hi[q] = hi;
+      }
+      u_lo = lo < u_lo ? lo : u_lo;
+      u_hi = hi > u_hi ? hi : u_hi;
+    }
+    __syncwarp();
+    return TileRange<T>{first + 1, s.tile_end[t], u_lo, u_hi};
+  };
+
+  auto unit = [&](int j0, int m) {
+    stage_row(st, bx, j0, m);
+    // major sort: each sub-tile's lane keeps the row's partners below its
+    // own run end
+    int own[kSubTiles] = {m, m, m, m};
+    if constexpr (!ANY_ORDER) {
+#pragma unroll
+      for (int q = 0; q < kSubTiles; ++q) own[q] = run_end(st, m, a.reach[32 * q + lane]);
+    }
+
+    for (int g = 0; g < m; g += 32) {
+      const int jg = j0 + g;
+      const int cnt = min(32, m - g);
+      const T g_lo = warp_min(lane < cnt ? st.minor[g + lane].lo0 : (T)INFINITY);
+      const T g_hi = warp_max(lane < cnt ? st.minor[g + lane].hi0 : -(T)INFINITY);
+      unsigned word[kSubTiles] = {};  // lane u: the record words of partner jg + u
+      // the major sort unrolls the sub-tiles; any_order's larger tests run
+      // as one copy (unrolled, its sweeps ran 19-39% slower on an H100 and
+      // the major sort's 3-8% faster); own and word are picked by static
+      // index, so they stay in registers either way
+#pragma unroll (ANY_ORDER ? 1 : kSubTiles)
+      for (int q = 0; q < kSubTiles; ++q) {
+        // a sub-tile past n, or whose minor-0 union misses the group's,
+        // holds no survivor
+        if (q >= n_sub || g_lo > a.sub_hi[q] || g_hi < a.sub_lo[q]) continue;
+        const int k_a = 32 * q + lane;
+        const int i = first + k_a;
+        // partner jg + k counts for box i when k < min(cnt, own - g) and
+        // jg + k > i; lanes past n have no such k
+        const int upto = min(cnt, pick(own, q) - g);
+        unsigned valid = upto >= 32 ? kFull : upto > 0 ? (1u << upto) - 1u : 0u;
+        const int past = i - jg + 1;
+        if (past > 0) valid = past >= 32 ? 0u : valid & (kFull << past);
+        if (!__any_sync(kFull, valid)) continue;
+        const Minor<T> mi = a.minor[k_a];
+        T a_start = 0;
+        if constexpr (ANY_ORDER) a_start = a.start[k_a];
+        unsigned bits = valid & box_bits(st, g, V{mi.lo0, mi.lo1}, V{mi.hi0, mi.hi1},
+                                         a.reach[k_a], a_start);
+        if (bits) {
+          const int a0 = a.vid[3 * k_a + 0], a1 = a.vid[3 * k_a + 1], a2 = a.vid[3 * k_a + 2];
+          const int a_eid = a.eid[k_a];
+          for (unsigned todo = bits; todo; todo &= todo - 1) {
+            const int k = __ffs(todo) - 1;
+            if (!keeps(st, g + k, a0, a1, a2, a_eid, is_two_lists)) bits &= ~(1u << k);
+          }
+        }
+        // transpose: bit l of partner u's word is bit u of lane l's mask
+        for (unsigned us = __reduce_or_sync(kFull, bits); us; us &= us - 1) {
+          const int u = __ffs(us) - 1;
+          const unsigned b = __ballot_sync(kFull, (bits >> u) & 1u);
+          if (lane == u) put(word, q, b);
+        }
+      }
+      const bool has = (word[0] | word[1] | word[2] | word[3]) != 0;
+      const unsigned ballot = __ballot_sync(kFull, has);
+      if (!ballot) continue;
+      const int k_recs = __popc(ballot);
+      if (n_buf + k_recs > kRecCap) flush();
+      if (has) {
+        const int pos = n_buf + __popc(ballot & lanes_below);
+        ws.buf[pos][0] = make_int4((int)word[0], (int)word[1], (int)word[2], (int)word[3]);
+        ws.buf[pos][1] = make_int4(jg + lane, r, 0, 0);
+        pairs += __popc(word[0]) + __popc(word[1]) + __popc(word[2]) + __popc(word[3]);
+      }
+      n_buf += k_recs;
+    }
+  };
+
+  for_each_unit<ANY_ORDER>(bx, n_rows, s, load, unit);
+  if (n_buf) flush();
+}
+
+// The sweep launch's grid: as many blocks as fit on the card, each with
+// `smem` bytes of dynamic shared memory (above 48 KB only on request).
+template <typename T, bool ANY_ORDER>
+int sweep_grid(size_t* smem) {
+  auto kernel = sweep_records_kernel<T, ANY_ORDER>;
+  *smem = kWarps * sizeof(WarpSmem<T, ANY_ORDER>);
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+  static const int blocks = resident_blocks(kernel, kThreads, *smem);
+  (void)attr;
+  return blocks;
+}
+
+template <typename T, bool ANY_ORDER>
+void launch(cudaStream_t stream, const void* major_min, const void* major_max,
+            const void* minor_min, const void* minor_max, const void* vertex_ids,
             const void* element_id, const void* fwd_min, const void* row_umin,
             const void* row_umax, int n, int is_two_lists, void* records,
-            long long rec_budget, void* n_records, void* n_pairs) {
+            long long rec_budget, void* n_records, void* n_pairs, void* scratch) {
   using V = typename Vec2<T>::type;
+  const int n_rows = rows_of(n);
+  const Scratch s = scratch_at(scratch, n_rows, kRowsPerBlock);
+  Boxes<T> bx;
+  bx.major_min = (const T*)major_min;
+  bx.major_max = (const T*)major_max;
+  bx.minor_min = (const V*)minor_min;
+  bx.minor_max = (const V*)minor_max;
+  bx.vertex_ids = (const int*)vertex_ids;
+  bx.element_id = (const int*)element_id;
+  bx.row_umin = ANY_ORDER ? (const T*)row_umin : nullptr;
+  bx.row_umax = ANY_ORDER ? (const T*)row_umax : nullptr;
+  const T* stops = ANY_ORDER ? (const T*)fwd_min : (const T*)major_min;
+  const int scan_blocks = scan_blocks_of(n_rows, kRowsPerBlock);
+  record_units_kernel<T, ANY_ORDER><<<scan_blocks, 32 * kRowsPerBlock, 0, stream>>>(
+      bx, stops, n, n_rows, s);
+  unit_prefix_kernel<kRowsPerBlock><<<scan_blocks, kRowsPerBlock, 0, stream>>>(n_rows, s);
+  size_t smem = 0;
+  const int blocks = sweep_grid<T, ANY_ORDER>(&smem);
+  sweep_records_kernel<T, ANY_ORDER><<<blocks, kThreads, smem, stream>>>(
+      bx, n, is_two_lists, n_rows, s, (int4*)records, rec_budget, (u64*)n_records,
+      (u64*)n_pairs);
+}
+
+template <typename T, typename... Args>
+void launch_mode(int any_order, Args... args) {
   if (any_order)
-    sweep_records_kernel<T, true><<<blocks, kRow, 0, s>>>(
-        (const T*)major_min, (const T*)major_max, (const V*)minor_min,
-        (const V*)minor_max, (const int*)vertex_ids, (const int*)element_id,
-        (const T*)fwd_min, (const T*)row_umin, (const T*)row_umax, n,
-        is_two_lists, (int*)records, rec_budget,
-        (unsigned long long*)n_records, (unsigned long long*)n_pairs);
+    launch<T, true>(args...);
   else
-    sweep_records_kernel<T, false><<<blocks, kRow, 0, s>>>(
-        (const T*)major_min, (const T*)major_max, (const V*)minor_min,
-        (const V*)minor_max, (const int*)vertex_ids, (const int*)element_id,
-        nullptr, nullptr, nullptr, n, is_two_lists, (int*)records, rec_budget,
-        (unsigned long long*)n_records, (unsigned long long*)n_pairs);
+    launch<T, false>(args...);
 }
 
 }  // namespace
 
+// Bytes of scratch that sccd_sweep_records needs for n boxes.
+extern "C" long long sccd_sweep_records_scratch_bytes(int n) {
+  return n > 0 ? scratch_bytes(rows_of(n), kRowsPerBlock) : 0;
+}
+
 // is_f64: the float planes are double (minor planes 16-byte aligned), else
 // float.  fwd_min/row_umin/row_umax are read only with any_order (may be
 // null otherwise).  records: (rec_budget, 8) int32, 16-byte aligned.
+// scratch: sccd_sweep_records_scratch_bytes(n) bytes, 8-byte aligned.
 extern "C" int sccd_sweep_records(const void* major_min, const void* major_max,
                                   const void* minor_min, const void* minor_max,
-                                  const void* vertex_ids,
-                                  const void* element_id, const void* fwd_min,
-                                  const void* row_umin, const void* row_umax,
-                                  int n, int is_two_lists, int any_order,
-                                  int is_f64, void* records,
-                                  long long rec_budget, void* n_records,
-                                  void* n_pairs, void* stream) {
+                                  const void* vertex_ids, const void* element_id,
+                                  const void* fwd_min, const void* row_umin,
+                                  const void* row_umax, int n, int is_two_lists,
+                                  int any_order, int is_f64, void* records,
+                                  long long rec_budget, void* n_records, void* n_pairs,
+                                  void* scratch, void* stream) {
   if (n <= 0) return 0;
-  const int blocks = (n + kRow - 1) / kRow;
   auto s = (cudaStream_t)stream;
   if (is_f64)
-    launch<double>(any_order, blocks, s, major_min, major_max, minor_min,
-                   minor_max, vertex_ids, element_id, fwd_min, row_umin,
-                   row_umax, n, is_two_lists, records, rec_budget, n_records,
-                   n_pairs);
+    launch_mode<double>(any_order, s, major_min, major_max, minor_min, minor_max,
+                        vertex_ids, element_id, fwd_min, row_umin, row_umax, n,
+                        is_two_lists, records, rec_budget, n_records, n_pairs, scratch);
   else
-    launch<float>(any_order, blocks, s, major_min, major_max, minor_min,
-                  minor_max, vertex_ids, element_id, fwd_min, row_umin,
-                  row_umax, n, is_two_lists, records, rec_budget, n_records,
-                  n_pairs);
+    launch_mode<float>(any_order, s, major_min, major_max, minor_min, minor_max,
+                       vertex_ids, element_id, fwd_min, row_umin, row_umax, n,
+                       is_two_lists, records, rec_budget, n_records, n_pairs, scratch);
   return (int)cudaGetLastError();
+}
+
+// The sweep launch's blocks on the current device, and its dynamic shared
+// memory per block in *smem_bytes (for reports; launches compute the same).
+extern "C" int sccd_sweep_records_grid(int is_f64, int any_order, long long* smem_bytes) {
+  size_t smem = 0;
+  int blocks = 0;
+  if (is_f64)
+    blocks = any_order ? sweep_grid<double, true>(&smem) : sweep_grid<double, false>(&smem);
+  else
+    blocks = any_order ? sweep_grid<float, true>(&smem) : sweep_grid<float, false>(&smem);
+  *smem_bytes = (long long)smem;
+  return blocks;
 }
 
 extern "C" const char* sccd_sweep_records_error_string(int err) {

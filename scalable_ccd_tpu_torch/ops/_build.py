@@ -4,8 +4,9 @@ Each kernel is one ``csrc/<name>.cu`` file with a plain C interface,
 compiled by ``nvcc`` into a shared library and loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds).  The library is built at first
 use into ``build/kernels/`` beside the package, named by a hash of its
-source and flags, so an edited source rebuilds and an unchanged one is
-reused.  Nothing here runs at import time.
+source, the headers beside it (``csrc/*.cuh``) and the flags, so an edited
+source or header rebuilds and an unchanged one is reused.  Nothing here
+runs at import time.
 """
 
 from __future__ import annotations
@@ -61,6 +62,8 @@ def build_library(name: str) -> Path:
     output when ``nvcc`` fails."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
     if out.exists():
         BUILD_SECONDS.setdefault(name, 0.0)

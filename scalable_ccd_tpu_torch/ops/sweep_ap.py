@@ -272,37 +272,40 @@ def _launch(sb: SortedBoxes, is_two_lists, box_range, any_order, planes, pairs, 
     return scratch
 
 
-def _scratch_tiles(scratch: torch.Tensor, n_tiles: int):
-    """``(end, prefix)`` of :func:`sweep_tiles` as the kernel's first two
-    launches left them in ``scratch`` (``csrc/sweep_ap.cu:scratch_at``: the
-    prefix, the grab counter, a sum per block of 256 tiles, the ends)."""
-    blocks = -(-n_tiles // 256)
+def _scratch_tiles(scratch: torch.Tensor, n_tiles: int, per_block: int = 256):
+    """``(end, prefix)`` of :func:`sweep_tiles` as a kernel's first two
+    launches left them in ``scratch`` (``csrc/sweep_common.cuh:scratch_at``:
+    the prefix, the grab counter, a sum per block of ``per_block`` tiles,
+    the ends)."""
+    blocks = -(-n_tiles // per_block)
     end = scratch[n_tiles + 2 + blocks:].view(torch.int32)[:n_tiles]
     return end.to(torch.int64), scratch[:n_tiles + 1]
 
 
 def sweep_tiles(sorted_boxes: SortedBoxes, box_range=None, any_order: bool = False,
-                planes=None):
+                planes=None, tile: int = TILE):
     """Plain version of the work units of kernel A: ``(begin, end,
-    prefix)``, int64.  Tile ``t`` holds the sorted boxes ``[b0 + TILE * t,
-    min(b0 + TILE * (t + 1), b1))`` of ``box_range = (b0, b1)``; its partners
+    prefix)``, int64.  Tile ``t`` holds the sorted boxes ``[b0 + tile * t,
+    min(b0 + tile * (t + 1), b1))`` of ``box_range = (b0, b1)``; its partners
     are ``[begin[t], end[t])``, ``begin`` the tile's first box plus one and
     ``end`` the first position whose stop (``major_min``, or ``fwd_min``
     under ``any_order``) exceeds the tile's largest ``major_max``.  Tile
     ``t`` owns units ``[prefix[t], prefix[t + 1])``, one per :data:`ROW`
     -partner row its range touches, in order; under ``any_order`` only the
-    rows whose union of minor axis 0 meets the union of the tile's."""
+    rows whose union of minor axis 0 meets the union of the tile's.  Kernel
+    A's tiles are :data:`TILE` boxes; kernel A' takes ``tile=ROW``, the
+    a-rows of its records (``ops/sweep_records.py:sweep_record_units``)."""
     sb = sorted_boxes
     dev = sb.major_min.device
     b0, b1 = _resolve_range(box_range, sb.n)
     if any_order and planes is None:
         planes = partner_planes(sb)
-    begin = torch.arange(b0, b1, TILE, device=dev) + 1
-    pad = begin.numel() * TILE - (b1 - b0)
+    begin = torch.arange(b0, b1, tile, device=dev) + 1
+    pad = begin.numel() * tile - (b1 - b0)
     inf = float("inf")
 
     def per_tile(x, fill, reduce):
-        return reduce(torch.nn.functional.pad(x[b0:b1], (0, pad), value=fill).view(-1, TILE), 1)
+        return reduce(torch.nn.functional.pad(x[b0:b1], (0, pad), value=fill).view(-1, tile), 1)
 
     reach = per_tile(sb.major_max, -inf, torch.amax)
     stops = planes.fwd_min if any_order else sb.major_min
@@ -313,11 +316,11 @@ def sweep_tiles(sorted_boxes: SortedBoxes, box_range=None, any_order: bool = Fal
     if any_order:
         u_lo = per_tile(sb.minor_min[:, 0], inf, torch.amin)
         u_hi = per_tile(sb.minor_max[:, 0], -inf, torch.amax)
-        tile = torch.repeat_interleave(torch.arange(begin.numel(), device=dev), units)
+        tile_of = torch.repeat_interleave(torch.arange(begin.numel(), device=dev), units)
         first = torch.cumsum(units, 0) - units
-        row = row0[tile] + torch.arange(tile.numel(), device=dev) - first[tile]
-        kept = (planes.row_umin[row] <= u_hi[tile]) & (planes.row_umax[row] >= u_lo[tile])
-        units = torch.zeros_like(units).index_add_(0, tile, kept.to(units.dtype))
+        row = row0[tile_of] + torch.arange(tile_of.numel(), device=dev) - first[tile_of]
+        kept = (planes.row_umin[row] <= u_hi[tile_of]) & (planes.row_umax[row] >= u_lo[tile_of])
+        units = torch.zeros_like(units).index_add_(0, tile_of, kept.to(units.dtype))
     prefix = torch.cat([torch.zeros((1,), dtype=torch.int64, device=dev),
                         torch.cumsum(units, 0)])
     return begin, end, prefix

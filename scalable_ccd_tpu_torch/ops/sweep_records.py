@@ -18,6 +18,15 @@ VMEM) and the a-side extent classing are not ported, so ``w5`` is always
 are f32 or f64 (the kernel is instantiated for both); records hold positions
 and bits, no floats, so their format and decode are the same for either.
 
+The kernel works in units (``csrc/sweep_records.cu``): a record's a-row of
+:data:`ROW` sorted boxes against one ``ROW``-partner row of the a-row's
+partner range, which ends where the stops (``major_min``, or ``fwd_min``
+under ``any_order``) pass the a-row's largest ``major_max``; under
+``any_order`` only the rows the row skip keeps for the a-row count.  A
+given ``(j, r)`` arises in one unit only, so each record is whole where it
+is formed.  :func:`sweep_record_units` is the plain version of the
+kernel's first two launches, which number the units.
+
 :func:`sweep_records` runs the CUDA kernel on CUDA tensors and the plain
 version on CPU tensors; any other device raises.  Nothing falls back.
 """
@@ -32,14 +41,17 @@ from scalable_ccd_tpu_torch.broad_phase.sweep import SortedBoxes, emit_pairs
 from scalable_ccd_tpu_torch.ops._build import count_launch, launch_counts, load_library
 from scalable_ccd_tpu_torch.ops.sweep_ap import (
     ROW,
+    _scratch_tiles,
     check_boxes,
     partner_planes,
     sweep_positions,
+    sweep_tiles,
 )
 
 __all__ = [
     "sweep_records",
     "sweep_records_reference",
+    "sweep_record_units",
     "popcount32",
     "records_pair_prefix",
     "decode_records_range",
@@ -61,14 +73,20 @@ LAUNCHES_BY_MODE = launch_counts("sorted", "any_order")
 #: int32 words per record
 REC_WORDS = 8
 
+#: a-rows per block of the kernel's unit-count launch (the scratch layout)
+_ROWS_PER_BLOCK = 32
+
 
 def _bind(lib):
     fn = lib.sccd_sweep_records
     fn.argtypes = [ctypes.c_void_p] * 9 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
+    lib.sccd_sweep_records_scratch_bytes.argtypes = [ctypes.c_int]
+    lib.sccd_sweep_records_scratch_bytes.restype = ctypes.c_longlong
     lib.sccd_sweep_records_error_string.argtypes = [ctypes.c_int]
     lib.sccd_sweep_records_error_string.restype = ctypes.c_char_p
     return fn
@@ -109,30 +127,72 @@ def sweep_records(sorted_boxes: SortedBoxes, is_two_lists: bool, pair_budget: in
     records = torch.zeros((rec_budget, REC_WORDS), dtype=torch.int32, device=dev)
     n_records = torch.zeros((1,), dtype=torch.int64, device=dev)
     n_pairs = torch.zeros((1,), dtype=torch.int64, device=dev)
-    n = sorted_boxes.n
-    if n > 0:
-        lib = load_library("sweep_records")
-        fn = _bind(lib)
-        sb = sorted_boxes
-        f64 = sb.major_min.dtype == torch.float64
-        pl = (planes.fwd_min.data_ptr(), planes.row_umin.data_ptr(),
-              planes.row_umax.data_ptr()) if any_order else (None, None, None)
-        with torch.cuda.device(dev):
-            rc = fn(
-                sb.major_min.data_ptr(), sb.major_max.data_ptr(),
-                sb.minor_min.data_ptr(), sb.minor_max.data_ptr(),
-                sb.vertex_ids.data_ptr(), sb.element_id.data_ptr(), *pl,
-                n, int(bool(is_two_lists)), int(bool(any_order)), int(f64),
-                records.data_ptr(), rec_budget, n_records.data_ptr(),
-                n_pairs.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-            )
-        if rc != 0:
-            msg = lib.sccd_sweep_records_error_string(rc).decode()
-            raise RuntimeError(f"sweep_records kernel launch failed: {msg}")
+    if sorted_boxes.n > 0:
+        _launch(sorted_boxes, is_two_lists, any_order, planes, records, n_records, n_pairs)
         LAUNCHES += 1
-        count_launch(LAUNCHES_BY_MODE, ["any_order" if any_order else "sorted"], f64)
+        count_launch(LAUNCHES_BY_MODE, ["any_order" if any_order else "sorted"],
+                     sorted_boxes.major_min.dtype == torch.float64)
     n_records, n_pairs = n_records[0], n_pairs[0]
     return records, n_records, n_pairs, (n_pairs > pair_budget) | (n_records > rec_budget)
+
+
+def _launch(sb: SortedBoxes, is_two_lists, any_order, planes, records, n_records, n_pairs):
+    """Launch kernel A' over ``sb`` (at least one box) into ``records`` and
+    the two zeroed counters.  Returns the kernel's scratch (int64), which
+    :func:`_scratch_units` reads."""
+    dev = sb.major_min.device
+    lib = load_library("sweep_records")
+    fn = _bind(lib)
+    scratch = torch.empty((-(-lib.sccd_sweep_records_scratch_bytes(sb.n) // 8),),
+                          dtype=torch.int64, device=dev)
+    pl = (planes.fwd_min.data_ptr(), planes.row_umin.data_ptr(),
+          planes.row_umax.data_ptr()) if any_order else (None, None, None)
+    with torch.cuda.device(dev):
+        rc = fn(
+            sb.major_min.data_ptr(), sb.major_max.data_ptr(),
+            sb.minor_min.data_ptr(), sb.minor_max.data_ptr(),
+            sb.vertex_ids.data_ptr(), sb.element_id.data_ptr(), *pl,
+            sb.n, int(bool(is_two_lists)), int(bool(any_order)),
+            int(sb.major_min.dtype == torch.float64), records.data_ptr(), records.shape[0],
+            n_records.data_ptr(), n_pairs.data_ptr(), scratch.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        msg = lib.sccd_sweep_records_error_string(rc).decode()
+        raise RuntimeError(f"sweep_records kernel launch failed: {msg}")
+    return scratch
+
+
+def _launch_shape(f64: bool, any_order: bool):
+    """``(blocks, smem_bytes)`` of the kernel's sweep launch on the current
+    CUDA device: its persistent grid and dynamic shared memory per block."""
+    lib = load_library("sweep_records")
+    fn = lib.sccd_sweep_records_grid
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    smem = ctypes.c_longlong(0)
+    blocks = fn(int(f64), int(any_order), ctypes.byref(smem))
+    return blocks, smem.value
+
+
+def _scratch_units(scratch: torch.Tensor, n: int):
+    """``(end, prefix)`` of :func:`sweep_record_units` as the kernel's first
+    two launches left them in ``scratch``."""
+    return _scratch_tiles(scratch, -(-n // ROW), _ROWS_PER_BLOCK)
+
+
+def sweep_record_units(sorted_boxes: SortedBoxes, any_order: bool = False, planes=None):
+    """Plain version of the work units of kernel A': ``(begin, end,
+    prefix)``, int64, one entry per a-row ``r`` (the sorted boxes ``[ROW *
+    r, min(ROW * (r + 1), n))``, the ``r`` of its records).  Its partners
+    are ``[begin[r], end[r])``, ``begin = ROW * r + 1`` and ``end`` the first
+    position whose stop (``major_min``, or ``fwd_min`` under ``any_order``)
+    exceeds the a-row's largest ``major_max``; a-row ``r`` owns units
+    ``[prefix[r], prefix[r + 1])``, one per ``ROW``-partner row its range
+    touches, under ``any_order`` only the rows whose union of minor axis 0
+    meets the a-row's (:func:`scalable_ccd_tpu_torch.ops.sweep_ap.
+    sweep_tiles` with ``tile=ROW``)."""
+    return sweep_tiles(sorted_boxes, None, any_order, planes, tile=ROW)
 
 
 def _to_int32(v: torch.Tensor) -> torch.Tensor:

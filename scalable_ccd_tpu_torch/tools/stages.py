@@ -38,9 +38,9 @@ gives it (:func:`run_kernel_b`), on a CUDA device::
 
     python -m scalable_ccd_tpu_torch.tools.stages --kernel-b --plain
 
-``--kernel-a`` measures kernel A alone in each mode and dtype on the bench
-scene and grid-600, and the frames that use it (:func:`run_kernel_a`), on a
-CUDA device; run from two trees in turns, it compares two kernels::
+``--kernel-a`` measures kernels A and A' alone in each mode and dtype on the
+bench scene and grid-600, and the frames that use them (:func:`run_kernel_a`),
+on a CUDA device; run from two trees in turns, it compares two kernels::
 
     python -m scalable_ccd_tpu_torch.tools.stages --kernel-a
 """
@@ -400,20 +400,33 @@ def _keys_sum(pairs, n):
     return int((p[:, 0] * (1 << 32) + p[:, 1]).sum())
 
 
+def _records_sum(records, n):
+    """A digest of the first ``n`` records as a multiset: the sum over
+    records of their ``(r, j)`` key and mask words, mixed (int64 sums wrap
+    the same way in any order)."""
+    r = records[: int(n)].to(torch.int64)
+    words = (r[:, :4] & 0xFFFFFFFF) * torch.tensor([1, 3, 5, 7], device=r.device)
+    return int(((r[:, 5] * (1 << 32) + r[:, 4]) * 1_000_003 + words.sum(dim=1)).sum())
+
+
 def run_kernel_a(device=None, reps=5, emit=print) -> list:
-    """Kernel A alone, then the frames that use it, on a CUDA device.
+    """Kernels A and A' alone, then the frames that use them, on a CUDA
+    device.
 
     Per scene of ``_KERNEL_A_SCENES``, dtype (f32, f64) and phase, one JSON
-    line per mode: ``whole`` (the major sort), ``range`` (ranged launches
-    over chunks of 2^15 boxes, summed), ``any_order`` (the congestion
-    ordering), ``count_only`` and ``count_only_any_order``; ``ms`` is the
-    device time of one pass (:func:`_events_ms`), ``pairs`` the exact total
-    and ``keys_sum`` a digest of the pair set.  Then per scene of
-    ``_FRAME_SCENES`` and dtype, ``fused_ccd`` at its defaults: the TOI (and
-    its ``float.hex``), totals, checks and the median host ms per frame of
-    ``reps`` after a warm-up; and ``ccd()`` on the bench scene in f32.  Only
-    ``sweep_pairs``'s contract is used, so a tree with another kernel A
-    behind it is timed the same way."""
+    line per mode: kernel A's ``whole`` (the major sort), ``range`` (ranged
+    launches over chunks of 2^15 boxes, summed), ``any_order`` (the
+    congestion ordering), ``count_only`` and ``count_only_any_order``, and
+    kernel A''s ``records`` (the major sort) and ``records_any_order``;
+    ``ms`` is the device time of one pass (:func:`_events_ms`), ``pairs``
+    the exact total, ``records`` kernel A''s record total and ``keys_sum``
+    a digest of the pair set or record multiset.  Then per scene of
+    ``_FRAME_SCENES``, dtype and ``sweep_impl`` (``"pairs"``, the default,
+    and ``"records"``), ``fused_ccd``: the TOI (and its ``float.hex``),
+    totals, checks and the median host ms per frame of ``reps`` after a
+    warm-up; and ``ccd()`` on the bench scene in f32.  Only the contracts of
+    ``sweep_pairs`` and ``sweep_records`` are used, so a tree with other
+    kernels behind them is timed the same way."""
     device = resolve_device(device)
     if device.type != "cuda":
         raise RuntimeError("run_kernel_a times CUDA kernels: it needs a CUDA device")
@@ -444,6 +457,9 @@ def run_kernel_a(device=None, reps=5, emit=print) -> list:
                     "count_only": lambda: [sweep_pairs(major, two, count_only=True)],
                     "count_only_any_order": lambda: [sweep_pairs(
                         bucket, two, any_order=True, planes=planes, count_only=True)],
+                    "records": lambda: [sweep_records(major, two, budget)],
+                    "records_any_order": lambda: [sweep_records(
+                        bucket, two, budget, any_order=True, planes=planes)],
                 }
                 # the ranged pass keeps no pair buffer alive, as the
                 # chunked ccd() keeps none
@@ -451,26 +467,35 @@ def run_kernel_a(device=None, reps=5, emit=print) -> list:
                                            for r in ranges]}
                 for mode, fn in modes.items():
                     res = fn()
+                    extra = {}
                     if mode.startswith("count_only"):
                         pairs, keys = int(res[0]), None
+                    elif mode.startswith("records"):
+                        rec, n_rec, pairs = res[0][0], int(res[0][1]), int(res[0][2])
+                        keys = _records_sum(rec, n_rec)
+                        extra = {"records": n_rec, "overflowed": bool(res[0][3])}
                     else:
                         pairs = sum(int(r[2]) for r in res)
                         keys = sum(_keys_sum(r[0], r[1]) for r in res)
-                    out(kernel="sweep_pairs", scene=name, dtype=str(dtype)[6:], phase=ph,
+                    kernel = "sweep_records" if mode.startswith("records") else "sweep_pairs"
+                    out(kernel=kernel, scene=name, dtype=str(dtype)[6:], phase=ph,
                         mode=mode, boxes=major.n, launches=len(res), pairs=pairs,
-                        keys_sum=keys, ms=_events_ms(timed.get(mode, fn), reps))
+                        keys_sum=keys, **extra, ms=_events_ms(timed.get(mode, fn), reps))
     for name, args in _FRAME_SCENES.items():
         s = cloth_on_sphere(*args)
         v0, v1, e, f = mesh_tensors(s.vertices_t0, s.vertices_t1, s.edges, s.faces, device,
                                     pca=False)
         for dtype in (torch.float32, torch.float64):
-            res, wall, _ = _timed(
-                lambda: fused_ccd(v0, v1, e, f, device=device, validate=False, dtype=dtype),
-                reps, device)
-            out(frame="fused_ccd", scene=name, dtype=str(dtype)[6:], toi=float(res.toi),
-                toi_hex=float(res.toi).hex(), vf_total=int(res.vf_total),
-                ee_total=int(res.ee_total), total_checks=int(res.total_checks),
-                overflowed=bool(res.overflowed), ms=wall)
+            for impl in ("pairs", "records"):
+                res, wall, _ = _timed(
+                    lambda: fused_ccd(v0, v1, e, f, device=device, validate=False,
+                                      dtype=dtype, sweep_impl=impl),
+                    reps, device)
+                out(frame="fused_ccd", scene=name, dtype=str(dtype)[6:], sweep_impl=impl,
+                    toi=float(res.toi), toi_hex=float(res.toi).hex(),
+                    vf_total=int(res.vf_total), ee_total=int(res.ee_total),
+                    total_checks=int(res.total_checks), overflowed=bool(res.overflowed),
+                    ms=wall)
     s = cloth_on_sphere(*_KERNEL_A_SCENES["bench"])
     v0, v1, e, f = mesh_tensors(s.vertices_t0, s.vertices_t1, s.edges, s.faces, device,
                                 pca=False)
@@ -494,7 +519,8 @@ def main(argv=None) -> int:
     ap.add_argument("--plain", action="store_true",
                     help="with --kernel-b: the plain version on the same inputs, compared")
     ap.add_argument("--kernel-a", action="store_true",
-                    help="kernel A alone in every mode and dtype, and its frames (CUDA only)")
+                    help="kernels A and A' alone in every mode and dtype, and their frames "
+                         "(CUDA only)")
     a = ap.parse_args(argv)
     if a.kernel_a:
         lines = run_kernel_a(a.device, a.reps)

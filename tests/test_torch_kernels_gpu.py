@@ -695,3 +695,63 @@ def test_sweep_kernel_tiles_equal_plain(cuda, name):
         _, end, prefix = sweep_ap.sweep_tiles(sb, rng, any_order, planes)
         k_end, k_prefix = sweep_ap._scratch_tiles(scratch, end.numel())
         assert torch.equal(k_end, end) and torch.equal(k_prefix, prefix), (name, any_order, rng)
+
+
+# ---- kernel A''s work units (a-rows of 128 boxes against rows of 128 partners) ----
+
+def _record_rows(rec, n):
+    """The first ``n`` records as sorted int64 rows (a multiset)."""
+    r = rec[: int(n)].to(torch.int64).cpu().numpy()
+    return r[np.lexsort(r.T[::-1])]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", _UNIT_CASES)
+def test_records_kernel_units_equal_plain(cuda, name, dtype):
+    """Ragged a-rows (n = 1, 2, 127-129, 1000), a stack whose a-rows span
+    every partner row, the scenes in both orderings; budgets 0, 64 and
+    exactly the totals: the plain version's record multiset and exact
+    totals, ``overflow`` as the plain version sets it, the decoded pairs
+    equal to kernel A's pair set."""
+    sb = _unit_case(name, cuda, dtype)
+    two = not name.startswith("ee")
+    planes = sweep_ap.partner_planes(sb)
+    orders = [True] if name.endswith("bucket") else [False, True]
+    for any_order in orders:
+        kw = dict(any_order=any_order, planes=planes)
+        p = sweep_records.sweep_records_reference(sb, two, 1 << 20, **kw)
+        n_rec, n_pairs = int(p[1]), int(p[2])
+        want = _record_rows(p[0], n_rec)
+        for pair_budget, rec_budget in ((0, 0), (64, 64), (n_pairs, n_rec)):
+            before = sweep_records.LAUNCHES
+            k = sweep_records.sweep_records(sb, two, pair_budget, rec_budget, **kw)
+            torch.cuda.synchronize()
+            label = (name, any_order, pair_budget, rec_budget)
+            assert sweep_records.LAUNCHES == before + (sb.n > 0), label
+            rb = sweep_records._budgets(pair_budget, rec_budget)[1]
+            assert (int(k[1]), int(k[2])) == (n_rec, n_pairs), label
+            assert bool(k[3]) == (n_pairs > pair_budget or n_rec > rb), label
+            got = _record_rows(k[0], min(n_rec, rb))
+            keys = {tuple(r) for r in got}
+            assert len(keys) == got.shape[0] and keys <= {tuple(r) for r in want}, label
+        assert np.array_equal(got, want), name
+        a = sweep_ap.sweep_pairs(sb, two, max(n_pairs, 1), **kw)
+        cum = sweep_records.records_pair_prefix(k[0], k[1])
+        dec, _ = sweep_records.decode_records_range(sb, k[0], cum, 0, n_pairs, 0, two)
+        assert _set(dec, dec.shape[0]) == _set(a[0], a[1]) and int(a[2]) == n_pairs
+
+
+@pytest.mark.parametrize("name", _UNIT_CASES)
+def test_records_kernel_units_equal_device_units(cuda, name):
+    """The a-row ends and unit prefix of kernel A''s first two launches
+    equal :func:`sweep_records.sweep_record_units`."""
+    sb = _unit_case(name, cuda, torch.float32)
+    planes = sweep_ap.partner_planes(sb)
+    for any_order in ([True] if name.endswith("bucket") else [False, True]):
+        recs = torch.zeros((64, sweep_records.REC_WORDS), dtype=torch.int32, device=cuda)
+        counts = [torch.zeros((1,), dtype=torch.int64, device=cuda) for _ in range(2)]
+        scratch = sweep_records._launch(sb, True, any_order, planes, recs, *counts)
+        torch.cuda.synchronize()
+        _, end, prefix = sweep_records.sweep_record_units(sb, any_order, planes)
+        k_end, k_prefix = sweep_records._scratch_units(scratch, sb.n)
+        assert torch.equal(k_end, end) and torch.equal(k_prefix, prefix), (name, any_order)

@@ -155,3 +155,23 @@ def test_kernel_b_rows_need_cuda():
              for r, p, m in ((128, False, -1), (-1, False, -1), (-1, True, -1),
                              (-1, True, 10), (-1, False, 10))]
     assert modes == ["round_limit", "global", "per_query", "bounded", "bounded"]
+
+
+def test_kernel_a_pass_needs_cuda_and_digests_records_order_free():
+    """``--kernel-a`` times CUDA kernels only; its record digest is that of
+    the multiset, so a permuted record buffer gives the same digest and a
+    changed record another."""
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        stages.run_kernel_a(device="cpu")
+    s = jscenes.cloth_on_sphere(grid_n=16, sphere_subdiv=2, drop=0.3)
+    vb = aabb.build_vertex_boxes(torch.as_tensor(s.vertices_t0), torch.as_tensor(s.vertices_t1))
+    sb = sort_boxes(aabb.build_edge_boxes(vb, torch.as_tensor(s.edges, dtype=torch.int32)))
+    rec, n_rec, _, over = stages.sweep_records(sb, False, 1 << 14)
+    n = int(n_rec)
+    assert n > 1 and not bool(over)
+    digest = stages._records_sum(rec, n)
+    shuffled = rec[:n][torch.randperm(n, generator=torch.Generator().manual_seed(0))]
+    assert stages._records_sum(shuffled, n) == digest
+    changed = rec[:n].clone()
+    changed[0, 0] ^= 1 << 31
+    assert stages._records_sum(changed, n) != digest
