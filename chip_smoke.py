@@ -101,6 +101,21 @@ when it fails:
     layout, and of groups of 4) and both times; ``ptxas``'s registers,
     spills and shared memory for every instantiation of kernels B, A and
     A', and kernel A''s sweep grid (blocks, dynamic shared memory);
+16. the multi-device path: kernel A''s ``row_range`` against its plain
+    version on the bench scene (major sort) and grid-600 (``any_order``), VF
+    and EE, f32 and f64 (a range cut mid-scene equal to the plain version's,
+    partitions of the a-rows into 2 and 4 ranges making the whole record
+    multiset, each launch counted under ``"range"``; the 4-range partition
+    timed, on the bench scene beside the plain version); ``sharded_ccd`` in
+    a world of one process on NCCL on the bench scene at both
+    ``sweep_impl``s and in f64 (TOI within 1e-7 of ``fused_ccd``, equal
+    totals, no overflow, kernel A's or A''s range and kernel B launched)
+    and with ``collisions=[]`` on ``cloth_on_sphere(64, 3)`` (hit keys and
+    order equal to ``fused_ccd``'s); two processes sharing the card on gloo
+    (``parallel.spawn_local``), each running the bench scene and grid-600
+    at both partitions and both sweeps with the same checks and launch
+    counts in every rank, and each rank's ms per frame; the host broad
+    phase's f64 pair sets on the bench scene equal to kernel A's;
 last, grid-1000 in f32 timed once.
 
 Each kernel row carries its bound: the least time the card could take,
@@ -189,6 +204,27 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps):
+    """Device milliseconds of one call of ``fn``, the mean of ``reps``: each
+    call is queued behind a GPU sleep long enough for the host to enqueue
+    all of it, so the events time the card's work and not the host's gaps
+    between launches (as ``tools/stages.py --kernel-a`` times kernel A)."""
+    import torch
+
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
 
 
 def alternate(plain, kernel, reps):
@@ -569,6 +605,7 @@ def main():
     counting = phase_count_only(torch, dev, scene, grid600_scene)
     precise = phase_precision_path(torch, dev, scene, mid, grid600_scene, res)
     phase_kernel_b_rows()
+    multi = phase_multi_device(torch, dev, scene, grid600_scene, mid, smi)
     phase_grid1000(torch, dev, cloth_on_sphere)
 
     launched = lambda run, key: precise[run].get(key, 0)  # noqa: E731
@@ -626,6 +663,14 @@ def main():
         {"name": "solve_packed[round_limit,f64]", **solve,
          "launches": launched("fused_f64_round_limit", "solve_round_limit_f64"),
          **f64_rows["round_limit"]},
+        # the a-row range: launches per frame of sharded_ccd in a world of
+        # one process (phase 16)
+        {"name": "sweep_records[range]", **recs,
+         "launches": multi["launches"]["records"]["records_range"],
+         **multi["rows"]["float32"]},
+        {"name": "sweep_records[range,f64]", **recs,
+         "launches": multi["launches"]["records_f64"]["records_range_f64"],
+         **multi["rows"]["float64"]},
     ]}))
     emit(phase="done", wall_seconds=time.perf_counter() - T_START)
     print(f"host: {cpu_model}, {cpu_count} CPUs")
@@ -1983,6 +2028,277 @@ def phase_kernel_b_rows():
          kernel_a_records_ptxas=ptxas_by_instantiation(records_log),
          kernel_a_records_blocks_smem=shape)
     return lines
+
+
+# ---- 16. the multi-device path ------------------------------------------------------
+
+def phase_row_range(torch, dev, bench_scene, grid600_scene):
+    """Kernel A''s ``row_range`` against its plain version: the bench scene
+    under the major sort and grid-600 under ``any_order``, VF and EE, f32
+    and f64; a range cut mid-scene equal to the plain version's, and the
+    ranges of partitions of the a-rows into 2 and 4 making the whole
+    multiset.  On the bench scene the 4-range partition is timed against
+    the plain version on the same ranges, with the whole sweep's bound (the
+    ranges' union); on grid-600 the kernel's partition alone is timed (its
+    plain version takes seconds there).  The kernel's time is device time
+    behind a GPU sleep (:func:`device_ms`); the time with the host's launch
+    gaps is printed beside it.  Returns the kernels rows (the
+    bench scene's) by dtype."""
+    from scalable_ccd_tpu_torch.broad_phase import sort_boxes
+    from scalable_ccd_tpu_torch.ops import sweep_ap, sweep_records
+
+    out = {}
+    for name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+        kms_sum = pms_sum = 0.0
+        bnd = bound(0, 0)
+        cases = []
+        for ph, (two, boxes) in phase_boxes(scene_on(torch, dev, bench_scene, dtype)).items():
+            cases.append(("bench", ph, two, sort_boxes(boxes), None))
+        for ph, (two, boxes) in phase_boxes(scene_on(torch, dev, grid600_scene, dtype)).items():
+            sb = sort_boxes(boxes, bucket_minor=True)
+            cases.append(("grid600", ph, two, sb, sweep_ap.partner_planes(sb)))
+        for scene, ph, two, sb, planes in cases:
+            ao = planes is not None
+            kw = dict(any_order=ao, planes=planes)
+            label = f"row_range {scene} {ph} {name}"
+            budget = pow2ceil(int(sweep_ap.sweep_pairs(sb, two, count_only=True, **kw)))
+            rows = -(-sb.n // PARTNER_ROW)
+            whole = sweep_records.sweep_records(sb, two, budget, **kw)
+            check(not bool(whole[3]), f"{label}: the whole sweep overflowed")
+            want = record_rows(whole[0], whole[1])
+            mid = (rows // 3, 2 * rows // 3)
+            zero_counts()
+            k = sweep_records.sweep_records(sb, two, budget, row_range=mid, **kw)
+            torch.cuda.synchronize()
+            counted = sweep_records.LAUNCHES_BY_MODE["range"]
+            p = sweep_records.sweep_records_reference(sb, two, budget, 0, row_range=mid, **kw)
+            check(counted == 1, f"{label}: {counted} launches counted under 'range'")
+            check((int(k[1]), int(k[2])) == (int(p[1]), int(p[2])) and not bool(k[3]),
+                  f"{label}: counts {int(k[1])}/{int(k[2])} vs plain {int(p[1])}/{int(p[2])}")
+            check(torch.equal(record_rows(k[0], k[1]), record_rows(p[0], p[1])),
+                  f"{label}: the mid-scene range's records differ from the plain version's")
+            parts = {}
+            for world in (2, 4):
+                per = -(-rows // world)
+                ranges = [(min(s * per, rows), (s + 1) * per) for s in range(world)]
+                got = [sweep_records.sweep_records(sb, two, budget, row_range=r, **kw)
+                       for r in ranges]
+                union = torch.cat([g[0][: int(g[1])] for g in got])
+                check(sum(int(g[2]) for g in got) == int(whole[2]),
+                      f"{label}: the {world} ranges' pairs do not sum to the whole")
+                check(torch.equal(record_rows(union, union.shape[0]), want),
+                      f"{label}: the {world} ranges' records are not the whole multiset")
+                parts[world] = ranges
+            ranges = parts[4]
+
+            def four():
+                return [sweep_records.sweep_records(sb, two, budget, row_range=r, **kw)
+                        for r in ranges]
+
+            kms, host_ms = device_ms(four, 3), cuda_ms(four, 3)
+            n_rec = int(whole[1])
+            fields = {}
+            if not ao:
+                _, pms = timed_once(lambda: [sweep_records.sweep_records_reference(
+                    sb, two, budget, 0, row_range=r, **kw) for r in ranges])
+                case_bound = sweep_bound(sb, n_rec * RECORD_BYTES)
+                kms_sum, pms_sum = kms_sum + kms, pms_sum + pms
+                bnd = add_bounds(bnd, case_bound)
+                fields = dict(plain_four_ranges_ms=pms, bound_ms=case_bound["bound_ms"],
+                              bound_by=case_bound["bound_by"])
+            emit(phase="row_range", scene=scene, which=ph, dtype=name,
+                 order="any_order" if ao else "sorted", rows=rows, mid_range=list(mid),
+                 records=n_rec, pairs=int(whole[2]), mid_records=int(k[1]), equal=True,
+                 partitions_equal=[2, 4], four_ranges_ms=kms, four_ranges_host_ms=host_ms,
+                 **fields)
+        out[name] = {"max_abs_err": 0.0, "ms": kms_sum, "plain_ms": pms_sum, **bnd}
+    return out
+
+
+def _phase16_rank(scenes, budgets, device):
+    """One rank of phase 16(c): every scene at both partitions and both
+    sweeps on ``device`` (the card the ranks share), with zeroed launch
+    counts, timed (two frames of the bench scene, one of grid-600);
+    ``{case: fields}``."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from scalable_ccd_tpu_torch.parallel import sharded_ccd
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev.index or 0)
+    out = {}
+    for scene, arrays in scenes.items():
+        args = tuple(torch.as_tensor(a, device=dev) for a in arrays)
+        vf_b, ee_b = budgets[scene]
+        for partition in ("replicated", "box"):
+            for impl in ("pairs", "records"):
+                kw = dict(device=dev, sweep_impl=impl, partition=partition, validate=False,
+                          vf_budget_per_shard=vf_b, ee_budget_per_shard=ee_b)
+                zero_counts()
+                r = sharded_ccd(*args, **kw)
+                torch.cuda.synchronize()
+                counts = read_counts()
+                reps = 2 if scene == "bench" else 1
+                ms, times = wall_ms(lambda: sharded_ccd(*args, **kw), reps)
+                out[f"{scene} {partition} {impl}"] = dict(
+                    toi=float(r.toi), overflowed=bool(r.overflowed), vf_total=int(r.vf_total),
+                    ee_total=int(r.ee_total), checks=int(r.total_checks),
+                    capped=bool(r.solver_capped), launches=counts, ms_per_frame_median=ms,
+                    ms_per_frame=times)
+    return out
+
+
+def phase_multi_device(torch, dev, bench_scene, grid600_scene, mid_scene, smi):
+    """Phase 16: kernel A''s row range (a), ``sharded_ccd`` in a world of
+    one process on NCCL (b) and in two processes sharing the card on gloo
+    (c), each against ``fused_ccd``, and the host broad phase against
+    kernel A in f64 (d).  Returns the kernels rows and their launches."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from scalable_ccd_tpu_torch import fused_ccd, host, sharded_ccd
+    from scalable_ccd_tpu_torch.broad_phase import sort_boxes
+    from scalable_ccd_tpu_torch.ops import sweep_ap
+    from scalable_ccd_tpu_torch.parallel import spawn_local
+
+    t_phase = time.perf_counter()
+    rows = phase_row_range(torch, dev, bench_scene, grid600_scene)
+    t_a = time.perf_counter() - t_phase
+
+    def same(r, ref, label):
+        err = abs(float(r.toi) - float(ref.toi))
+        check(not bool(r.overflowed), f"{label}: overflowed")
+        check(err <= 1e-7, f"{label}: toi {float(r.toi)} vs fused_ccd {float(ref.toi)}")
+        check((int(r.vf_total), int(r.ee_total)) == (int(ref.vf_total), int(ref.ee_total)),
+              f"{label}: totals {int(r.vf_total)}/{int(r.ee_total)} vs fused_ccd "
+              f"{int(ref.vf_total)}/{int(ref.ee_total)}")
+        return err
+
+    def budgets(ref):
+        return pow2ceil(int(ref.vf_total)), pow2ceil(int(ref.ee_total))
+
+    # (b) a world of one process on NCCL
+    bargs = scene_on(torch, dev, bench_scene)
+    b64 = scene_on(torch, dev, bench_scene, torch.float64)
+    margs = scene_on(torch, dev, mid_scene)
+    refs = {"bench": fused_ccd(*bargs, device=dev), "bench_f64": fused_ccd(
+        *b64, device=dev, dtype=torch.float64)}
+    launches, world1 = {}, {}
+    torch.cuda.set_device(dev.index or 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp, "store"),
+                                world_size=1, rank=0)
+        try:
+            check(dist.get_backend() == "nccl", "the world of one is not on NCCL")
+            for label, args, kw, ref in (
+                ("pairs", bargs, {}, refs["bench"]),
+                ("records", bargs, dict(sweep_impl="records"), refs["bench"]),
+                ("records_f64", b64, dict(sweep_impl="records", dtype=torch.float64),
+                 refs["bench_f64"]),
+            ):
+                vf_b, ee_b = budgets(ref)
+                kw = dict(kw, validate=False, vf_budget_per_shard=vf_b, ee_budget_per_shard=ee_b)
+                run = lambda: sharded_ccd(*args, **kw)  # noqa: E731
+                zero_counts()
+                r = run()
+                torch.cuda.synchronize()
+                counts = read_counts()
+                err = same(r, ref, f"nccl world of 1 bench {label}")
+                key = "sweep_range" if label == "pairs" else "records_range"
+                check(counts[key] > 0 and counts["solve_global"] + counts["solve_round_limit"] > 0,
+                      f"nccl world of 1 bench {label}: a kernel did not launch: {counts}")
+                launches[label] = counts
+                ms, times = wall_ms(run, 3)
+                world1[label] = dict(toi=float(r.toi), abs_err=err, launches=counts,
+                                     ms_per_frame_median=ms, ms_per_frame=times,
+                                     fused_toi=float(ref.toi))
+            hits, want = [], []
+            mref = fused_ccd(*margs, device=dev, collisions=want)
+            vf_b, ee_b = budgets(mref)
+            zero_counts()
+            r = sharded_ccd(*margs, validate=False, collisions=hits, vf_budget_per_shard=vf_b,
+                            ee_budget_per_shard=ee_b)
+            counts = read_counts()
+            same(r, mref, "nccl world of 1 grid-64 collect")
+            check([h[:2] for h in hits] == [h[:2] for h in want] and len(hits) > 0,
+                  f"grid-64 collect: {len(hits)} hit keys vs fused_ccd's {len(want)}")
+            check(counts["solve_per_query"] > 0, f"grid-64 collect: no per-query launch {counts}")
+            hit_err = max(abs(a[2] - b[2]) for a, b in zip(hits, want))
+            check(hit_err <= 1e-7, f"grid-64 collect: hit TOIs differ by {hit_err}")
+            world1["collect_grid64"] = dict(hits=len(hits), hit_toi_max_err=hit_err,
+                                            launches=counts)
+        finally:
+            dist.destroy_process_group()
+    emit(phase="multi_device_nccl_world1", nvidia_smi=smi, **world1)
+    t_b = time.perf_counter() - t_phase - t_a
+
+    # (c) two processes sharing the card, on gloo
+    g600 = scene_on(torch, dev, grid600_scene)
+    refs["grid600"] = fused_ccd(*g600, device=dev)
+    del g600
+    scenes = {name: tuple(np.ascontiguousarray(a, dtype=dt) for a, dt in (
+        (sc.vertices_t0, np.float32), (sc.vertices_t1, np.float32), (sc.edges, np.int32),
+        (sc.faces, np.int32))) for name, sc in (("bench", bench_scene),
+                                                 ("grid600", grid600_scene))}
+    out = spawn_local(2, _phase16_rank, scenes,
+                      {k: budgets(refs[k]) for k in ("bench", "grid600")}, str(dev),
+                      backend="gloo")
+    for rank, cases in enumerate(out):
+        for case, o in cases.items():
+            ref = refs[case.split()[0]]
+            label = f"gloo rank {rank} {case}"
+            check(not o["overflowed"], f"{label}: overflowed")
+            err = abs(o["toi"] - float(ref.toi))
+            check(err <= 1e-7, f"{label}: toi {o['toi']} vs fused_ccd {float(ref.toi)}")
+            check((o["vf_total"], o["ee_total"]) == (int(ref.vf_total), int(ref.ee_total)),
+                  f"{label}: totals differ from fused_ccd's")
+            c = o["launches"]
+            check(c["sweep_range"] + c["records_range"] > 0
+                  and c["solve_global"] + c["solve_round_limit"] > 0,
+                  f"{label}: a kernel did not launch in this rank: {c}")
+            o["abs_err"] = err
+    emit(phase="multi_device_gloo_two_ranks_one_card", nvidia_smi=smi, backend="gloo",
+         fused_toi={k: float(v.toi) for k, v in refs.items()}, ranks=out)
+    t_c = time.perf_counter() - t_phase - t_a - t_b
+
+    # (d) the host broad phase against kernel A, f64, on the bench scene
+    vmin, vmax = host.build_vertex_boxes(bench_scene.vertices_t0, bench_scene.vertices_t1)
+    host_sets = {}
+    t = time.perf_counter()
+    for ph, elems in (("vf", bench_scene.faces), ("ee", bench_scene.edges)):
+        emin, emax = host.build_element_boxes(vmin, vmax, elems)
+        if ph == "vf":
+            nv, nf = len(vmin), len(emin)
+            ids = np.arange(nv, dtype=np.int32)
+            pairs, _ = host.sort_and_sweep(
+                np.concatenate([vmin, emin]), np.concatenate([vmax, emax]),
+                np.concatenate([np.stack([ids, -ids - 1, -ids - 1], 1),
+                                np.asarray(elems, np.int32)]),
+                np.concatenate([-ids - 1, np.arange(nf, dtype=np.int32)]), two_lists=True)
+        else:
+            e = np.asarray(elems, np.int32)
+            vids = np.stack([e[:, 0], e[:, 1], -e[:, 0] - 1], 1)
+            pairs, _ = host.sort_and_sweep(emin, emax, vids, np.arange(len(e), dtype=np.int32))
+        host_sets[ph] = torch.as_tensor(pairs)
+    host_ms = (time.perf_counter() - t) * 1e3
+    counts = {}
+    for ph, (two, boxes) in phase_boxes(b64).items():
+        sb = sort_boxes(boxes)
+        n = int(sweep_ap.sweep_pairs(sb, two, count_only=True))
+        k = sweep_ap.sweep_pairs(sb, two, pow2ceil(n))
+        check(torch.equal(pair_keys(k[0], k[1]).cpu(),
+                          pair_keys(host_sets[ph], host_sets[ph].shape[0])),
+              f"host broad phase {ph}: its f64 pair set differs from kernel A's")
+        counts[ph] = n
+    emit(phase="host_broad_phase", scene="cloth_on_sphere(128, 4, drop=0.25)", dtype="float64",
+         pairs=counts, equal_to_kernel_a=True, host_ms_both_phases=host_ms,
+         host_threads=os.cpu_count())
+    emit(phase="multi_device_seconds", row_range=t_a, nccl_world1=t_b, gloo_two_ranks=t_c,
+         host=time.perf_counter() - t_phase - t_a - t_b - t_c)
+    return {"rows": rows, "launches": launches}
 
 
 if __name__ == "__main__":

@@ -17,9 +17,16 @@ Public API::
     toi = ccd(v0, v1, edges, faces)                           # chunked
     toi = ipc_ccd_strategy(v0, v1, edges, faces, min_distance=1e-3)  # IPC step rule
     res = fused_ccd(v0, v1, edges, faces, device="cpu")       # plain versions
+    res = sharded_ccd(v0, v1, edges, faces)   # every rank of a torch.distributed group
+
+The multi-device path (:mod:`scalable_ccd_tpu_torch.parallel`) runs on a
+``torch.distributed`` process group, one process per device; the native
+host broad phase (:mod:`scalable_ccd_tpu_torch.host`) is a C++
+sort-and-sweep for the CPU.
 """
 
 from scalable_ccd_tpu_torch.config import DEFAULT_CONFIG, CCDConfig, MemoryConfig
+from scalable_ccd_tpu_torch.parallel.sharded import sharded_ccd
 from scalable_ccd_tpu_torch.pipeline.ccd import CCDStats, ccd, ipc_ccd_strategy
 from scalable_ccd_tpu_torch.pipeline.fused import FusedCCDResult, fused_ccd
 
@@ -32,4 +39,5 @@ __all__ = [
     "ccd",
     "fused_ccd",
     "ipc_ccd_strategy",
+    "sharded_ccd",
 ]

@@ -51,6 +51,16 @@
 //   rec_budget.  Record order is nondeterministic; the record multiset is
 //   not.
 //
+// Row range (the TPU kernel's tile0/n_tiles, in 128-box a-rows instead of
+// 1024-box tiles): only the a-rows [row_lo, row_hi) form records.  Launch 1
+// has one warp per a-row of the range, the unit prefix and the partner ends
+// are indexed from row_lo, and the persistent grid takes only those units;
+// partners still run to the end of the array, and a record keeps its
+// absolute a-row r, so the union over ranges that cover every a-row is the
+// whole record multiset and the decode is unchanged.  This is the range
+// shard of the multi-device path (parallel/sharded.py).  The whole array is
+// the range [0, ceil(n / 128)); an empty range launches nothing.
+//
 // Scalar type (template T): float or double planes, as in kernel A.  The
 // records hold positions and bits, no floats, so their format and decode do
 // not depend on T.  A warp's shared memory (partner stage, a-row, record
@@ -86,17 +96,18 @@ template <typename X> __device__ __forceinline__ void put(X (&v)[kSubTiles], int
   v[3] = q == 3 ? x : v[3];
 }
 
-// Launch 1: per a-row (warp), its partner end and unit count; per block, the
-// inclusive scan of the counts (into prefix[r + 1]) and their sum.
+// Launch 1: per a-row (warp) of the range, its partner end and unit count;
+// per block, the inclusive scan of the counts (into prefix[t + 1], t the
+// a-row's index in the range) and their sum.
 template <typename T, bool ANY_ORDER>
 __global__ void __launch_bounds__(32 * kRowsPerBlock) record_units_kernel(
-    Boxes<T> bx, const T* __restrict__ stops, int n, int n_rows, Scratch s) {
+    Boxes<T> bx, const T* __restrict__ stops, int n, int row_lo, int n_rows, Scratch s) {
   __shared__ u64 counts[kRowsPerBlock];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int r = blockIdx.x * kRowsPerBlock + w;
+  const int t = blockIdx.x * kRowsPerBlock + w;
   u64 units = 0;
-  if (r < n_rows) {  // the whole warp
-    const int first = r * kRow;
+  if (t < n_rows) {  // the whole warp
+    const int first = (row_lo + t) * kRow;
     T reach = -(T)INFINITY, u_lo = (T)INFINITY, u_hi = -(T)INFINITY;
 #pragma unroll
     for (int q = 0; q < kSubTiles; ++q) {
@@ -119,7 +130,7 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock) record_units_kernel(
     // the first j in [first + 1, n) with stops[j] > reach, else n
     const int begin = first + 1;
     const int end = warp_first(begin, n, [&](int k) { return k >= n || stops[k] > reach; });
-    if (lane == 0) s.tile_end[r] = end;
+    if (lane == 0) s.tile_end[t] = end;
     if (end > begin) {
       const int row0 = begin / kRow, row1 = (end - 1) / kRow;
       if constexpr (ANY_ORDER) {
@@ -169,7 +180,7 @@ template <typename T, bool ANY_ORDER> struct WarpSmem {
 // Launch 3: the units, taken by warps from the grab counter.
 template <typename T, bool ANY_ORDER>
 __global__ void __launch_bounds__(kThreads) sweep_records_kernel(
-    Boxes<T> bx, int n, int is_two_lists, int n_rows, Scratch s,
+    Boxes<T> bx, int n, int is_two_lists, int row_lo, int n_rows, Scratch s,
     int4* __restrict__ records, long long rec_budget, u64* __restrict__ n_records,
     u64* __restrict__ n_pairs) {
   using V = typename Vec2<T>::type;
@@ -204,8 +215,8 @@ __global__ void __launch_bounds__(kThreads) sweep_records_kernel(
   };
 
   auto load = [&](int t) {
-    r = t;
-    first = t * kRow;
+    r = row_lo + t;
+    first = r * kRow;
     n_sub = min(kSubTiles, (n - first + 31) / 32);
     T u_lo = (T)INFINITY, u_hi = -(T)INFINITY;
     __syncwarp();  // the previous a-row's reads are done
@@ -328,10 +339,11 @@ template <typename T, bool ANY_ORDER>
 void launch(cudaStream_t stream, const void* major_min, const void* major_max,
             const void* minor_min, const void* minor_max, const void* vertex_ids,
             const void* element_id, const void* fwd_min, const void* row_umin,
-            const void* row_umax, int n, int is_two_lists, void* records,
-            long long rec_budget, void* n_records, void* n_pairs, void* scratch) {
+            const void* row_umax, int n, int row_lo, int row_hi, int is_two_lists,
+            void* records, long long rec_budget, void* n_records, void* n_pairs,
+            void* scratch) {
   using V = typename Vec2<T>::type;
-  const int n_rows = rows_of(n);
+  const int n_rows = row_hi - row_lo;
   const Scratch s = scratch_at(scratch, n_rows, kRowsPerBlock);
   Boxes<T> bx;
   bx.major_min = (const T*)major_min;
@@ -345,12 +357,12 @@ void launch(cudaStream_t stream, const void* major_min, const void* major_max,
   const T* stops = ANY_ORDER ? (const T*)fwd_min : (const T*)major_min;
   const int scan_blocks = scan_blocks_of(n_rows, kRowsPerBlock);
   record_units_kernel<T, ANY_ORDER><<<scan_blocks, 32 * kRowsPerBlock, 0, stream>>>(
-      bx, stops, n, n_rows, s);
+      bx, stops, n, row_lo, n_rows, s);
   unit_prefix_kernel<kRowsPerBlock><<<scan_blocks, kRowsPerBlock, 0, stream>>>(n_rows, s);
   size_t smem = 0;
   const int blocks = sweep_grid<T, ANY_ORDER>(&smem);
   sweep_records_kernel<T, ANY_ORDER><<<blocks, kThreads, smem, stream>>>(
-      bx, n, is_two_lists, n_rows, s, (int4*)records, rec_budget, (u64*)n_records,
+      bx, n, is_two_lists, row_lo, n_rows, s, (int4*)records, rec_budget, (u64*)n_records,
       (u64*)n_pairs);
 }
 
@@ -364,33 +376,38 @@ void launch_mode(int any_order, Args... args) {
 
 }  // namespace
 
-// Bytes of scratch that sccd_sweep_records needs for n boxes.
-extern "C" long long sccd_sweep_records_scratch_bytes(int n) {
-  return n > 0 ? scratch_bytes(rows_of(n), kRowsPerBlock) : 0;
+// Bytes of scratch that sccd_sweep_records needs for the a-rows [row_lo, row_hi).
+extern "C" long long sccd_sweep_records_scratch_bytes(int row_lo, int row_hi) {
+  return row_hi > row_lo ? scratch_bytes(row_hi - row_lo, kRowsPerBlock) : 0;
 }
 
 // is_f64: the float planes are double (minor planes 16-byte aligned), else
 // float.  fwd_min/row_umin/row_umax are read only with any_order (may be
-// null otherwise).  records: (rec_budget, 8) int32, 16-byte aligned.
-// scratch: sccd_sweep_records_scratch_bytes(n) bytes, 8-byte aligned.
+// null otherwise).  [row_lo, row_hi): the a-rows that form records, within
+// [0, ceil(n / 128)).  records: (rec_budget, 8) int32, 16-byte aligned.
+// scratch: sccd_sweep_records_scratch_bytes(row_lo, row_hi) bytes, 8-byte
+// aligned.
 extern "C" int sccd_sweep_records(const void* major_min, const void* major_max,
                                   const void* minor_min, const void* minor_max,
                                   const void* vertex_ids, const void* element_id,
                                   const void* fwd_min, const void* row_umin,
-                                  const void* row_umax, int n, int is_two_lists,
-                                  int any_order, int is_f64, void* records,
-                                  long long rec_budget, void* n_records, void* n_pairs,
-                                  void* scratch, void* stream) {
-  if (n <= 0) return 0;
+                                  const void* row_umax, int n, int row_lo, int row_hi,
+                                  int is_two_lists, int any_order, int is_f64,
+                                  void* records, long long rec_budget, void* n_records,
+                                  void* n_pairs, void* scratch, void* stream) {
+  if (row_lo < 0 || row_hi > rows_of(n)) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || row_hi <= row_lo) return 0;
   auto s = (cudaStream_t)stream;
   if (is_f64)
     launch_mode<double>(any_order, s, major_min, major_max, minor_min, minor_max,
-                        vertex_ids, element_id, fwd_min, row_umin, row_umax, n,
-                        is_two_lists, records, rec_budget, n_records, n_pairs, scratch);
+                        vertex_ids, element_id, fwd_min, row_umin, row_umax, n, row_lo,
+                        row_hi, is_two_lists, records, rec_budget, n_records, n_pairs,
+                        scratch);
   else
     launch_mode<float>(any_order, s, major_min, major_max, minor_min, minor_max,
-                       vertex_ids, element_id, fwd_min, row_umin, row_umax, n,
-                       is_two_lists, records, rec_budget, n_records, n_pairs, scratch);
+                       vertex_ids, element_id, fwd_min, row_umin, row_umax, n, row_lo,
+                       row_hi, is_two_lists, records, rec_budget, n_records, n_pairs,
+                       scratch);
   return (int)cudaGetLastError();
 }
 

@@ -6,7 +6,8 @@ package, handed over as numpy arrays (``np.asarray`` of each field), into
 this port's tensors, and the port's values back into numpy, so that a
 single stage can be run on identical input in both packages, and turn a
 JAX ``CCDConfig`` into the port's (:func:`config_from_jax`) and JAX
-``fused_ccd`` options into the port's (:func:`fused_kwargs_from_jax`).  Nothing here
+``fused_ccd`` and ``make_sharded_ccd`` options into the port's
+(:func:`fused_kwargs_from_jax`, :func:`sharded_kwargs_from_jax`).  Nothing here
 imports jax: the JAX-side values only need to convert with ``np.asarray``.
 """
 
@@ -31,6 +32,7 @@ __all__ = [
     "to_numpy",
     "config_from_jax",
     "fused_kwargs_from_jax",
+    "sharded_kwargs_from_jax",
 ]
 
 #: JAX ``sweep_impl`` values and the port's emission of the same pair set:
@@ -125,4 +127,56 @@ def fused_kwargs_from_jax(**kwargs) -> dict:
             out[name] = _SWEEP_IMPL[value]
         else:
             raise ValueError(f"fused_ccd option {name!r} has no counterpart in the port")
+    return out
+
+
+#: ``make_sharded_ccd`` keywords of the JAX package that choose between its
+#: TPU mechanisms, with the values that mean "its default": the port has one
+#: mechanism for each, so only these values carry over (and are dropped)
+_SHARDED_TPU_DEFAULTS = {
+    "solver": ("auto",), "stack_capacity": (96,), "sweep_batch": (1 << 17,),
+    "sweep_window": (32,), "shift_cap": (1 << 13,),
+    # auto resolves to the sweep order on the sharded path (JAX sharded.py:95)
+    "narrow_order": ("auto", "sweep"),
+}
+
+#: ``make_sharded_ccd`` keywords that carry over as they are
+_SHARDED_AS_IS = (
+    "vf_budget_per_shard", "ee_budget_per_shard", "max_iterations", "allow_zero_toi",
+    "narrow_batch", "ipc_refine", "bucket_minor", "collect", "escalate_rounds", "presample",
+    "precision", "partition", "halo_boxes",
+)
+
+
+def sharded_kwargs_from_jax(**kwargs) -> dict:
+    """JAX ``make_sharded_ccd`` options as the port's
+    :func:`scalable_ccd_tpu_torch.parallel.make_sharded_ccd`'s: the budgets
+    per shard, ``partition``, ``halo_boxes``, ``collect`` and the options
+    :func:`fused_kwargs_from_jax` passes on carry over as they are,
+    ``dtype`` becomes its name, ``sweep_impl`` maps to ``"pairs"``
+    (``pallas_ap``) or ``"records"`` (the record layouts) and its ``"auto"``
+    to the port's default.  The TPU knobs (``solver``, ``stack_capacity``,
+    ``sweep_batch``, ``sweep_window``, ``shift_cap``, ``narrow_order``) are
+    dropped at their defaults and raise ``ValueError`` at any other value,
+    as do ``sweep_impl="xla"`` (the XLA twin of the sweep, not a
+    range-sharded kernel) and any unknown option."""
+    out = {}
+    for name, value in kwargs.items():
+        if name in _SHARDED_AS_IS:
+            out[name] = value
+        elif name == "dtype":
+            out[name] = np.dtype(value).name
+        elif name == "sweep_impl":
+            if value == "auto":
+                continue
+            if value == "xla" or value not in _SWEEP_IMPL:
+                raise ValueError(f"sweep_impl={value!r} has no counterpart on the sharded path: "
+                                 "'pallas_ap' (pairs) or a record layout (records)")
+            out[name] = _SWEEP_IMPL[value]
+        elif name in _SHARDED_TPU_DEFAULTS:
+            if value not in _SHARDED_TPU_DEFAULTS[name]:
+                raise ValueError(f"{name}={value!r} chooses a TPU mechanism the port does not "
+                                 "have (docs/MIGRATION_TORCH.md)")
+        else:
+            raise ValueError(f"make_sharded_ccd option {name!r} has no counterpart in the port")
     return out

@@ -27,6 +27,13 @@ given ``(j, r)`` arises in one unit only, so each record is whole where it
 is formed.  :func:`sweep_record_units` is the plain version of the
 kernel's first two launches, which number the units.
 
+``row_range = (r0, r1)`` keeps the records of the a-rows ``[r0, r1)`` only
+(the JAX kernel's ``tile0``/``n_tiles``, in 128-box a-rows): partners still
+run to the end of the array and a record keeps its absolute a-row, so the
+union over ranges that cover every a-row is the whole record multiset and
+:func:`decode_records_range` is the same.  The multi-device path
+(:mod:`scalable_ccd_tpu_torch.parallel.sharded`) sweeps one range per rank.
+
 :func:`sweep_records` runs the CUDA kernel on CUDA tensors and the plain
 version on CPU tensors; any other device raises.  Nothing falls back.
 """
@@ -65,10 +72,10 @@ __all__ = [
 #: kernel launches made by :func:`sweep_records` in this process
 LAUNCHES = 0
 
-#: the same launches by ordering: "sorted" (the major sort) or "any_order";
-#: by scalar type as :func:`scalable_ccd_tpu_torch.ops._build.launch_counts`
-#: lays out
-LAUNCHES_BY_MODE = launch_counts("sorted", "any_order")
+#: the same launches by ordering: "sorted" (the major sort) or "any_order",
+#: also "range" when a ``row_range`` was given; by scalar type as
+#: :func:`scalable_ccd_tpu_torch.ops._build.launch_counts` lays out
+LAUNCHES_BY_MODE = launch_counts("sorted", "any_order", "range")
 
 #: int32 words per record
 REC_WORDS = 8
@@ -79,13 +86,12 @@ _ROWS_PER_BLOCK = 32
 
 def _bind(lib):
     fn = lib.sccd_sweep_records
-    fn.argtypes = [ctypes.c_void_p] * 9 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p,
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
-    lib.sccd_sweep_records_scratch_bytes.argtypes = [ctypes.c_int]
+    lib.sccd_sweep_records_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.sccd_sweep_records_scratch_bytes.restype = ctypes.c_longlong
     lib.sccd_sweep_records_error_string.argtypes = [ctypes.c_int]
     lib.sccd_sweep_records_error_string.restype = ctypes.c_char_p
@@ -98,8 +104,27 @@ def _budgets(pair_budget, rec_budget):
     return pair_budget, rec_budget
 
 
+def _resolve_rows(row_range, n):
+    """``(r0, r1)`` of ``row_range`` (``None``: every a-row), ``r1`` clipped to
+    the ``ceil(n / 128)`` a-rows; raises unless it is a range of them."""
+    n_rows = -(-n // ROW)
+    if row_range is None:
+        return 0, n_rows
+    r0, r1 = (int(r) for r in row_range)
+    if not 0 <= r0 <= n_rows or r1 < r0:
+        raise ValueError(f"row_range {row_range} is not a range of the {n_rows} a-rows")
+    return r0, min(r1, n_rows)
+
+
+def _row_boxes(row_range, n):
+    """The sorted boxes ``(b0, b1)`` of the a-rows of ``row_range``."""
+    r0, r1 = _resolve_rows(row_range, n)
+    return min(r0 * ROW, n), min(r1 * ROW, n)
+
+
 def sweep_records(sorted_boxes: SortedBoxes, is_two_lists: bool, pair_budget: int,
-                  rec_budget: int = 0, any_order: bool = False, planes=None):
+                  rec_budget: int = 0, any_order: bool = False, planes=None,
+                  row_range=None):
     """All candidate pairs of a sorted box set, as bit records.
 
     Returns ``(records, n_records, n_pairs, overflow)``: ``records`` is an
@@ -110,8 +135,10 @@ def sweep_records(sorted_boxes: SortedBoxes, is_two_lists: bool, pair_budget: in
     rec_budget``.  ``rec_budget`` defaults to ``pair_budget`` (every record
     holds a pair, so the pair budget overflows first).  ``any_order`` and
     ``planes`` are as in :func:`scalable_ccd_tpu_torch.ops.sweep_ap.
-    sweep_pairs`.  On CUDA the record order is nondeterministic; on the CPU
-    records come in (row, partner) order.
+    sweep_pairs`.  ``row_range = (r0, r1)`` keeps the records of the 128-box
+    a-rows ``[r0, r1)`` (``r1`` is clipped to ``ceil(n / 128)``; module
+    docstring), and the totals count those alone.  On CUDA the record order
+    is nondeterministic; on the CPU records come in (row, partner) order.
     """
     global LAUNCHES
     dev = sorted_boxes.major_min.device
@@ -119,31 +146,37 @@ def sweep_records(sorted_boxes: SortedBoxes, is_two_lists: bool, pair_budget: in
         planes = partner_planes(sorted_boxes)
     if dev.type == "cpu":
         return sweep_records_reference(sorted_boxes, is_two_lists, pair_budget,
-                                       rec_budget, any_order, planes)
+                                       rec_budget, any_order, planes, row_range)
     if dev.type != "cuda":
         raise ValueError(f"sweep_records: unsupported device {dev}")
     check_boxes(sorted_boxes, "sweep_records", planes if any_order else None)
     pair_budget, rec_budget = _budgets(pair_budget, rec_budget)
+    rows = _resolve_rows(row_range, sorted_boxes.n)
     records = torch.zeros((rec_budget, REC_WORDS), dtype=torch.int32, device=dev)
     n_records = torch.zeros((1,), dtype=torch.int64, device=dev)
     n_pairs = torch.zeros((1,), dtype=torch.int64, device=dev)
-    if sorted_boxes.n > 0:
-        _launch(sorted_boxes, is_two_lists, any_order, planes, records, n_records, n_pairs)
+    if rows[1] > rows[0]:
+        _launch(sorted_boxes, is_two_lists, any_order, planes, records, n_records, n_pairs,
+                rows)
         LAUNCHES += 1
-        count_launch(LAUNCHES_BY_MODE, ["any_order" if any_order else "sorted"],
-                     sorted_boxes.major_min.dtype == torch.float64)
+        modes = ["any_order" if any_order else "sorted"]
+        modes += [] if row_range is None else ["range"]
+        count_launch(LAUNCHES_BY_MODE, modes, sorted_boxes.major_min.dtype == torch.float64)
     n_records, n_pairs = n_records[0], n_pairs[0]
     return records, n_records, n_pairs, (n_pairs > pair_budget) | (n_records > rec_budget)
 
 
-def _launch(sb: SortedBoxes, is_two_lists, any_order, planes, records, n_records, n_pairs):
-    """Launch kernel A' over ``sb`` (at least one box) into ``records`` and
-    the two zeroed counters.  Returns the kernel's scratch (int64), which
+def _launch(sb: SortedBoxes, is_two_lists, any_order, planes, records, n_records, n_pairs,
+            rows=None):
+    """Launch kernel A' over the non-empty a-rows ``rows = (r0, r1)`` of
+    ``sb`` (``None``: all of them) into ``records`` and the two zeroed
+    counters.  Returns the kernel's scratch (int64), which
     :func:`_scratch_units` reads."""
     dev = sb.major_min.device
+    r0, r1 = _resolve_rows(rows, sb.n)
     lib = load_library("sweep_records")
     fn = _bind(lib)
-    scratch = torch.empty((-(-lib.sccd_sweep_records_scratch_bytes(sb.n) // 8),),
+    scratch = torch.empty((-(-lib.sccd_sweep_records_scratch_bytes(r0, r1) // 8),),
                           dtype=torch.int64, device=dev)
     pl = (planes.fwd_min.data_ptr(), planes.row_umin.data_ptr(),
           planes.row_umax.data_ptr()) if any_order else (None, None, None)
@@ -152,7 +185,7 @@ def _launch(sb: SortedBoxes, is_two_lists, any_order, planes, records, n_records
             sb.major_min.data_ptr(), sb.major_max.data_ptr(),
             sb.minor_min.data_ptr(), sb.minor_max.data_ptr(),
             sb.vertex_ids.data_ptr(), sb.element_id.data_ptr(), *pl,
-            sb.n, int(bool(is_two_lists)), int(bool(any_order)),
+            sb.n, r0, r1, int(bool(is_two_lists)), int(bool(any_order)),
             int(sb.major_min.dtype == torch.float64), records.data_ptr(), records.shape[0],
             n_records.data_ptr(), n_pairs.data_ptr(), scratch.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
@@ -175,13 +208,15 @@ def _launch_shape(f64: bool, any_order: bool):
     return blocks, smem.value
 
 
-def _scratch_units(scratch: torch.Tensor, n: int):
+def _scratch_units(scratch: torch.Tensor, n: int, row_range=None):
     """``(end, prefix)`` of :func:`sweep_record_units` as the kernel's first
-    two launches left them in ``scratch``."""
-    return _scratch_tiles(scratch, -(-n // ROW), _ROWS_PER_BLOCK)
+    two launches left them in ``scratch`` for the a-rows of ``row_range``."""
+    r0, r1 = _resolve_rows(row_range, n)
+    return _scratch_tiles(scratch, r1 - r0, _ROWS_PER_BLOCK)
 
 
-def sweep_record_units(sorted_boxes: SortedBoxes, any_order: bool = False, planes=None):
+def sweep_record_units(sorted_boxes: SortedBoxes, any_order: bool = False, planes=None,
+                       row_range=None):
     """Plain version of the work units of kernel A': ``(begin, end,
     prefix)``, int64, one entry per a-row ``r`` (the sorted boxes ``[ROW *
     r, min(ROW * (r + 1), n))``, the ``r`` of its records).  Its partners
@@ -191,8 +226,10 @@ def sweep_record_units(sorted_boxes: SortedBoxes, any_order: bool = False, plane
     ``[prefix[r], prefix[r + 1])``, one per ``ROW``-partner row its range
     touches, under ``any_order`` only the rows whose union of minor axis 0
     meets the a-row's (:func:`scalable_ccd_tpu_torch.ops.sweep_ap.
-    sweep_tiles` with ``tile=ROW``)."""
-    return sweep_tiles(sorted_boxes, None, any_order, planes, tile=ROW)
+    sweep_tiles` with ``tile=ROW``).  With a ``row_range`` the entries are
+    those of its a-rows, the prefix counted from the first."""
+    return sweep_tiles(sorted_boxes, _row_boxes(row_range, sorted_boxes.n), any_order,
+                       planes, tile=ROW)
 
 
 def _to_int32(v: torch.Tensor) -> torch.Tensor:
@@ -202,16 +239,18 @@ def _to_int32(v: torch.Tensor) -> torch.Tensor:
 
 def sweep_records_reference(sorted_boxes: SortedBoxes, is_two_lists: bool,
                             pair_budget: int, rec_budget: int = 0,
-                            any_order: bool = False, planes=None):
+                            any_order: bool = False, planes=None, row_range=None):
     """Plain PyTorch twin of kernel A', on any device; same outputs as
     :func:`sweep_records`, records in (row, partner) order.  The pairs of
-    :func:`scalable_ccd_tpu_torch.ops.sweep_ap.sweep_positions` are grouped
-    by ``(i // 128, j)`` and each group's lanes summed into its mask (each
-    bit once, so the sum is the or)."""
+    :func:`scalable_ccd_tpu_torch.ops.sweep_ap.sweep_positions` (over the
+    boxes of the a-rows of ``row_range``) are grouped by ``(i // 128, j)``
+    and each group's lanes summed into its mask (each bit once, so the sum
+    is the or)."""
     sb = sorted_boxes
     dev = sb.major_min.device
     pair_budget, rec_budget = _budgets(pair_budget, rec_budget)
-    pos = list(sweep_positions(sb, is_two_lists, any_order=any_order, planes=planes))
+    pos = list(sweep_positions(sb, is_two_lists, box_range=_row_boxes(row_range, sb.n),
+                               any_order=any_order, planes=planes))
     i = torch.cat([p[0] for p in pos]) if pos else torch.zeros((0,), dtype=torch.int64, device=dev)
     j = torch.cat([p[1] for p in pos]) if pos else torch.zeros((0,), dtype=torch.int64, device=dev)
     keys, inv = torch.unique(torch.div(i, ROW, rounding_mode="floor") * max(sb.n, 1) + j,

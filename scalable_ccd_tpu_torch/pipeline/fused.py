@@ -113,6 +113,7 @@ __all__ = [
     "resolve_device",
     "resolve_dtype",
     "resolve_knobs",
+    "sorted_phases",
 ]
 
 #: the congestion threshold (VF boxes; per phase for presample): the
@@ -291,6 +292,17 @@ def mesh_tensors(vertices_t0, vertices_t1, edges, faces, device, pca: bool):
     if pca:
         v0, v1, _ = apply_pca(v0, v1)
     return v0, v1, _as_tensor(edges, torch.int32, device), _as_tensor(faces, torch.int32, device)
+
+
+def sorted_phases(v0, v1, edges, faces, min_distance, dtype, bucket_minor: bool):
+    """``(vf_sorted, ee_sorted)``: the boxes of the mesh inflated by
+    ``min_distance``, in ``dtype``, sorted (in the congestion ordering if
+    ``bucket_minor``): VF the vertices merged with the faces (two lists),
+    EE the edges (one list)."""
+    vb = build_vertex_boxes(v0, v1, inflation_radius=min_distance, dtype=dtype)
+    vf = sort_boxes(merge_two_lists(vb, build_face_boxes(vb, faces)), axis=0,
+                    bucket_minor=bucket_minor)
+    return vf, sort_boxes(build_edge_boxes(vb, edges), axis=0, bucket_minor=bucket_minor)
 
 
 class NarrowSolver(NamedTuple):
@@ -666,10 +678,7 @@ def fused_ccd(
         vf_budget = max(vf_budget, memo[0]) if vf_auto else vf_budget
         ee_budget = max(ee_budget, memo[1]) if ee_auto else ee_budget
 
-    vb = build_vertex_boxes(v0, v1, inflation_radius=min_distance, dtype=dtype)
-    vf_sorted = sort_boxes(merge_two_lists(vb, build_face_boxes(vb, f)), axis=0,
-                           bucket_minor=knobs.bucket_minor)
-    ee_sorted = sort_boxes(build_edge_boxes(vb, e), axis=0, bucket_minor=knobs.bucket_minor)
+    vf_sorted, ee_sorted = sorted_phases(v0, v1, e, f, min_distance, dtype, knobs.bucket_minor)
 
     toi = torch.ones((), dtype=dtype, device=device)
     grown = [0, 0]

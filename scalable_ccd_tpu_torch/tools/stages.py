@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import inspect
 import json
 import statistics
 import time
@@ -63,7 +64,7 @@ from scalable_ccd_tpu_torch.geometry.aabb import (
 )
 from scalable_ccd_tpu_torch.geometry.scenes import cloth_on_sphere
 from scalable_ccd_tpu_torch.ops import solver
-from scalable_ccd_tpu_torch.ops.sweep_ap import partner_planes, sweep_pairs
+from scalable_ccd_tpu_torch.ops.sweep_ap import ROW, partner_planes, sweep_pairs
 from scalable_ccd_tpu_torch.ops.sweep_records import (
     decode_records_range,
     records_pair_prefix,
@@ -417,8 +418,11 @@ def run_kernel_a(device=None, reps=5, emit=print) -> list:
     line per mode: kernel A's ``whole`` (the major sort), ``range`` (ranged
     launches over chunks of 2^15 boxes, summed), ``any_order`` (the
     congestion ordering), ``count_only`` and ``count_only_any_order``, and
-    kernel A''s ``records`` (the major sort) and ``records_any_order``;
-    ``ms`` is the device time of one pass (:func:`_events_ms`), ``pairs``
+    kernel A''s ``records`` (the major sort) and ``records_any_order``, and
+    where ``sweep_records`` takes a ``row_range``, ``records_range`` and
+    ``records_range_any_order`` (four ranged launches that partition the
+    a-rows, as four ranks of ``sharded_ccd`` cut them, with the digest of
+    their union); ``ms`` is the device time of one pass (:func:`_events_ms`), ``pairs``
     the exact total, ``records`` kernel A''s record total and ``keys_sum``
     a digest of the pair set or record multiset.  Then per scene of
     ``_FRAME_SCENES``, dtype and ``sweep_impl`` (``"pairs"``, the default,
@@ -437,6 +441,7 @@ def run_kernel_a(device=None, reps=5, emit=print) -> list:
         emit(json.dumps(line))
 
     chunk = 1 << 15
+    ranged_records = "row_range" in inspect.signature(sweep_records).parameters
     for name, args in _KERNEL_A_SCENES.items():
         s = cloth_on_sphere(*args)
         v0, v1, e, f = mesh_tensors(s.vertices_t0, s.vertices_t1, s.edges, s.faces, device,
@@ -465,15 +470,25 @@ def run_kernel_a(device=None, reps=5, emit=print) -> list:
                 # chunked ccd() keeps none
                 timed = {"range": lambda: [sweep_pairs(major, two, budget, box_range=r)[2]
                                            for r in ranges]}
+                if ranged_records:
+                    rows = -(-major.n // ROW)
+                    per = -(-rows // 4)
+                    parts = [(min(k * per, rows), min((k + 1) * per, rows)) for k in range(4)]
+                    modes["records_range"] = lambda: [
+                        sweep_records(major, two, budget, row_range=r) for r in parts]
+                    modes["records_range_any_order"] = lambda: [
+                        sweep_records(bucket, two, budget, any_order=True, planes=planes,
+                                      row_range=r) for r in parts]
                 for mode, fn in modes.items():
                     res = fn()
                     extra = {}
                     if mode.startswith("count_only"):
                         pairs, keys = int(res[0]), None
                     elif mode.startswith("records"):
-                        rec, n_rec, pairs = res[0][0], int(res[0][1]), int(res[0][2])
+                        rec = torch.cat([r[0][: int(r[1])] for r in res])
+                        n_rec, pairs = rec.shape[0], sum(int(r[2]) for r in res)
                         keys = _records_sum(rec, n_rec)
-                        extra = {"records": n_rec, "overflowed": bool(res[0][3])}
+                        extra = {"records": n_rec, "overflowed": any(bool(r[3]) for r in res)}
                     else:
                         pairs = sum(int(r[2]) for r in res)
                         keys = sum(_keys_sum(r[0], r[1]) for r in res)

@@ -755,3 +755,78 @@ def test_records_kernel_units_equal_device_units(cuda, name):
         _, end, prefix = sweep_records.sweep_record_units(sb, any_order, planes)
         k_end, k_prefix = sweep_records._scratch_units(scratch, sb.n)
         assert torch.equal(k_end, end) and torch.equal(k_prefix, prefix), (name, any_order)
+
+
+def _row_ranges(n):
+    """A-row ranges of a case (``tests/test_torch_record_units.py:
+    row_ranges``): empty, one a-row, cut mid-array, past the end, all."""
+    from test_torch_record_units import row_ranges
+
+    return row_ranges(n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", _UNIT_CASES)
+def test_records_kernel_row_range_equals_plain(cuda, name, dtype):
+    """``row_range``: ranges empty, of one a-row, cut mid-array and of all
+    a-rows, on the ragged cases, the stack and the scenes in both orderings,
+    at budgets 0, 64 and exactly the totals: the plain version's record
+    multiset of the range and its exact totals, ``overflow`` as the plain
+    version sets it, each launch counted under ``"range"``; and the records
+    of a partition of the a-rows into 2 and into 4 ranges make the whole
+    multiset."""
+    sb = _unit_case(name, cuda, dtype)
+    two = not name.startswith("ee")
+    planes = sweep_ap.partner_planes(sb)
+    rows = -(-sb.n // sweep_ap.ROW)
+    for any_order in ([True] if name.endswith("bucket") else [False, True]):
+        kw = dict(any_order=any_order, planes=planes)
+        whole = sweep_records.sweep_records_reference(sb, two, 1 << 20, **kw)
+        for rng in _row_ranges(sb.n):
+            p = sweep_records.sweep_records_reference(sb, two, 1 << 20, row_range=rng, **kw)
+            n_rec, n_pairs = int(p[1]), int(p[2])
+            want = _record_rows(p[0], n_rec)
+            for pair_budget, rec_budget in ((0, 0), (64, 64), (n_pairs, n_rec)):
+                before = sweep_records.LAUNCHES_BY_MODE["range"]
+                k = sweep_records.sweep_records(sb, two, pair_budget, rec_budget, row_range=rng,
+                                                **kw)
+                torch.cuda.synchronize()
+                label = (name, any_order, rng, pair_budget)
+                launched = min(rng[1], rows) > rng[0]
+                assert sweep_records.LAUNCHES_BY_MODE["range"] == before + launched, label
+                rb = sweep_records._budgets(pair_budget, rec_budget)[1]
+                assert (int(k[1]), int(k[2])) == (n_rec, n_pairs), label
+                assert bool(k[3]) == (n_pairs > pair_budget or n_rec > rb), label
+                got = _record_rows(k[0], min(n_rec, rb))
+                keys = {tuple(r) for r in got}
+                assert len(keys) == got.shape[0] and keys <= {tuple(r) for r in want}, label
+            assert np.array_equal(got, want), (name, any_order, rng)
+        for world in (2, 4):
+            per = -(-rows // world)
+            parts = [sweep_records.sweep_records(sb, two, int(whole[2]) + 1, row_range=(
+                min(s * per, rows), (s + 1) * per), **kw) for s in range(world)]
+            torch.cuda.synchronize()
+            union = np.concatenate([_record_rows(q[0], q[1]) for q in parts])
+            union = union[np.lexsort(union.T[::-1])]
+            assert np.array_equal(union, _record_rows(whole[0], whole[1])), (name, world)
+
+
+@pytest.mark.parametrize("name", _UNIT_CASES)
+def test_records_kernel_row_range_units_equal_device_units(cuda, name):
+    """The a-row ends and unit prefix of a row range's first two launches
+    equal :func:`sweep_records.sweep_record_units` of the range."""
+    sb = _unit_case(name, cuda, torch.float32)
+    planes = sweep_ap.partner_planes(sb)
+    rows = -(-sb.n // sweep_ap.ROW)
+    for any_order in ([True] if name.endswith("bucket") else [False, True]):
+        for rng in _row_ranges(sb.n):
+            if min(rng[1], rows) <= rng[0]:
+                continue
+            recs = torch.zeros((64, sweep_records.REC_WORDS), dtype=torch.int32, device=cuda)
+            counts = [torch.zeros((1,), dtype=torch.int64, device=cuda) for _ in range(2)]
+            scratch = sweep_records._launch(sb, True, any_order, planes, recs, *counts, rng)
+            torch.cuda.synchronize()
+            _, end, prefix = sweep_records.sweep_record_units(sb, any_order, planes, rng)
+            k_end, k_prefix = sweep_records._scratch_units(scratch, sb.n, rng)
+            assert torch.equal(k_end, end) and torch.equal(k_prefix, prefix), \
+                (name, any_order, rng)

@@ -35,28 +35,32 @@ def orders(name):
     return [True] if name.endswith("bucket") else [False, True]
 
 
-def record_units(sb, any_order, planes):
-    """``(a_row, j0, m)`` per unit in unit order: the a-row, and its ``m``
-    partners from position ``j0``; the units per a-row must be its share
-    of the prefix."""
-    begin, end, prefix = sweep_records.sweep_record_units(sb, any_order, planes)
+def record_units(sb, any_order, planes, row_range=None):
+    """``(a_row, j0, m)`` per unit in unit order: the a-row (absolute), and
+    its ``m`` partners from position ``j0``; the units per a-row of
+    ``row_range`` (``None``: every a-row) must be its share of the
+    prefix."""
+    begin, end, prefix = sweep_records.sweep_record_units(sb, any_order, planes, row_range)
+    r0 = 0 if row_range is None else row_range[0]
     n_rows = begin.numel()
-    assert n_rows == -(-sb.n // ROW) and torch.equal(begin, ROW * torch.arange(n_rows) + 1)
+    if row_range is None:
+        assert n_rows == -(-sb.n // ROW)
+    assert torch.equal(begin, ROW * (r0 + torch.arange(n_rows)) + 1)
     assert int(prefix[0]) == 0 and bool((prefix[1:] >= prefix[:-1]).all())
     row0, row1 = begin // ROW, (end - 1) // ROW
     rows = torch.where(end > begin, row1 - row0 + 1, 0)
-    a_row = torch.repeat_interleave(torch.arange(n_rows), rows)
-    p_row = row0[a_row] + torch.arange(a_row.numel()) - (torch.cumsum(rows, 0) - rows)[a_row]
+    t = torch.repeat_interleave(torch.arange(n_rows), rows)
+    p_row = row0[t] + torch.arange(t.numel()) - (torch.cumsum(rows, 0) - rows)[t]
     if any_order:
-        lanes = ROW * torch.arange(n_rows)[:, None] + torch.arange(ROW)
+        lanes = ROW * (r0 + torch.arange(n_rows))[:, None] + torch.arange(ROW)
         inside, lanes = lanes < sb.n, lanes.clamp(max=sb.n - 1)
-        u_lo = torch.where(inside, sb.minor_min[lanes, 0], INF).amin(dim=1)[a_row]
-        u_hi = torch.where(inside, sb.minor_max[lanes, 0], -INF).amax(dim=1)[a_row]
+        u_lo = torch.where(inside, sb.minor_min[lanes, 0], INF).amin(dim=1)[t]
+        u_hi = torch.where(inside, sb.minor_max[lanes, 0], -INF).amax(dim=1)[t]
         kept = (planes.row_umin[p_row] <= u_hi) & (planes.row_umax[p_row] >= u_lo)
-        a_row, p_row = a_row[kept], p_row[kept]
-    assert torch.equal(torch.bincount(a_row, minlength=n_rows), prefix[1:] - prefix[:-1])
-    j0 = torch.maximum(p_row * ROW, begin[a_row])
-    return a_row, j0, torch.minimum(p_row * ROW + ROW, end[a_row]) - j0
+        t, p_row = t[kept], p_row[kept]
+    assert torch.equal(torch.bincount(t, minlength=n_rows), prefix[1:] - prefix[:-1])
+    j0 = torch.maximum(p_row * ROW, begin[t])
+    return r0 + t, j0, torch.minimum(p_row * ROW + ROW, end[t]) - j0
 
 
 def unit_slots(sb, a_row, j0, m):
@@ -81,12 +85,12 @@ def unit_slots(sb, a_row, j0, m):
     return i.expand_as(visit), j.expand_as(visit), visit
 
 
-def emulated_records(sb, two, any_order, planes):
-    """The kernel's records: its slot tests on the units, each lane's mask
-    over a group of 32 partners, and the ballot transpose into one record
-    per partner with a bit; ``(records sorted by row, n_records,
-    n_pairs)``."""
-    a_row, j0, m = record_units(sb, any_order, planes)
+def emulated_records(sb, two, any_order, planes, row_range=None):
+    """The kernel's records: its slot tests on the units (of the a-rows of
+    ``row_range``), each lane's mask over a group of 32 partners, and the
+    ballot transpose into one record per partner with a bit; ``(records
+    sorted by row, n_records, n_pairs)``."""
+    a_row, j0, m = record_units(sb, any_order, planes, row_range)
     i, j, visit = unit_slots(sb, a_row, j0, m)
     vi, vj = i[visit], j[visit]
     ok = (sb.major_min[vj] <= sb.major_max[vi]) & pair_filters(sb, vi, vj, two)
@@ -158,3 +162,55 @@ def test_record_units_of_a_stack_span_many_rows():
     p = sweep_records.sweep_records_reference(sb, True, 1 << 20)
     assert (n_rec, n_pairs) == (int(p[1]), int(p[2])) and n_rec > 1000
     assert np.array_equal(got, sort_rows(p[0][: int(p[1])].to(torch.int64).numpy()))
+
+
+def row_ranges(n):
+    """Ranges of a-rows: empty, one a-row, cut mid-array, all a-rows."""
+    rows = -(-n // ROW)
+    out = [(0, 0), (0, 1), (rows // 2, rows), (max(rows - 1, 0), rows + 3), (0, rows)]
+    return out + [(1, 3)] if rows >= 3 else out
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_record_units_of_a_row_range(name):
+    """The units of a row range are the whole sweep's units of its a-rows;
+    the emulated kernel on them gives the plain version's records of the
+    range; and the records of partitions of the a-rows into 2 and 4 ranges
+    (a rank's share each, as the multi-device path cuts them) are the whole
+    multiset, in both orderings."""
+    sb = CASES[name]()
+    planes = sweep_ap.partner_planes(sb)
+    two = not name.startswith("ee")
+    rows = -(-sb.n // ROW)
+    for any_order in orders(name):
+        whole = sweep_records.sweep_records_reference(sb, two, 1 << 20, any_order=any_order,
+                                                      planes=planes)
+        all_rows = sort_rows(whole[0][: int(whole[1])].to(torch.int64).numpy())
+        wa, wj, wm = record_units(sb, any_order, planes)
+        for rng in row_ranges(sb.n):
+            a_row, j0, m = record_units(sb, any_order, planes, rng)
+            inside = (wa >= rng[0]) & (wa < min(rng[1], rows))
+            assert torch.equal(a_row, wa[inside]) and torch.equal(j0, wj[inside])
+            assert torch.equal(m, wm[inside])
+            got, n_rec, n_pairs = emulated_records(sb, two, any_order, planes, rng)
+            p = sweep_records.sweep_records_reference(sb, two, 1 << 20, any_order=any_order,
+                                                      planes=planes, row_range=rng)
+            assert (n_rec, n_pairs) == (int(p[1]), int(p[2])), (name, any_order, rng)
+            want = sort_rows(p[0][: int(p[1])].to(torch.int64).numpy())
+            assert np.array_equal(got, want), (name, any_order, rng)
+            assert bool(((p[0][: int(p[1]), 5] >= rng[0]) & (p[0][: int(p[1]), 5] < rng[1])).all())
+        for world in (2, 4):
+            per = -(-rows // world)
+            parts = [sweep_records.sweep_records_reference(
+                sb, two, 1 << 20, any_order=any_order, planes=planes,
+                row_range=(min(s * per, rows), (s + 1) * per)) for s in range(world)]
+            assert sum(int(q[2]) for q in parts) == int(whole[2])
+            union = np.concatenate([q[0][: int(q[1])].to(torch.int64).numpy() for q in parts])
+            assert np.array_equal(sort_rows(union), all_rows), (name, any_order, world)
+
+
+def test_row_range_is_checked():
+    sb = CASES["ragged129"]()
+    for bad in ((-1, 1), (3, 4), (1, 0)):
+        with pytest.raises(ValueError, match="row_range"):
+            sweep_records.sweep_records(sb, True, 64, row_range=bad)
