@@ -7,7 +7,7 @@ each printed as one JSON line, each stopping the run with a non-zero exit
 when it fails:
 
 0. the device, and ``nvidia-smi``'s name and power limit of the card;
-1. build the three CUDA kernels from ``scalable_ccd_tpu_torch/csrc/`` with
+1. build the four CUDA libraries from ``scalable_ccd_tpu_torch/csrc/`` with
    nvcc, one process per source, all started together;
 2. kernel A (sweep) against its plain PyTorch version on the bench scene's
    sorted VF and EE boxes: equal pair sets and totals, and a budget of 64
@@ -18,7 +18,7 @@ when it fails:
 4. the main path ``fused_ccd(..., device="cuda")``: equal to the CPU run on
    ``cloth_on_sphere(64, 3)``, the golden ``cloth-sphere-16`` bar, and the
    bench scene ``cloth_on_sphere(128, 4, drop=0.25)`` run once with zeroed
-   launch counters (both kernels must launch) and then timed (median of 5
+   launch counters (kernels A, B and C must launch) and then timed (median of 5
    after the warm-up); also timed on ``cloth_on_sphere(384, 5)``;
 5. kernel B's exact modes against the plain version on the candidates of
    ``cloth_on_sphere(64, 3)``: per-query (equal hit sets, per-query TOIs
@@ -116,6 +116,16 @@ when it fails:
     at both partitions and both sweeps with the same checks and launch
     counts in every rank, and each rank's ms per frame; the host broad
     phase's f64 pair sets on the bench scene equal to kernel A's;
+17. the narrow loop on the device: kernel C (gather and pack) against its
+    plain version, bitwise, on every 16,384-row batch of the bench scene's
+    VF and EE candidates (kernel A's buffer, read at each batch's offset) in
+    f32, f64 and compensated, and on grid-600's (the congestion ordering)
+    in f32, all timed; the synchronizing calls of one frame
+    (``torch.cuda.set_sync_debug_mode("warn")``) of the bench scene (the
+    frame pool) and grid-600 (the batch ladder) at ``narrow_batch`` 16,384
+    and 4,096, which must be equal, with kernel C launched for every batch;
+    the device idle share of one bench frame from a ``torch.profiler``
+    trace;
 last, grid-1000 in f32 timed once.
 
 Each kernel row carries its bound: the least time the card could take,
@@ -139,7 +149,13 @@ and kernel and plain version share.  In f64 a box is 64 bytes and a query row 24
 and the card's non-tensor f64 rate is half its f32 rate: 33.5e12 operations
 and 16.75e12 compares per second.  ``count_only`` moves no pair bytes.  No
 single PyTorch call computes a sweep or a root search, so ``library_ms`` is
-null.
+null.  Kernel C (gather and pack) moves 8 bytes of ids and 31 row scalars
+per row (132 bytes in f32, 256 in f64 and compensated), and each table row
+that the frame references once (a vertex's 6 and a face's 18 scalars, or an
+edge's 12: the many candidates that share a row repeat its reads, and a
+scene's tables fit in the card's L2), counted from this run's pairs, and
+does about 400 operations per row; it replaces the XLA-fused glue of ``pack_query_rows`` (no Pallas kernel), and
+no single PyTorch call computes it.
 
 The last lines are the kernels' JSON record (one row per kernel and mode),
 the ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -158,7 +174,7 @@ from concurrent.futures import ThreadPoolExecutor
 REPO = os.path.dirname(os.path.abspath(__file__))
 TOL = 1e-6
 BATCH = 1 << 14
-LIBS = ("sweep_ap", "sweep_records", "solver")
+LIBS = ("sweep_ap", "sweep_records", "solver", "gather_pack")
 
 #: the H100 SXM's HBM3 bytes/s and f32 operations/s outside the tensor cores
 #: (an FMA counted as two operations)
@@ -174,6 +190,9 @@ PAIR_BYTES, RECORD_BYTES = 8, 32
 #: directions, four minor) and of one partner-row union test; f32
 #: operations of one domain evaluation (csrc/solver.cu)
 OPS_PER_SLOT, OPS_PER_ANY_SLOT, OPS_PER_ROW_TEST, OPS_PER_CHECK = 5, 7, 2, 300
+#: operations of one packed row of kernel C (csrc/gather_pack.cu): the F
+#: residual at 8 corners in 3 dims, the extents, tolerances and error filter
+OPS_PER_PACKED_ROW = 400
 #: partners per row of the any_order row-skip planes (ops/sweep_ap.py ROW)
 PARTNER_ROW = 128
 
@@ -410,6 +429,7 @@ def main():
     from scalable_ccd_tpu_torch.geometry.scenes import cloth_on_sphere
     from scalable_ccd_tpu_torch.narrow_phase import types
     from scalable_ccd_tpu_torch.ops import _build, solver, sweep_ap, sweep_records
+    from scalable_ccd_tpu_torch.ops import gather_pack as gp
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -548,7 +568,8 @@ def main():
     zero_counts(sweep_ap, solver)
     res = fused_ccd(*bargs, device="cuda", validate=False)
     torch.cuda.synchronize()
-    launches = {"sweep_pairs": sweep_ap.LAUNCHES, "solve_packed": solver.LAUNCHES}
+    launches = {"sweep_pairs": sweep_ap.LAUNCHES, "solve_packed": solver.LAUNCHES,
+                "gather_pack": gp.LAUNCHES}
     main_modes = read_counts(sweep_ap, solver)
     check(all(n > 0 for n in launches.values()), f"main path skipped a kernel: {launches}")
     # the bench scene's defaults: the major sort and the frame straggler pool
@@ -606,6 +627,7 @@ def main():
     precise = phase_precision_path(torch, dev, scene, mid, grid600_scene, res)
     phase_kernel_b_rows()
     multi = phase_multi_device(torch, dev, scene, grid600_scene, mid, smi)
+    loop = phase_narrow_loop(torch, dev, scene, grid600_scene)
     phase_grid1000(torch, dev, cloth_on_sphere)
 
     launched = lambda run, key: precise[run].get(key, 0)  # noqa: E731
@@ -616,6 +638,9 @@ def main():
             "replaces": "scalable_ccd_tpu/ops/pallas_sweep_ap.py:1356", "library_ms": None}
     solve = {"route": "cuda", "source": src + "solver.cu",
              "replaces": "scalable_ccd_tpu/ops/pallas_solver.py:114", "library_ms": None}
+    pack = {"route": "cuda", "source": src + "gather_pack.cu",
+            "replaces": "scalable_ccd_tpu/ops/pallas_solver.py:649", "library_ms": None}
+    f32_packs = lambda c, m: c.get(f"gather_{m}", 0) - c.get(f"gather_{m}_f64", 0)  # noqa: E731
     print(json.dumps({"kernels": [
         {"name": "sweep_pairs[whole]", **sweep, "launches": main_modes["sweep_whole"],
          "max_abs_err": 0.0, "ms": a_ms, "plain_ms": a_plain_ms, **a_bound},
@@ -671,6 +696,17 @@ def main():
         {"name": "sweep_records[range,f64]", **recs,
          "launches": multi["launches"]["records_f64"]["records_range_f64"],
          **multi["rows"]["float64"]},
+        # kernel C: launches per frame of the bench scene (phase 4's run,
+        # phase 14's f64 and compensated runs)
+        {"name": "gather_pack[vf]", **pack, "launches": f32_packs(main_modes, "vf"),
+         **loop["f32"]["vf"]},
+        {"name": "gather_pack[ee]", **pack, "launches": f32_packs(main_modes, "ee"),
+         **loop["f32"]["ee"]},
+        {"name": "gather_pack[f64]", **pack,
+         "launches": launched("fused_f64", "gather_f64"), **loop["f64"]["both"]},
+        {"name": "gather_pack[compensated]", **pack,
+         "launches": launched("fused_compensated", "gather_compensated"),
+         **loop["compensated"]["both"]},
     ]}))
     emit(phase="done", wall_seconds=time.perf_counter() - T_START)
     print(f"host: {cpu_model}, {cpu_count} CPUs")
@@ -683,9 +719,10 @@ def main():
 # ---- launch counters -------------------------------------------------------
 
 def _counted_modules():
-    from scalable_ccd_tpu_torch.ops import solver, sweep_ap, sweep_records
+    from scalable_ccd_tpu_torch.ops import gather_pack, solver, sweep_ap, sweep_records
 
-    return {"sweep": sweep_ap, "records": sweep_records, "solve": solver}
+    return {"sweep": sweep_ap, "records": sweep_records, "solve": solver,
+            "gather": gather_pack}
 
 
 def zero_counts(*_):
@@ -1414,6 +1451,130 @@ def phase_grid1000(torch, dev, cloth_on_sphere):
          vf_boxes=grid1000[0].shape[0] + grid1000[3].shape[0], toi=float(first.toi),
          vf_total=int(first.vf_total), ee_total=int(first.ee_total),
          first_ms=first_ms, ms_per_frame=g_ms, scene_build_s=scene_s)
+
+
+# ---- 17. the narrow loop on the device ---------------------------------------------
+
+def pack_bound(torch, pairs, is_vf, in_bytes, out_bytes):
+    """The bound of kernel C packing every row of ``pairs`` (the frame's
+    ``(n, 2)`` ids) from tables of ``in_bytes``-byte scalars into
+    ``out_bytes``-byte row scalars: each row's two ids (8 B) and 31 row
+    scalars, and each table row the frame references read once (a vertex's
+    6 and a face's 18 scalars, or an edge's 12: a row shared by many
+    candidates is a repeat the caches serve), and OPS_PER_PACKED_ROW
+    operations per row at the input type's rate."""
+    rows = pairs.shape[0]
+    if is_vf:
+        table_scalars = (6 * torch.unique(pairs[:, 0]).numel()
+                         + 18 * torch.unique(pairs[:, 1]).numel())
+    else:
+        table_scalars = 12 * torch.unique(pairs).numel()
+    return bound(rows * (8 + 31 * out_bytes) + table_scalars * in_bytes,
+                 rows * OPS_PER_PACKED_ROW, F32_OPS_PER_S / (in_bytes // 4))
+
+
+def phase_narrow_loop(torch, dev, bench_scene, grid600_scene):
+    """Kernel C against its plain version on the main path's batches, the
+    host syncs per frame at two batch sizes, and the idle share of a bench
+    frame.  Returns the kernel rows' fields per type and phase."""
+    from scalable_ccd_tpu_torch import fused_ccd
+    from scalable_ccd_tpu_torch.narrow_phase import types
+    from scalable_ccd_tpu_torch.ops import gather_pack as gp
+    from scalable_ccd_tpu_torch.ops import sweep_ap
+    from scalable_ccd_tpu_torch.pipeline.fused import sorted_phases
+    from scalable_ccd_tpu_torch.tools import stages
+
+    t_phase = time.perf_counter()
+    kinds = {"f32": (torch.float32, False), "f64": (torch.float64, False),
+             "compensated": (torch.float32, True)}
+
+    def candidates(args, dtype, bucket):
+        """``{phase: (is_vf, pairs buffer, n, vcat, table)}`` of the main
+        path's sweep (kernel A) in ``dtype``."""
+        v0, v1, e, f = args
+        vf_sb, ee_sb = sorted_phases(v0, v1, e, f, 0.0, dtype, bucket)
+        vcat = types.concat_frames(v0, v1, dtype)
+        out = {}
+        for ph, is_vf, sb in (("vf", True, vf_sb), ("ee", False, ee_sb)):
+            planes = sweep_ap.partner_planes(sb) if bucket else None
+            total = int(sweep_ap.sweep_pairs(sb, is_vf, count_only=True, any_order=bucket,
+                                             planes=planes))
+            buf, n, _, ovf = sweep_ap.sweep_pairs(sb, is_vf, pow2ceil(total), any_order=bucket,
+                                                  planes=planes)
+            check(not bool(ovf) and int(n) == total, f"narrow loop {ph}: sweep overflowed")
+            table = (types.pack_face_table(vcat, f) if is_vf
+                     else types.pack_edge_table(vcat, e))
+            out[ph] = (is_vf, buf, total, vcat, table)
+        return out
+
+    def kernel_c(label, cands, comp):
+        """Every batch bitwise, then the kernel (device ms behind a sleep)
+        and the plain version (host-clock ms around a synchronize) timed
+        over all batches of each phase."""
+        rows = {}
+        for ph, (is_vf, buf, n, vcat, table) in cands.items():
+            cuts = [(s, min(s + BATCH, n)) for s in range(0, n, BATCH)]
+            for a, b in cuts:
+                k = gp.gather_pack(buf, a, b, vcat, table, is_vf, 0.0, TOL, comp)
+                torch.cuda.synchronize()
+                p = gp.gather_pack_reference(buf, a, b, vcat, table, is_vf, 0.0, TOL, comp)
+                ints = torch.int64 if k.dtype == torch.float64 else torch.int32
+                check(k.dtype == p.dtype and torch.equal(k.view(ints), p.view(ints)),
+                      f"kernel C {label} {ph} rows [{a}, {b}): not bitwise the plain version")
+            run = lambda f: [f(buf, a, b, vcat, table, is_vf, 0.0, TOL, comp)  # noqa: E731
+                             for a, b in cuts]
+            ms = device_ms(lambda: run(gp.gather_pack), 5)
+            plain_ms = cuda_ms(lambda: run(gp.gather_pack_reference), 3)
+            in_b = vcat.element_size()
+            rows[ph] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                        **pack_bound(torch, buf[:n], is_vf, in_b, 8 if comp else in_b)}
+            emit(phase="narrow_loop_kernel_c", which=label, phase_name=ph, queries=n,
+                 batches=len(cuts), bitwise=True, **rows[ph])
+        both = {k: rows["vf"][k] + rows["ee"][k] for k in ("ms", "plain_ms", "bound_ms")}
+        rows["both"] = {"max_abs_err": 0.0, **both, "bound_by": rows["vf"]["bound_by"]}
+        return rows
+
+    out = {}
+    for label, (dtype, comp) in kinds.items():
+        args = scene_on(torch, dev, bench_scene, torch.float64 if dtype == torch.float64
+                        else None)
+        out[label] = kernel_c(label, candidates(args, dtype, False), comp)
+    grid600 = scene_on(torch, dev, grid600_scene)
+    out["grid600"] = kernel_c("grid600_f32", candidates(grid600, torch.float32, True), False)
+
+    # host syncs per frame: the frame pool (bench) and the batch ladder
+    # (grid-600) at two batch sizes, kernel C launched for every batch
+    bench = scene_on(torch, dev, bench_scene)
+    syncs = {}
+    for name, args in (("bench", bench), ("grid600", grid600)):
+        for batch in (BATCH, BATCH >> 2):
+            run = lambda: fused_ccd(*args, device=dev, validate=False,  # noqa: E731
+                                    narrow_batch=batch)
+            run()
+            zero_counts()
+            res, n, sites = stages.count_syncs(run)
+            torch.cuda.synchronize()
+            packs = gp.LAUNCHES
+            need = -(-int(res.vf_total) // batch) - (-int(res.ee_total) // batch)
+            check(packs >= need, f"{name} narrow_batch={batch}: {packs} kernel C launches "
+                  f"for {need} batches")
+            check(not bool(res.overflowed), f"{name} narrow_batch={batch}: overflowed")
+            syncs[name, batch] = (n, float(res.toi).hex())
+            emit(phase="narrow_loop_syncs", scene=name, narrow_batch=batch, syncs=n,
+                 sites=sites, kernel_c_launches=packs, batches=need, toi_hex=float(res.toi).hex(),
+                 vf_total=int(res.vf_total), ee_total=int(res.ee_total))
+        check(syncs[name, BATCH] == syncs[name, BATCH >> 2],
+              f"{name}: syncs and TOI per frame differ between batch sizes: "
+              f"{syncs[name, BATCH]} vs {syncs[name, BATCH >> 2]}")
+    del grid600
+
+    # the device idle share of one bench frame (torch.profiler)
+    run = lambda: fused_ccd(*bench, device=dev, validate=False)  # noqa: E731
+    run()
+    res, stats = stages.idle_share(run)
+    emit(phase="narrow_loop_idle", scene="cloth_on_sphere(128, 4, drop=0.25)",
+         toi=float(res.toi), **stats, seconds=time.perf_counter() - t_phase)
+    return out
 
 
 # ---- 12. the f64 kernels --------------------------------------------------------

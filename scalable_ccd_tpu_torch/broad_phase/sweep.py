@@ -84,15 +84,19 @@ def sort_boxes(boxes: AABBs, axis=0, bucket_minor: bool = False) -> SortedBoxes:
         m0, m1 = _MINOR_AXES[axis]
         major_min = boxes.min[:, axis]
         major_max = boxes.max[:, axis]
-        minor_min = boxes.min[:, [m0, m1]]
-        minor_max = boxes.max[:, [m0, m1]]
+        # stacked columns, not a list index: a list index is copied to the
+        # card first, and that copy waits for it
+        minor_min = torch.stack((boxes.min[:, m0], boxes.min[:, m1]), dim=1)
+        minor_max = torch.stack((boxes.max[:, m0], boxes.max[:, m1]), dim=1)
     key = major_min
     if bucket_minor:
         # the key and the row unions use minor axis 0: put the wider-spread
         # minor there (the minor filters are symmetric in the two axes)
+        # (chosen on the device: a host read here would wait for the card)
         mvar = torch.var(minor_min + minor_max, dim=0, correction=0)
-        if bool(mvar[1] > mvar[0]):
-            minor_min, minor_max = minor_min.flip(1), minor_max.flip(1)
+        swap = mvar[1] > mvar[0]
+        minor_min = torch.where(swap, minor_min.flip(1), minor_min)
+        minor_max = torch.where(swap, minor_max.flip(1), minor_max)
         extent = torch.clamp(major_max - major_min, min=0.0).mean()
         q = torch.where(extent > 0, 4.0 * extent, torch.ones_like(extent))
         bucket = torch.floor(major_min / q)

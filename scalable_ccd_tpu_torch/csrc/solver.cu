@@ -342,7 +342,8 @@ __device__ __forceinline__ int take(BlockQueue<T>& sh) {
 
 template <typename T, bool IS_VF, bool PER_QUERY, bool SHARE>
 __global__ void __launch_bounds__(Layout<SHARE>::kThreads)
-    solve_kernel(const T* __restrict__ cols,
+    solve_kernel(const T* __restrict__ cols, long long ld,
+                 const T* __restrict__ skip_seed,
                  const unsigned char* __restrict__ valid, int Q, T co_tol,
                  T uv_limit, unsigned dim_cap, bool allow_zero,
                  long long max_iterations,
@@ -362,6 +363,9 @@ __global__ void __launch_bounds__(Layout<SHARE>::kThreads)
   const bool head = corner == 0;
   const int group = threadIdx.x / kLanes;
   const int q_own = blockIdx.x * kGroups + group;
+  // the loop's exit on the card: a launch made where the caller's loop
+  // would have stopped (its seed, the running TOI, already 0) does nothing
+  if (skip_seed != nullptr && *skip_seed <= T(0)) return;
   const bool own_valid = q_own < Q && valid[q_own];
 
   __shared__ Rows<T> rows;
@@ -369,7 +373,7 @@ __global__ void __launch_bounds__(Layout<SHARE>::kThreads)
   for (int i = threadIdx.x; i < kRowWidth * kGroups; i += kThreads) {
     const int k = i / kGroups, s = i % kGroups;
     const int q = blockIdx.x * kGroups + s;
-    rows.v[k][s] = q < Q ? cols[(size_t)k * Q + q] : T(0);
+    rows.v[k][s] = q < Q ? cols[(size_t)k * ld + q] : T(0);
   }
   __syncthreads();
   if (threadIdx.x < kGroups) {
@@ -720,13 +724,14 @@ __global__ void __launch_bounds__(Layout<SHARE>::kThreads)
 }
 
 template <typename T, bool IS_VF, bool PER_QUERY, bool SHARE>
-void launch(int blocks, cudaStream_t s, const void* c, const void* v, int Q,
+void launch(int blocks, cudaStream_t s, const void* c, long long ld,
+            const void* seed, const void* v, int Q,
             double co_tol, double uv_limit, int dim_cap, int allow_zero,
             long long max_iter, long long round_limit, long long max_steps,
             void* t, void* pq, void* u, void* k, void* o, void* qk) {
   solve_kernel<T, IS_VF, PER_QUERY, SHARE><<<blocks, Layout<SHARE>::kThreads, 0, s>>>(
-      (const T*)c, (const unsigned char*)v, Q, (T)co_tol, (T)uv_limit,
-      (unsigned)dim_cap, allow_zero != 0, max_iter, round_limit, max_steps,
+      (const T*)c, ld, (const T*)seed, (const unsigned char*)v, Q, (T)co_tol,
+      (T)uv_limit, (unsigned)dim_cap, allow_zero != 0, max_iter, round_limit, max_steps,
       (T*)t, (T*)pq, (unsigned char*)u, (unsigned long long*)k, (int*)o,
       (long long*)qk);
 }
@@ -756,16 +761,22 @@ void launch_mode(int is_vf, Args... a) {
 
 }  // namespace
 
-// is_f64: cols, toi and per_query_toi are double, else float.  dim_cap: the
-// most splits of one dimension (1..255).  uv_limit: the VF cull limit on
-// u + v (exact in the scalar type).  per_query: nonzero selects
-// per-query mode, which writes `per_query_toi` (Q scalars); max_iterations
-// < 0 means unbounded; round_limit >= 0 (global mode only, no cap) writes
-// `unfin` (Q bytes).  query_checks, null on every call of the main path,
+// cols: field k of query q at cols[k * ld + q], ld >= Q (a slice of a wider
+// column buffer needs no copy).  skip_seed, null unless the caller asks
+// for the loop's exit: the running TOI before this launch (not `toi`, which
+// the launch lowers); when it is <= 0 every block returns before its first
+// evaluation, and the outputs keep what the caller put there.
+// is_f64: cols, toi, skip_seed and per_query_toi are double, else float.
+// dim_cap: the most splits of one dimension (1..255).  uv_limit: the VF
+// cull limit on u + v (exact in the scalar type).  per_query: nonzero
+// selects per-query mode, which writes `per_query_toi` (Q scalars);
+// max_iterations < 0 means unbounded; round_limit >= 0 (global mode only,
+// no cap) writes `unfin` (Q bytes).  query_checks, null on every call of the main path,
 // receives each query's evaluation count (Q long longs, 0 for invalid rows).
 // The unbounded modes share domains inside a block (form 2 above); the
 // bounded and round-limited ones keep each query's order (form 1).
-extern "C" int sccd_solve_packed(const void* cols, const void* valid, int Q,
+extern "C" int sccd_solve_packed(const void* cols, long long ld,
+                                 const void* skip_seed, const void* valid, int Q,
                                  int is_vf, int allow_zero_toi, int per_query,
                                  int is_f64, int dim_cap,
                                  long long max_iterations,
@@ -776,7 +787,7 @@ extern "C" int sccd_solve_packed(const void* cols, const void* valid, int Q,
                                  void* query_checks, void* stream) {
   if (round_limit >= 0 && (per_query || max_iterations >= 0 || !unfin))
     return (int)cudaErrorInvalidValue;
-  if (dim_cap < 1 || dim_cap > 255) return (int)cudaErrorInvalidValue;
+  if (dim_cap < 1 || dim_cap > 255 || ld < Q) return (int)cudaErrorInvalidValue;
   const int blocks = (Q + kGroups - 1) / kGroups;
   const int share = max_iterations < 0 && round_limit < 0;
   long long max_steps = kMaxSteps;
@@ -786,13 +797,13 @@ extern "C" int sccd_solve_packed(const void* cols, const void* valid, int Q,
     max_steps = round_limit + 1;
   auto s = (cudaStream_t)stream;
   if (is_f64)
-    launch_mode<double>(is_vf, per_query, share, blocks, s, cols, valid, Q,
-                        co_tol, uv_limit, dim_cap, allow_zero_toi,
+    launch_mode<double>(is_vf, per_query, share, blocks, s, cols, ld,
+                        skip_seed, valid, Q, co_tol, uv_limit, dim_cap, allow_zero_toi,
                         max_iterations, round_limit, max_steps, toi,
                         per_query_toi, unfin, checks, overflow, query_checks);
   else
-    launch_mode<float>(is_vf, per_query, share, blocks, s, cols, valid, Q,
-                       co_tol, uv_limit, dim_cap, allow_zero_toi,
+    launch_mode<float>(is_vf, per_query, share, blocks, s, cols, ld,
+                       skip_seed, valid, Q, co_tol, uv_limit, dim_cap, allow_zero_toi,
                        max_iterations, round_limit, max_steps, toi,
                        per_query_toi, unfin, checks, overflow, query_checks);
   return (int)cudaGetLastError();

@@ -32,8 +32,13 @@ widened from f32 ones, the port's ``precision="compensated"``: packed in f32
 with the compensated error filter, solved in native f64 under f32's split
 cap, so that every bound, and with it the TOI, is exact in f32.
 
-:func:`solve_packed` runs the CUDA kernel on CUDA tensors and the plain
-version on CPU tensors; any other device raises.  Nothing falls back.
+:func:`solve_cols` takes the rows as ``(31, Q)`` columns, field ``k`` of
+query ``q`` at ``[k, q]`` (kernel C's output, :mod:`scalable_ccd_tpu_torch.
+ops.gather_pack`, or a slice of a wider column buffer, read in place);
+:func:`solve_packed` takes ``(Q, 31)`` rows.  Both run the CUDA kernel on
+CUDA tensors and the plain version on CPU tensors; any other device raises.
+Nothing falls back.  ``skip_if_done`` is the narrow loop's exit on the
+device: a launch seeded with a running TOI of 0 or less does nothing.
 """
 
 from __future__ import annotations
@@ -57,9 +62,11 @@ from scalable_ccd_tpu_torch.ops._build import count_launch, launch_counts, load_
 
 __all__ = [
     "pack_query_rows",
+    "solve_cols",
     "solve_packed",
     "solve_packed_reference",
     "solve_escalated",
+    "solve_escalated_cols",
     "normalize_round_limits",
     "LAUNCHES",
     "LAUNCHES_BY_MODE",
@@ -116,7 +123,8 @@ def _unpack(rows: torch.Tensor):
 def _bind(lib):
     fn = lib.sccd_solve_packed
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_double, ctypes.c_double,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -153,6 +161,52 @@ def _check_rows(qrows, widened: bool):
         raise ValueError(f"solve_packed: widened rows are float64, got {qrows.dtype}")
 
 
+def _check_cols(cols, widened: bool):
+    if (cols.dtype not in (torch.float32, torch.float64) or cols.dim() != 2
+            or cols.shape[0] != ROW_WIDTH):
+        raise ValueError(
+            f"solve_cols: cols must be float32 or float64 ({ROW_WIDTH}, Q), got "
+            f"{cols.dtype} {tuple(cols.shape)}"
+        )
+    if widened and cols.dtype != torch.float64:
+        raise ValueError(f"solve_cols: widened rows are float64, got {cols.dtype}")
+
+
+def _skipped(dt, dev, Q, toi_init, per_query, round_limit):
+    """The outputs of a launch that ``skip_if_done`` stopped: the seed, no
+    overflow, no checks, and the fourth output of the mode untouched."""
+    out = (torch.as_tensor(toi_init, dtype=dt, device=dev).reshape(()).clone(),
+           torch.zeros((), dtype=torch.bool, device=dev),
+           torch.zeros((), dtype=torch.int64, device=dev))
+    if per_query:
+        out += (torch.full((Q,), float("inf"), dtype=dt, device=dev),)
+    elif round_limit >= 0:
+        out += (torch.zeros((Q,), dtype=torch.bool, device=dev),)
+    return out
+
+
+def solve_cols(cols, valid, is_vf: bool, toi_init, tolerance,
+               allow_zero_toi: bool = True, per_query: bool = False,
+               max_iterations: int = -1, round_limit: int = -1,
+               widened: bool = False, skip_if_done: bool = False):
+    """:func:`solve_packed` of ``(31, Q)`` columns: ``cols[:, q]`` is row
+    ``q`` (module docstring); its column stride must be 1, and a slice of
+    a wider buffer is read in place.  ``skip_if_done``: when the seed
+    ``toi_init`` is 0 or less, no query is evaluated and the outputs are
+    the seed, no overflow and 0 checks (the narrow loop's ``toi > 0``
+    exit, decided on the device; only for launches made where the JAX
+    loop's condition guards the solve)."""
+    _check_round_limit(round_limit, per_query, max_iterations)
+    _check_cols(cols, widened)
+    if cols.device.type == "cpu":
+        return solve_packed_reference(
+            cols.t(), valid, is_vf, toi_init, tolerance, allow_zero_toi,
+            per_query, max_iterations, round_limit, widened, skip_if_done,
+        )
+    return _launch(cols, valid, is_vf, toi_init, tolerance, allow_zero_toi, per_query,
+                   max_iterations, round_limit, widened, skip_if_done=skip_if_done)[0]
+
+
 def solve_packed(qrows, valid, is_vf: bool, toi_init, tolerance,
                  allow_zero_toi: bool = True, per_query: bool = False,
                  max_iterations: int = -1, round_limit: int = -1,
@@ -187,36 +241,46 @@ def solve_packed(qrows, valid, is_vf: bool, toi_init, tolerance,
             qrows, valid, is_vf, toi_init, tolerance, allow_zero_toi,
             per_query, max_iterations, round_limit, widened,
         )
-    return _launch(qrows, valid, is_vf, toi_init, tolerance, allow_zero_toi, per_query,
-                   max_iterations, round_limit, widened)[0]
+    _check_rows(qrows, widened)
+    return solve_cols(_columns(qrows), valid, is_vf, toi_init, tolerance, allow_zero_toi,
+                      per_query, max_iterations, round_limit, widened)
 
 
-def _launch(qrows, valid, is_vf, toi_init, tolerance, allow_zero_toi, per_query,
-            max_iterations, round_limit, widened, query_checks=False):
-    """Kernel B on CUDA tensors: ``(outputs of solve_packed, plane)``, the
+def _columns(qrows):
+    """``(31, Q)`` contiguous columns of ``(Q, 31)`` rows: neighbouring
+    threads of kernel B read neighbouring words."""
+    return qrows.t().contiguous()
+
+
+def _launch(cols, valid, is_vf, toi_init, tolerance, allow_zero_toi, per_query,
+            max_iterations, round_limit, widened, query_checks=False, skip_if_done=False):
+    """Kernel B on CUDA columns: ``(outputs of solve_cols, plane)``, the
     plane each query's evaluation count (``(Q,)`` int64) where
     ``query_checks`` asks for it, else ``None``."""
     global LAUNCHES
-    dev = qrows.device
+    dev = cols.device
     if dev.type != "cuda":
-        raise ValueError(f"solve_packed: unsupported device {dev}")
-    _check_rows(qrows, widened)
-    Q = qrows.shape[0]
-    dt = qrows.dtype
+        raise ValueError(f"solve_cols: unsupported device {dev}")
+    _check_cols(cols, widened)
+    Q = cols.shape[1]
+    dt = cols.dtype
     f64 = dt == torch.float64
     caps = search_caps(dt, widened)
     if valid.device != dev or valid.dtype != torch.bool or tuple(valid.shape) != (Q,):
         raise ValueError(
-            f"solve_packed: valid must be bool ({Q},) on {dev}, got "
+            f"solve_cols: valid must be bool ({Q},) on {dev}, got "
             f"{valid.dtype} {tuple(valid.shape)} on {valid.device}"
         )
-    if not (qrows.is_contiguous() and valid.is_contiguous()):
-        raise ValueError("solve_packed: qrows and valid must be contiguous")
+    ld = cols.stride(0)
+    if not (valid.is_contiguous() and (cols.stride(1) == 1 or Q <= 1) and ld >= Q):
+        raise ValueError("solve_cols: valid must be contiguous and cols a column buffer "
+                         f"(strides (ld >= Q, 1)), got strides {cols.stride()}")
     if Q >= 2**31 // ROW_WIDTH:
-        raise ValueError(f"solve_packed: {Q} rows exceed the kernel's index range")
-    cols = qrows.t().contiguous()  # (31, Q): neighbouring threads, neighbouring words
-    # + 0.0 turns a -0.0 seed into +0.0 (the atomicMin compares integer bits)
-    toi = torch.as_tensor(toi_init, dtype=dt, device=dev).reshape(1) + 0.0
+        raise ValueError(f"solve_cols: {Q} rows exceed the kernel's index range")
+    # the running TOI before this launch; + 0.0 turns a -0.0 seed into +0.0
+    # (the atomicMin compares integer bits)
+    seed = torch.as_tensor(toi_init, dtype=dt, device=dev).reshape(1)
+    toi = seed + 0.0
     checks = torch.zeros((1,), dtype=torch.int64, device=dev)
     ovf = torch.zeros((1,), dtype=torch.int32, device=dev)
     pq = torch.full((Q,), float("inf"), dtype=dt, device=dev) if per_query else None
@@ -227,7 +291,8 @@ def _launch(qrows, valid, is_vf, toi_init, tolerance, allow_zero_toi, per_query,
         fn = _bind(lib)
         with torch.cuda.device(dev):
             rc = fn(
-                cols.data_ptr(), valid.data_ptr(), Q, int(bool(is_vf)),
+                cols.data_ptr(), max(ld, Q), seed.data_ptr() if skip_if_done else None,
+                valid.data_ptr(), Q, int(bool(is_vf)),
                 int(bool(allow_zero_toi)), int(bool(per_query)), int(f64),
                 caps.dim_cap, int(max_iterations), int(round_limit),
                 _co_tolerance(tolerance, dt, widened), caps.uv_limit,
@@ -260,7 +325,8 @@ def _solve_query_checks(qrows, valid, is_vf, toi_init, tolerance, allow_zero_toi
     rows).  For measurements only (``chip_smoke.py``, the stage tool); no
     caller on the main path asks for the plane."""
     _check_round_limit(round_limit, per_query, max_iterations)
-    out, plane = _launch(qrows, valid, is_vf, toi_init, tolerance, allow_zero_toi,
+    _check_rows(qrows, widened)
+    out, plane = _launch(_columns(qrows), valid, is_vf, toi_init, tolerance, allow_zero_toi,
                          per_query, max_iterations, round_limit, widened, query_checks=True)
     return out + (plane,)
 
@@ -312,9 +378,10 @@ def _least_checks(qrows, valid, is_vf, toi, tolerance, per_query_toi=None,
 def solve_packed_reference(qrows, valid, is_vf: bool, toi_init, tolerance,
                            allow_zero_toi: bool = True, per_query: bool = False,
                            max_iterations: int = -1, round_limit: int = -1,
-                           widened: bool = False):
+                           widened: bool = False, skip_if_done: bool = False):
     """Plain PyTorch twin of kernel B, on any device; same arguments and
-    outputs as :func:`solve_packed`, computed in the rows' dtype.
+    outputs as :func:`solve_packed`, computed in the rows' dtype.  Under
+    ``skip_if_done`` it reads the seed on the host.
 
     Per-query bounded calls (``per_query`` and ``max_iterations >= 0``) and
     round-limited calls run the lockstep depth-first search
@@ -344,6 +411,8 @@ def solve_packed_reference(qrows, valid, is_vf: bool, toi_init, tolerance,
     co_tol = torch.tensor(_co_tolerance(tolerance, dt, widened), dtype=dt, device=dev)
     valid = valid.to(torch.bool)
     _check_round_limit(round_limit, per_query, max_iterations)
+    if skip_if_done and float(toi_init) <= 0:
+        return _skipped(dt, dev, qrows.shape[0], toi_init, per_query, round_limit)
     if (per_query and max_iterations >= 0) or round_limit >= 0:
         q, tol, err, ms = _unpack(qrows)
         return dfs_lockstep(q, tol, err, ms, valid, co_tol, toi_init, is_vf,
@@ -423,34 +492,54 @@ def _frontier(qrows, valid, is_vf, toi, tpq, co_tol, caps, allow_zero_toi, per_q
 def solve_escalated(qrows, valid, is_vf: bool, toi_init, tolerance,
                     allow_zero_toi: bool = True, round_limit=-1,
                     widened: bool = False):
-    """Global solve with staged escalation; returns ``(toi, overflow,
-    checks)`` as :func:`solve_packed` does, ``checks`` counting every pass.
+    """:func:`solve_escalated_cols` of ``(Q, 31)`` rows."""
+    _check_rows(qrows, widened)
+    return solve_escalated_cols(_columns(qrows), valid, is_vf, toi_init, tolerance,
+                                allow_zero_toi, round_limit, widened)
+
+
+def solve_escalated_cols(cols, valid, is_vf: bool, toi_init, tolerance,
+                         allow_zero_toi: bool = True, round_limit=-1,
+                         widened: bool = False, skip_if_done: bool = False):
+    """Global solve of ``(31, Q)`` columns with staged escalation; returns
+    ``(toi, overflow, checks)`` as :func:`solve_packed` does, ``checks``
+    counting every pass.  ``skip_if_done`` applies to the first pass.
 
     ``round_limit`` is an int or a ladder (:func:`normalize_round_limits`);
-    without a limit this is one unbounded :func:`solve_packed` call.  With
-    one, the first pass stops at ``limits[0]`` rounds, and the host reads
-    how many rows are unfinished (JAX ``_escalate_ladder``, where a
-    ``lax.cond`` picks the branch on the device): none, and the pass is the
-    answer; up to four pool blocks, and they are pooled in their original
-    order and solved by the rest of the ladder; more, and they are solved
-    in one unbounded pass.  Every later pass starts from the first pass's
-    TOI and solves its rows from scratch."""
+    without a limit this is one unbounded :func:`solve_cols` call.  With
+    one, the first pass stops at ``limits[0]`` rounds, and the unfinished
+    rows go one of three ways (JAX ``_escalate_ladder``): none, and the
+    pass is the answer; up to ``K = min(4 * POOL_BLOCK, Q rounded up to
+    whole pool blocks)`` of them, and they are pooled in their original
+    order (cumsum and searchsorted) and solved by the rest of the ladder;
+    more, and they are solved in one unbounded pass.  Every later pass
+    starts from the first pass's TOI and solves its rows from scratch.
+
+    The device picks the branch: the pool pass runs the rest of the ladder
+    over ``K`` gathered columns, valid where ``count <= K``, and the
+    unbounded pass runs over the batch, valid where ``count > K``; the one
+    not taken has no valid row and evaluates nothing.  No host read, at
+    any length of the ladder."""
     limits = normalize_round_limits(round_limit)
     if not limits:
-        return solve_packed(qrows, valid, is_vf, toi_init, tolerance, allow_zero_toi,
-                            widened=widened)
-    toi1, ovf1, checks1, unfin = solve_packed(
-        qrows, valid, is_vf, toi_init, tolerance, allow_zero_toi,
-        round_limit=limits[0], widened=widened,
+        return solve_cols(cols, valid, is_vf, toi_init, tolerance, allow_zero_toi,
+                          widened=widened, skip_if_done=skip_if_done)
+    toi1, ovf1, checks1, unfin = solve_cols(
+        cols, valid, is_vf, toi_init, tolerance, allow_zero_toi,
+        round_limit=limits[0], widened=widened, skip_if_done=skip_if_done,
     )
-    count = int(unfin.sum())
-    if count == 0:
+    Q = cols.shape[1]
+    if Q == 0:
         return toi1, ovf1, checks1
-    Q = qrows.shape[0]
+    dev = cols.device
     pool_cap = min(4 * POOL_BLOCK, -(-Q // POOL_BLOCK) * POOL_BLOCK)
-    rows = qrows[torch.nonzero(unfin).flatten()]
-    ones = torch.ones((count,), dtype=torch.bool, device=qrows.device)
-    rest = limits[1:] if count <= pool_cap else ()
-    toi2, ovf2, checks2 = solve_escalated(rows, ones, is_vf, toi1, tolerance,
-                                          allow_zero_toi, rest, widened)
-    return toi2, ovf1 | ovf2, checks1 + checks2
+    cum = torch.cumsum(unfin, 0)
+    count = cum[-1]
+    lane = torch.arange(pool_cap, device=dev)
+    idx = torch.searchsorted(cum, lane + 1).clamp_(max=Q - 1)
+    small = (lane < count) & (count <= pool_cap)
+    toi_s, ovf_s, ck_s = solve_escalated_cols(cols.index_select(1, idx), small, is_vf, toi1,
+                                              tolerance, allow_zero_toi, limits[1:], widened)
+    toi_f, ovf_f, ck_f = solve_cols(cols, unfin & (count > pool_cap), is_vf, toi1, tolerance,
+                                    allow_zero_toi, widened=widened)
+    return torch.minimum(toi_s, toi_f), ovf1 | ovf_s | ovf_f, checks1 + ck_s + ck_f

@@ -60,10 +60,25 @@ back as f32: native f64 in place of the JAX package's double-word f32.  For
 both, the JAX package's solver is its queue solver, so the auto policies
 resolve to no escalation; an explicit ``escalate_rounds`` still applies.
 
-The JAX package runs this as one XLA program; here it is eager PyTorch, and
-the host reads a few scalars on the way (each phase's candidate totals, the
-TOI after every narrow batch for the early exit, and the unfinished count
-of every escalated solve).
+The JAX package runs this as one XLA program; here it is eager PyTorch, with
+the narrow loop's decisions on the device as the JAX package keeps them:
+every batch is one kernel C launch (gather and pack, :mod:`scalable_ccd_tpu_
+torch.ops.gather_pack`) and kernel B launches; the ``toi > 0`` exit is
+kernel B's ``skip_if_done`` (a batch after the TOI reached 0 does nothing);
+the frame pool's pool/solve-now choice and the batch ladder's skip/small/
+full choice are predicates on device scalars.  At the defaults the host
+reads a fixed number of scalars per phase, whatever the number of batches:
+
+- each phase's sweep totals, and the overflow flag of an auto budget (the
+  retry from the exact totals);
+- the frame pool's cursor, once per phase, to size the pool's pass;
+- the result, which the caller reads.
+
+Paths that keep host reads per batch: the exact modes (``collisions=``
+reads each batch's hits; ``ipc_refine`` tests each batch's TOI against
+``IPC_MIN_TOI``), the chunked ``ccd()`` (host-driven by design, as the
+reference's) and ``sharded_ccd`` (a check per batch, which keeps its
+collectives uniform).
 """
 
 from __future__ import annotations
@@ -83,17 +98,15 @@ from scalable_ccd_tpu_torch.geometry.aabb import (
 from scalable_ccd_tpu_torch.geometry.mesh import validate_mesh_inputs
 from scalable_ccd_tpu_torch.narrow_phase.types import (
     concat_frames,
-    gather_ee_queries,
-    gather_vf_queries,
     pack_edge_table,
     pack_face_table,
 )
+from scalable_ccd_tpu_torch.ops.gather_pack import gather_pack, row_dtype
 from scalable_ccd_tpu_torch.ops.solver import (
     POOL_BLOCK,
     ROW_WIDTH,
-    pack_query_rows,
-    solve_escalated,
-    solve_packed,
+    solve_cols,
+    solve_escalated_cols,
 )
 from scalable_ccd_tpu_torch.ops.sweep_ap import partner_planes, sweep_pairs
 from scalable_ccd_tpu_torch.ops.sweep_records import (
@@ -335,18 +348,15 @@ class NarrowSolver(NamedTuple):
     @property
     def row_dtype(self):
         """The dtype of the packed rows the solver takes."""
-        return torch.float64 if self.compensated else self.vcat.dtype
+        return row_dtype(self.vcat.dtype, self.compensated)
 
     def rows(self, pairs, exact=False):
-        """``(P, 31)`` packed rows of ``(P, 2)`` element-id pairs; ``exact``
+        """``(31, P)`` packed columns of ``(P, 2)`` element-id pairs
+        (kernel C, :func:`scalable_ccd_tpu_torch.ops.gather_pack.
+        gather_pack`: the one place the narrow loop packs rows); ``exact``
         packs them with no minimum separation."""
-        if self.is_vf:
-            q = gather_vf_queries(self.vcat, self.table, pairs)
-        else:
-            q = gather_ee_queries(self.table, pairs)
-        rows = pack_query_rows(q, self.is_vf, 0.0 if exact else self.ms, self.tolerance,
-                               self.compensated)
-        return rows.to(self.row_dtype)
+        return gather_pack(pairs, 0, pairs.shape[0], self.vcat, self.table, self.is_vf,
+                           0.0 if exact else self.ms, self.tolerance, self.compensated)
 
     def _narrowed(self, out):
         """A solve's outputs with its TOIs in the phase's TOI dtype: a
@@ -355,38 +365,33 @@ class NarrowSolver(NamedTuple):
             return out
         return tuple(o.float() if o.is_floating_point() else o for o in out)
 
-    def solve_rows(self, rows, valid, toi, zero_ok=None, **modes):
-        """:func:`solve_packed` of packed ``rows`` with the phase's options;
-        ``modes`` are its ``per_query``, ``max_iterations`` and
-        ``round_limit``."""
+    def solve_rows(self, cols, valid, toi, zero_ok=None, **modes):
+        """:func:`solve_cols` of packed columns ``cols`` with the phase's
+        options; ``modes`` are its ``per_query``, ``max_iterations``,
+        ``round_limit`` and ``skip_if_done``."""
         zero_ok = self.allow_zero_toi if zero_ok is None else zero_ok
-        return self._narrowed(solve_packed(
-            rows, valid, self.is_vf, toi, self.tolerance, zero_ok,
+        return self._narrowed(solve_cols(
+            cols, valid, self.is_vf, toi, self.tolerance, zero_ok,
             widened=self.compensated, **modes))
 
-    def solve(self, pairs, toi, per_query=False, exact=False):
+    def solve(self, pairs, toi, per_query=False, exact=False, skip_if_done=False):
         """Solve ``(P, 2)`` element-id pairs from the running TOI ``toi``;
-        the outputs of :func:`solve_packed`.  ``exact`` is the IPC
+        the outputs of :func:`solve_cols`.  ``exact`` is the IPC
         re-solve: no minimum separation, no cap and no zero TOI.  Global
-        solves without a cap go through the escalation ladder."""
-        rows = self.rows(pairs, exact)
+        solves without a cap go through the escalation ladder.
+        ``skip_if_done`` (global solves) does nothing once ``toi`` is 0."""
+        cols = self.rows(pairs, exact)
         max_iter, zero_ok = (-1, False) if exact else (self.max_iterations, self.allow_zero_toi)
-        valid = torch.ones((rows.shape[0],), dtype=torch.bool, device=rows.device)
-        if per_query or max_iter >= 0:
-            return self.solve_rows(rows, valid, toi, zero_ok, per_query=per_query,
+        valid = torch.ones((cols.shape[1],), dtype=torch.bool, device=cols.device)
+        if per_query:
+            return self.solve_rows(cols, valid, toi, zero_ok, per_query=True,
                                    max_iterations=max_iter)
-        return self._narrowed(solve_escalated(
-            rows, valid, self.is_vf, toi, self.tolerance, zero_ok, self.round_limit,
-            self.compensated))
-
-    def solve_bounded(self, pairs, toi):
-        """One round-limited global pass of ``pairs`` (no ladder); returns
-        ``(toi, overflow, checks, unfin, rows)``, ``rows`` the packed rows
-        for the frame pool (``pallas_find_roots_bounded``)."""
-        rows = self.rows(pairs)
-        valid = torch.ones((rows.shape[0],), dtype=torch.bool, device=rows.device)
-        out = self.solve_rows(rows, valid, toi, round_limit=int(self.round_limit))
-        return out + (rows,)
+        if max_iter >= 0:
+            return self.solve_rows(cols, valid, toi, zero_ok, max_iterations=max_iter,
+                                   skip_if_done=skip_if_done)
+        return self._narrowed(solve_escalated_cols(
+            cols, valid, self.is_vf, toi, self.tolerance, zero_ok, self.round_limit,
+            self.compensated, skip_if_done))
 
 
 def _key_order(pairs: torch.Tensor) -> torch.Tensor:
@@ -480,35 +485,49 @@ def _frame_pool_loop(stream, budget, batch, nar: NarrowSolver, toi, checks, capp
     pool, unless there are more than one pool block of them or the pool is
     full, and then they are solved at once, unbounded; the pool is solved
     densely after the loop, one block per call.  Returns (toi, checks,
-    capped)."""
+    capped).
+
+    The loop's decisions stay on the device, as the JAX ``lax.cond`` keeps
+    them: the pool cursor ``cur`` is a device scalar; a batch's unfinished
+    rows, gathered in order by cumsum and searchsorted, land at ``cur`` when
+    ``0 < cnt <= POOL_BLOCK`` and ``cur <= cap``, else in a block past the
+    pool that nothing reads; the solve-now pass launches over the batch
+    with ``valid = unfin & ~pooled`` (no valid row when the rows were
+    pooled).  The bounded pass and the pool blocks skip once the TOI is 0
+    (``skip_if_done``).  The host reads the cursor once, to size the pool's
+    pass."""
     dev = toi.device
     cap = -(-min(_FRAME_POOL_MAX, max(_FRAME_POOL_MIN, budget >> 6)) // POOL_BLOCK) * POOL_BLOCK
-    pool = torch.empty((cap + POOL_BLOCK, ROW_WIDTH), dtype=nar.row_dtype, device=dev)
-    cur = 0
-    start = 0
-    toi_h = float(toi)
-    while start < stream.n and toi_h > 0:
-        chunk = stream.batch(start, min(start + batch, stream.n))
-        toi_b, ovf, ck, unfin, rows = nar.solve_bounded(chunk, toi)
+    # columns [cap + POOL_BLOCK, cap + 2 * POOL_BLOCK): where a batch that is
+    # not pooled writes its gathered rows
+    pool = torch.empty((ROW_WIDTH, cap + 2 * POOL_BLOCK), dtype=nar.row_dtype, device=dev)
+    cur = torch.zeros((), dtype=torch.int64, device=dev)
+    lane = torch.arange(POOL_BLOCK, device=dev)
+    ones = torch.ones((max(batch, POOL_BLOCK),), dtype=torch.bool, device=dev)
+    for start in range(0, stream.n, batch):
+        cols = nar.rows(stream.batch(start, min(start + batch, stream.n)))
+        q = cols.shape[1]
+        toi_b, ovf, ck, unfin = nar.solve_rows(cols, ones[:q], toi,
+                                               round_limit=int(nar.round_limit),
+                                               skip_if_done=True)
         toi = torch.minimum(toi, toi_b)
         checks, capped = checks + ck, capped | ovf
-        cnt, toi_h = torch.stack([unfin.sum().to(torch.float64), toi.double()]).tolist()
-        cnt = int(cnt)
-        if 0 < cnt <= POOL_BLOCK and cur <= cap:
-            pool[cur:cur + cnt] = rows[unfin]
-            cur += cnt
-        elif cnt > 0:
-            toi2, ovf2, ck2 = nar.solve_rows(rows, unfin, toi)
-            toi = torch.minimum(toi, toi2)
-            checks, capped = checks + ck2, capped | ovf2
-            toi_h = float(toi)
-        start += batch
-    for s in range(0, cur, POOL_BLOCK):
-        if float(toi) <= 0:
-            break
-        rows = pool[s:min(s + POOL_BLOCK, cur)]
-        valid = torch.ones((rows.shape[0],), dtype=torch.bool, device=dev)
-        toi2, ovf2, ck2 = nar.solve_rows(rows, valid, toi)
+        cum = torch.cumsum(unfin, 0)
+        cnt = cum[-1]
+        pooled = (cnt > 0) & (cnt <= POOL_BLOCK) & (cur <= cap)
+        idx = torch.searchsorted(cum, lane + 1).clamp_(max=q - 1)
+        # rows past cnt duplicate real rows and land past cur + cnt: the
+        # next append overwrites them and the pool's pass stops at cur
+        dest = torch.where(pooled, cur, cap + POOL_BLOCK) + lane
+        pool.index_copy_(1, dest, cols.index_select(1, idx))
+        cur = cur + torch.where(pooled, cnt, 0)
+        toi2, ovf2, ck2 = nar.solve_rows(cols, unfin & ~pooled, toi)
+        toi = torch.minimum(toi, toi2)
+        checks, capped = checks + ck2, capped | ovf2
+    n_pool = int(cur)  # the loop's one host read
+    for s in range(0, n_pool, POOL_BLOCK):
+        block = pool[:, s:min(s + POOL_BLOCK, n_pool)]
+        toi2, ovf2, ck2 = nar.solve_rows(block, ones[:block.shape[1]], toi, skip_if_done=True)
         toi = torch.minimum(toi, toi2)
         checks, capped = checks + ck2, capped | ovf2
     return toi, checks, capped
@@ -551,11 +570,12 @@ def _narrow_phase(stream, budget, batch, presample, nar: NarrowSolver, toi,
         pairs = stream.all()
         stream = PairStream(pairs[_key_order(pairs)], n_pairs)
     start = 0
-    # the host reads the TOI once per batch for the early exit, the
-    # reference chunk loop's `remaining_queries && toi > 0`
-    while start < n_pairs and float(toi) > 0:
+    # the reference chunk loop's `remaining_queries && toi > 0`: each batch's
+    # first launch skips on the device once the TOI is 0 (skip_if_done);
+    # the IPC rule reads the TOI on the host anyway, and stops there
+    while start < n_pairs and (not ipc_refine or float(toi) > 0):
         chunk = stream.batch(start, min(start + batch, n_pairs))
-        toi_b, cap, ck = nar.solve(chunk, toi)
+        toi_b, cap, ck = nar.solve(chunk, toi, skip_if_done=True)
         toi_after = torch.minimum(toi, toi_b)
         # compared in the working dtype, as the JAX package's in-dispatch
         # rule does
@@ -706,5 +726,6 @@ def fused_ccd(
         toi=toi, overflowed=vf_over | ee_over, vf_total=vf_total,
         ee_total=ee_total, total_checks=vf_ck + ee_ck,
         solver_capped=vf_cap | ee_cap,
-        ipc_refinements=torch.tensor(vf_ref + ee_ref, dtype=torch.int64, device=device),
+        # a fill, not a host-to-device copy (which would wait for the card)
+        ipc_refinements=torch.full((), vf_ref + ee_ref, dtype=torch.int64, device=device),
     )

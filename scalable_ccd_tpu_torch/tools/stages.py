@@ -17,7 +17,8 @@ times, per phase (VF, EE) where the stage has one:
 - ``sweep_records`` and ``sweep_records_decode``: kernel A', alone and with
   the decode of every pair;
 - ``gather_pack``: the query gather and row packing of every candidate, in
-  the main path's narrow batches;
+  the main path's narrow batches, through ``NarrowSolver.rows`` (kernel C
+  on CUDA);
 - ``solve``: kernel B over those batches, one unbounded global pass each,
   the running TOI threaded through VF and then EE; on CUDA one more,
   untimed pass reads each query's evaluation count and the line carries
@@ -43,6 +44,15 @@ bench scene and grid-600, and the frames that use them (:func:`run_kernel_a`),
 on a CUDA device; run from two trees in turns, it compares two kernels::
 
     python -m scalable_ccd_tpu_torch.tools.stages --kernel-a
+
+``--frames`` measures whole frames on a CUDA device (:func:`run_frames`):
+each frame's TOI bitwise, totals and host ms, the synchronizing calls of
+one frame (:func:`count_syncs`) at two batch sizes, and the device idle
+share of one bench frame (:func:`idle_share`).  It uses the entry points
+alone, so the tool can time another tree's package, the one found first on
+``PYTHONPATH``::
+
+    PYTHONPATH=build/parent python scalable_ccd_tpu_torch/tools/stages.py --frames
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ import argparse
 import contextlib
 import inspect
 import json
+import os
 import statistics
 import time
 
@@ -62,6 +73,7 @@ from scalable_ccd_tpu_torch.geometry.aabb import (
     build_face_boxes,
     build_vertex_boxes,
 )
+from scalable_ccd_tpu_torch.geometry.mesh import edges_from_faces, read_ply
 from scalable_ccd_tpu_torch.geometry.scenes import cloth_on_sphere
 from scalable_ccd_tpu_torch.ops import solver
 from scalable_ccd_tpu_torch.ops.sweep_ap import ROW, partner_planes, sweep_pairs
@@ -82,7 +94,8 @@ from scalable_ccd_tpu_torch.pipeline.fused import (
     resolve_knobs,
 )
 
-__all__ = ["run_stages", "kernel_b_sets", "run_kernel_b", "run_kernel_a", "main"]
+__all__ = ["run_stages", "kernel_b_sets", "run_kernel_b", "run_kernel_a", "run_frames",
+           "count_syncs", "idle_share", "main"]
 
 
 def _timed(fn, reps: int, device: torch.device):
@@ -171,7 +184,7 @@ def run_stages(grid: int = 128, subdiv: int = 4, drop: float = 0.25,
         rows = stage("gather_pack", phase,
                      lambda: [nar.rows(pairs[s:s + _NARROW_BATCH]) for s in cuts],
                      queries=total, batches=len(cuts))
-        valids = [torch.ones((r.shape[0],), dtype=torch.bool, device=device) for r in rows]
+        valids = [torch.ones((r.shape[1],), dtype=torch.bool, device=device) for r in rows]
 
         def solve(toi=toi):
             checks = torch.zeros((), dtype=torch.int64, device=device)
@@ -185,7 +198,7 @@ def run_stages(grid: int = 128, subdiv: int = 4, drop: float = 0.25,
                 return None
             planes = []
             for r, v in zip(rows, valids):
-                t, *_, plane = solver._solve_query_checks(r, v, is_vf, toi, 1e-6)
+                t, *_, plane = solver._solve_query_checks(r.t(), v, is_vf, toi, 1e-6)
                 toi = torch.minimum(toi, t)
                 planes.append(plane)
             return solver._checks_spread(torch.cat(planes))
@@ -208,21 +221,24 @@ def run_stages(grid: int = 128, subdiv: int = 4, drop: float = 0.25,
 def _recorded_launches(calls, keep=lambda kw: True):
     """Append the inputs of every kernel B launch made inside the block to
     ``calls`` (copies, as :func:`scalable_ccd_tpu_torch.ops.solver.
-    solve_packed`'s keywords plus ``qrows`` and ``valid``), those that
-    ``keep`` accepts."""
+    solve_packed`'s keywords plus ``qrows`` as rows and ``valid``), those
+    that ``keep`` accepts; launches with no valid row, and launches that
+    ``skip_if_done`` stops, do no work and are left out."""
     launch = solver._launch
 
-    def record(qrows, valid, is_vf, toi_init, tolerance, allow_zero_toi, per_query,
-               max_iterations, round_limit, widened, query_checks=False):
+    def record(cols, valid, is_vf, toi_init, tolerance, allow_zero_toi, per_query,
+               max_iterations, round_limit, widened, query_checks=False, skip_if_done=False):
         kw = {"is_vf": bool(is_vf), "tolerance": tolerance,
               "allow_zero_toi": bool(allow_zero_toi), "per_query": bool(per_query),
               "max_iterations": int(max_iterations), "round_limit": int(round_limit),
               "widened": bool(widened)}
-        if keep(kw):
-            calls.append({"qrows": qrows.clone(), "valid": valid.clone(),
+        idle = not bool(valid.any()) or (skip_if_done and float(toi_init) <= 0)
+        if keep(kw) and not idle:
+            calls.append({"qrows": cols.t().clone(memory_format=torch.contiguous_format),
+                          "valid": valid.clone(),
                           "toi_init": torch.as_tensor(toi_init).clone(), **kw})
-        return launch(qrows, valid, is_vf, toi_init, tolerance, allow_zero_toi, per_query,
-                      max_iterations, round_limit, widened, query_checks)
+        return launch(cols, valid, is_vf, toi_init, tolerance, allow_zero_toi, per_query,
+                      max_iterations, round_limit, widened, query_checks, skip_if_done)
 
     solver._launch = record
     try:
@@ -386,6 +402,19 @@ def _against_plain(calls, mode, outs):
 #: the scenes of run_kernel_a: ``cloth_on_sphere`` arguments
 _KERNEL_A_SCENES = {"bench": (128, 4, 0.25), "grid600": (600, 4, 0.25)}
 _FRAME_SCENES = {**_KERNEL_A_SCENES, "grid384": (384, 5, 0.25)}
+#: the golden scene whose f32 TOI collapses to 0 (the narrow loop's exit),
+#: in the repo's test data
+_DENSE_CLUSTER = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir,
+                              os.pardir, "tests", "golden", "dense-cluster", "frames")
+#: run_frames' dense-cluster frames: at the default batch the scene is one
+#: batch a phase; at 256 the TOI reaches 0 in the sixth EE batch of 15
+_DENSE_CLUSTER_FRAMES = {
+    "float32": {}, "float32_records": {"sweep_impl": "records"},
+    "float32_b256": {"narrow_batch": 256},
+    "float32_records_b256": {"sweep_impl": "records", "narrow_batch": 256},
+    "float32_ladder_b256": {"escalate_pool": "batch", "narrow_batch": 256},
+    "float32_unbounded_b256": {"escalate_rounds": -1, "narrow_batch": 256},
+}
 
 
 def _phase_boxes(v0, v1, e, f, dtype):
@@ -521,6 +550,156 @@ def run_kernel_a(device=None, reps=5, emit=print) -> list:
     return lines
 
 
+# ---- whole frames: TOIs, host syncs and the device idle share --------------------------
+
+def _package_site(filename: str, lineno: int):
+    """``"pkg/.../file.py:line"`` for a file of the package outside its
+    ``tools/``, from the package's last occurrence in the path, else
+    ``None``."""
+    pkg = fused_ccd.__module__.split(".")[0]
+    parts = os.path.normpath(filename).split(os.sep)
+    if pkg not in parts:
+        return None
+    rel = parts[len(parts) - 1 - parts[::-1].index(pkg):]
+    return None if rel[1:2] == ["tools"] else f"{'/'.join(rel)}:{lineno}"
+
+
+def count_syncs(fn):
+    """``(fn(), n, sites)``: the synchronizing CUDA calls ``fn`` makes (host
+    reads of device values, blocking copies), counted from the warnings of
+    ``torch.cuda.set_sync_debug_mode("warn")``; ``sites`` counts them by
+    the innermost ``file:line`` of the package on the Python stack outside
+    its ``tools/``, in whichever tree the package was imported from."""
+    import traceback
+    import warnings
+
+    sites = {}
+
+    def seen(message, *_args, **_kw):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        inner = [s for s in (_package_site(f.filename, f.lineno)
+                             for f in traceback.extract_stack()[:-1]) if s]
+        key = inner[-1] if inner else "outside the package"
+        sites[key] = sites.get(key, 0) + 1
+
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = seen
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    return out, sum(sites.values()), sites
+
+
+def idle_share(fn, label="sccd_frame"):
+    """``(fn(), stats)``: one call of ``fn`` traced with ``torch.profiler``,
+    ending in a device synchronize.  ``stats``: the call's span (host ms,
+    from the ``label`` range), the device's busy ms in it (the union of its
+    kernels, copies and fills) and ``idle_share``, ``1 - busy / span``;
+    ``None`` values if the trace holds no device event.  The profiler adds
+    host time to every op, so the share is that of a traced frame."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function(label):
+            out = fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    span = [e.time_range for e in events if e.name == label and e.device_type == DeviceType.CPU]
+    busy = sorted((e.time_range.start, e.time_range.end) for e in events
+                  if e.device_type == DeviceType.CUDA and e.name != label)
+    if not span or not busy:
+        return out, {"span_ms": None, "device_busy_ms": None, "idle_share": None,
+                     "device_events": len(busy)}
+    t0, t1 = span[0].start, span[0].end
+    total, end = 0.0, t0
+    for a, b in busy:
+        a, b = max(a, end), min(b, t1)
+        if b > a:
+            total += b - a
+            end = b
+    return out, {"span_ms": (t1 - t0) / 1e3, "device_busy_ms": total / 1e3,
+                 "idle_share": 1.0 - total / (t1 - t0), "device_events": len(busy)}
+
+
+def run_frames(device=None, reps=5, emit=print) -> list:
+    """Whole frames on a CUDA device, one JSON line each.  Per scene of
+    ``_FRAME_SCENES``, ``fused_ccd`` at its defaults with ``sweep_impl``
+    ``"pairs"`` and ``"records"`` (and on the bench scene in f64 and
+    compensated): the TOI and its ``float.hex``, totals, checks,
+    ``overflowed``, ``solver_capped`` and the median host ms of ``reps``
+    frames after a warm-up; ``ccd()`` on the bench scene; the synchronizing
+    calls of one frame (:func:`count_syncs`) of the bench scene and grid-600
+    at ``narrow_batch`` 16,384 and 4,096, after a warm-up frame; the idle
+    share of one bench frame (:func:`idle_share`); the golden
+    ``dense-cluster`` scene's frames (``_DENSE_CLUSTER_FRAMES``), timed and
+    with the syncs of each, where the repo's test data is at hand."""
+    device = resolve_device(device)
+    if device.type != "cuda":
+        raise RuntimeError("run_frames times CUDA frames: it needs a CUDA device")
+    lines = []
+
+    def out(**line):
+        lines.append(line)
+        emit(json.dumps(line))
+
+    def result(res):
+        return {"toi": float(res.toi), "toi_hex": float(res.toi).hex(),
+                "vf_total": int(res.vf_total), "ee_total": int(res.ee_total),
+                "total_checks": int(res.total_checks), "overflowed": bool(res.overflowed),
+                "solver_capped": bool(res.solver_capped)}
+
+    for name, args in _FRAME_SCENES.items():
+        s = cloth_on_sphere(*args)
+        v0, v1, e, f = mesh_tensors(s.vertices_t0, s.vertices_t1, s.edges, s.faces, device,
+                                    pca=False)
+
+        def frame(**kw):
+            return fused_ccd(v0, v1, e, f, device=device, validate=False, **kw)
+
+        variants = {"float32": {}, "float32_records": {"sweep_impl": "records"}}
+        if name == "bench":
+            variants.update(float64={"dtype": torch.float64},
+                            compensated={"precision": "compensated"})
+        for label, kw in variants.items():
+            res, wall, _ = _timed(lambda: frame(**kw), reps, device)
+            out(frame="fused_ccd", scene=name, variant=label, **result(res), ms=wall)
+        if name in ("bench", "grid600"):
+            for batch in (_NARROW_BATCH, _NARROW_BATCH >> 2):
+                frame(narrow_batch=batch)
+                res, n, sites = count_syncs(lambda: frame(narrow_batch=batch))
+                out(frame="syncs", scene=name, narrow_batch=batch, syncs=n, sites=sites,
+                    **result(res))
+        if name == "bench":
+            frame()
+            res, stats = idle_share(frame)
+            out(frame="idle_share", scene=name, **stats, **result(res))
+            toi, wall, _ = _timed(lambda: ccd(v0, v1, e, f, device=device, validate=False),
+                                  reps, device)
+            out(frame="ccd", scene=name, variant="float32", toi=float(toi),
+                toi_hex=float(toi).hex(), ms=wall)
+    if os.path.isdir(_DENSE_CLUSTER):
+        v0, f = read_ply(os.path.join(_DENSE_CLUSTER, "f0.ply"))
+        v1, _ = read_ply(os.path.join(_DENSE_CLUSTER, "f1.ply"))
+        v0, v1, e, f = mesh_tensors(v0, v1, edges_from_faces(f), f, device, pca=False)
+        for label, kw in _DENSE_CLUSTER_FRAMES.items():
+            def frame(kw=kw):
+                return fused_ccd(v0, v1, e, f, device=device, validate=False, **kw)
+
+            res, wall, _ = _timed(frame, reps, device)
+            _, n, sites = count_syncs(frame)
+            out(frame="fused_ccd", scene="dense_cluster", variant=label, **result(res), ms=wall,
+                syncs=n, sites=sites)
+    return lines
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("grid", nargs="?", type=int, default=128)
@@ -536,7 +715,13 @@ def main(argv=None) -> int:
     ap.add_argument("--kernel-a", action="store_true",
                     help="kernels A and A' alone in every mode and dtype, and their frames "
                          "(CUDA only)")
+    ap.add_argument("--frames", action="store_true",
+                    help="whole frames: TOIs, host ms, syncs per frame and the idle share "
+                         "(CUDA only)")
     a = ap.parse_args(argv)
+    if a.frames:
+        lines = run_frames(a.device, a.reps)
+        return 0 if not any(o.get("overflowed") for o in lines) else 1
     if a.kernel_a:
         lines = run_kernel_a(a.device, a.reps)
         return 0 if not any(o.get("overflowed") for o in lines) else 1

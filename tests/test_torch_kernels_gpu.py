@@ -15,6 +15,7 @@ from scalable_ccd_tpu_torch.broad_phase import merge_two_lists, sort_boxes
 from scalable_ccd_tpu_torch.geometry import aabb, scenes
 from scalable_ccd_tpu_torch.interop import from_numpy_scene
 from scalable_ccd_tpu_torch.narrow_phase import types
+from scalable_ccd_tpu_torch.ops import gather_pack as gp
 from scalable_ccd_tpu_torch.ops import solver, sweep_ap, sweep_records
 
 torch.set_num_threads(2)
@@ -830,3 +831,125 @@ def test_records_kernel_row_range_units_equal_device_units(cuda, name):
             k_end, k_prefix = sweep_records._scratch_units(scratch, sb.n, rng)
             assert torch.equal(k_end, end) and torch.equal(k_prefix, prefix), \
                 (name, any_order, rng)
+
+
+# ---- kernel C: gather, tolerance, error filter and pack ---------------------------
+
+#: kernel C's three row types: (table dtype, compensated)
+_C_KINDS = {"f32": (torch.float32, False), "f64": (torch.float64, False),
+            "compensated": (torch.float32, True)}
+_BENCH_CANDIDATES = {}
+
+
+def _bench_candidates(device, dtype, is_vf):
+    """``(pairs buffer, n, vcat, table)`` of the bench scene,
+    ``cloth_on_sphere(128, 4, drop=0.25)``, in ``dtype``: kernel A's
+    candidate buffer, in the main path's layout."""
+    key = (dtype, is_vf)
+    if key not in _BENCH_CANDIDATES:
+        s = from_numpy_scene(scenes.cloth_on_sphere(grid_n=128, sphere_subdiv=4, drop=0.25),
+                             device)
+        vb = aabb.build_vertex_boxes(s.vertices_t0, s.vertices_t1, dtype=dtype)
+        boxes = (merge_two_lists(vb, aabb.build_face_boxes(vb, s.faces)) if is_vf
+                 else aabb.build_edge_boxes(vb, s.edges))
+        pairs, n, _, _ = sweep_ap.sweep_pairs(sort_boxes(boxes), is_vf, 1 << 18)
+        vcat = types.concat_frames(s.vertices_t0, s.vertices_t1, dtype)
+        table = (types.pack_face_table(vcat, s.faces) if is_vf
+                 else types.pack_edge_table(vcat, s.edges))
+        _BENCH_CANDIDATES[key] = (pairs, int(n), vcat, table)
+    return _BENCH_CANDIDATES[key]
+
+
+def _same_bits(a, b):
+    ints = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(ints), b.view(ints))
+
+
+@pytest.mark.parametrize("kind", sorted(_C_KINDS))
+@pytest.mark.parametrize("is_vf", [True, False])
+def test_gather_pack_kernel_equals_plain_bitwise(cuda, is_vf, kind):
+    """Every 16,384-row batch of the bench scene's candidates, read from the
+    whole buffer at its offset, bitwise the plain version's columns; the
+    first batch also with a minimum separation."""
+    dtype, comp = _C_KINDS[kind]
+    pairs, n, vcat, table = _bench_candidates(cuda, dtype, is_vf)
+    assert n > 16384
+    before = dict(gp.LAUNCHES_BY_MODE)
+    batches = 0
+    for start in range(0, n, 16384):
+        stop = min(start + 16384, n)
+        for ms in ((0.0, 1e-3) if start == 0 else (0.0,)):
+            k = gp.gather_pack(pairs, start, stop, vcat, table, is_vf, ms, TOL, comp)
+            torch.cuda.synchronize()
+            p = gp.gather_pack_reference(pairs, start, stop, vcat, table, is_vf, ms, TOL, comp)
+            assert _same_bits(k, p), (start, ms)
+            batches += 1
+    mode = "vf" if is_vf else "ee"
+    f64 = dtype == torch.float64 or comp
+    assert gp.LAUNCHES_BY_MODE[mode] == before[mode] + batches
+    assert gp.LAUNCHES_BY_MODE["f64" if f64 else "f32"] == before["f64" if f64 else "f32"] + batches
+    assert gp.LAUNCHES_BY_MODE["compensated"] == before["compensated"] + comp * batches
+
+
+@pytest.mark.parametrize("is_vf", [True, False])
+def test_gather_pack_kernel_clamps_ids_and_rejects_bad_inputs(cuda, is_vf):
+    _, _, vcat, table = _bench_candidates(cuda, torch.float32, is_vf)
+    n_a = vcat.shape[0] if is_vf else table.shape[0]
+    bad = torch.tensor([[-3, -1], [n_a + 7, table.shape[0] + 2], [5, 9]], dtype=torch.int32,
+                       device=cuda)
+    k = gp.gather_pack(bad, 0, 3, vcat, table, is_vf, 0.0, TOL)
+    assert _same_bits(k, gp.gather_pack_reference(bad, 0, 3, vcat, table, is_vf, 0.0, TOL))
+    assert gp.gather_pack(bad, 1, 1, vcat, table, is_vf, 0.0, TOL).shape == (31, 0)
+    with pytest.raises(ValueError, match="int32"):
+        gp.gather_pack(bad.long(), 0, 3, vcat, table, is_vf, 0.0, TOL)
+    with pytest.raises(ValueError, match="compensated"):
+        gp.gather_pack(bad, 0, 3, vcat.double(), table.double(), is_vf, 0.0, TOL, True)
+    with pytest.raises(ValueError, match="outside"):
+        gp.gather_pack(bad, 2, 4, vcat, table, is_vf, 0.0, TOL)
+
+
+@pytest.mark.parametrize("kind", ["f32", "f64", "widened"])
+def test_solver_kernel_reads_column_slices_and_skips_when_done(cuda, kind):
+    """Kernel B on a slice of a wider column buffer (a pool block) equals
+    it on contiguous rows: the round-limited pass seeded with the final TOI
+    (unfinished rows and checks fixed by each query's order) and the
+    global TOI; ``skip_if_done`` with a seed of 0 evaluates nothing and
+    with a positive seed changes nothing."""
+    rows, valid = _rows_kind(cuda, False, kind)
+    widened = kind == "widened"
+    q = rows.shape[0]
+    wide = torch.full((31, q + 100), float("nan"), dtype=rows.dtype, device=cuda)
+    wide[:, 37:37 + q] = rows.t()
+    cols = wide[:, 37:37 + q]
+    final, _, _ = solver.solve_packed(rows, valid, False, 1.0, TOL, widened=widened)
+    t, _, _ = solver.solve_cols(cols, valid, False, 1.0, TOL, widened=widened)
+    assert float(t) == float(final)
+    for skip in (False, True):
+        k = solver.solve_cols(cols, valid, False, final, TOL, round_limit=30, widened=widened,
+                              skip_if_done=skip)
+        p = solver.solve_packed_reference(rows, valid, False, final, TOL, round_limit=30,
+                                          widened=widened)
+        assert torch.equal(k[3], p[3]) and int(k[2]) == int(p[2]) > 0
+    for kw in (dict(), dict(round_limit=30), dict(max_iterations=100)):
+        z = solver.solve_cols(cols, valid, False, 0.0, TOL, widened=widened, skip_if_done=True,
+                              **kw)
+        assert float(z[0]) == 0.0 and not bool(z[1]) and int(z[2]) == 0
+        if "round_limit" in kw:
+            assert not z[3].any()
+        neg = torch.tensor(-0.0, dtype=rows.dtype, device=cuda)
+        assert int(solver.solve_cols(cols, valid, False, neg, TOL, widened=widened,
+                                     skip_if_done=True, **kw)[2]) == 0
+
+
+def test_fused_launches_gather_pack_every_batch(cuda):
+    """Every narrow batch of ``fused_ccd`` packs through kernel C: one
+    launch per batch of each phase (and the presample's)."""
+    s = _scene()
+    args = (s.vertices_t0, s.vertices_t1, s.edges, s.faces)
+    before = dict(gp.LAUNCHES_BY_MODE)
+    res = fused_ccd(*args, device=cuda, narrow_batch=256, presample=False)
+    torch.cuda.synchronize()
+    for mode, total in (("vf", res.vf_total), ("ee", res.ee_total)):
+        assert gp.LAUNCHES_BY_MODE[mode] - before[mode] == -(-int(total) // 256)
+    ref = fused_ccd(*args, device="cpu", narrow_batch=256, presample=False)
+    assert float(res.toi) == pytest.approx(float(ref.toi), abs=1e-7)

@@ -1,0 +1,189 @@
+"""The narrow loop's decisions on the device, on the CPU.
+
+``fused_ccd`` keeps the loop's choices in device scalars (module docstring
+of ``pipeline/fused.py``): the frame pool's pool / solve-now / pool-full
+choice, the batch ladder's skip / small / full choice and the ``toi > 0``
+exit (kernel B's ``skip_if_done``).  Each case forces one branch with
+``escalate_rounds`` 0 (every row unfinished after its first pass) or a
+limit no row reaches, and a small ``narrow_batch``, records every kernel B
+call of the frame (rows, valid rows, round limit, seed, checks) to show
+that the branch ran, and holds the frame to JAX ``fused_ccd`` on the same
+scene: TOI within ``abs=1e-7``, pair totals exact.  The JAX frame runs once
+(its CPU path, the XLA sweep and queue solver); no Pallas interpret call.
+Last, the exit on the golden ``dense-cluster`` scene in f32, whose TOI is 0:
+the batches after the TOI reached 0 add no checks.
+"""
+
+import os
+
+import jax.numpy as jnp
+import pytest
+import torch
+
+from scalable_ccd_tpu.geometry import scenes as jscenes
+from scalable_ccd_tpu.pipeline.fused import fused_ccd as jax_fused_ccd
+from scalable_ccd_tpu_torch import fused_ccd
+from scalable_ccd_tpu_torch.geometry import edges_from_faces, read_ply
+from scalable_ccd_tpu_torch.ops import solver
+from scalable_ccd_tpu_torch.pipeline import fused as port_fused
+
+torch.set_num_threads(2)
+
+CPU = dict(device="cpu")
+PB = solver.POOL_BLOCK
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+
+
+@pytest.fixture(scope="module")
+def scene():
+    """``cloth_on_sphere(36, 2)``: 3,273 VF and 10,392 EE candidates, so an
+    EE batch of 16,384 holds more unfinished rows than the ladder's pool
+    (four pool blocks, 8,192 rows)."""
+    s = jscenes.cloth_on_sphere(grid_n=36, sphere_subdiv=2, drop=0.3, seed=1)
+    return (s.vertices_t0, s.vertices_t1, s.edges, s.faces)
+
+
+@pytest.fixture(scope="module")
+def reference(scene):
+    return jax_fused_ccd(*scene, dtype=jnp.float32)
+
+
+@pytest.fixture
+def launches(monkeypatch):
+    """Every kernel B call of the frames run in the test, in order: a dict
+    of its rows ``q``, valid rows, round limit, ``skip_if_done``, seed and
+    checks."""
+    calls = []
+    real = solver.solve_cols
+
+    def recorded(cols, valid, is_vf, toi_init, *a, round_limit=-1, skip_if_done=False,
+                 **kw):
+        out = real(cols, valid, is_vf, toi_init, *a, round_limit=round_limit,
+                   skip_if_done=skip_if_done, **kw)
+        calls.append({"q": cols.shape[1], "valid": int(valid.sum()), "is_vf": is_vf,
+                      "round_limit": round_limit, "skip": skip_if_done,
+                      "seed": float(toi_init), "checks": int(out[2])})
+        return out
+
+    monkeypatch.setattr(solver, "solve_cols", recorded)
+    monkeypatch.setattr(port_fused, "solve_cols", recorded)
+    return calls
+
+
+def _same_as_jax(res, ref):
+    assert not bool(res.overflowed) and not bool(ref.overflowed)
+    assert float(res.toi) == pytest.approx(float(ref.toi), abs=1e-7)
+    assert (int(res.vf_total), int(res.ee_total)) == (int(ref.vf_total), int(ref.ee_total))
+    assert not bool(res.solver_capped)
+
+
+def _unbounded(calls):
+    """The unbounded calls of a frame pool run: the solve-now passes (made
+    whatever the TOI) and the pool's blocks (which skip once it is 0)."""
+    free = [c for c in calls if c["round_limit"] < 0]
+    return [c for c in free if not c["skip"]], [c for c in free if c["skip"]]
+
+
+@pytest.mark.parametrize("branch", ["pool", "solve_now", "pool_full"])
+def test_frame_pool_branches_match_jax(scene, reference, launches, monkeypatch, branch):
+    """``pool``: batches of 1,024 unfinished rows join the pool, whose
+    blocks are solved after the loop; ``solve_now``: batches of more than
+    one pool block are solved at once; ``pool_full``: a pool of 2,048 rows
+    fills after three batches of 1,024 in each phase, and later batches are
+    solved at once."""
+    batch = {"pool": 1024, "solve_now": 4096, "pool_full": 1024}[branch]
+    if branch == "pool_full":
+        monkeypatch.setattr(port_fused, "_FRAME_POOL_MIN", PB)
+    res = fused_ccd(*scene, escalate_rounds=0, escalate_pool="frame", narrow_batch=batch,
+                    presample=False, **CPU)
+    _same_as_jax(res, reference)
+    now, blocks = _unbounded(launches)
+    assert sum(c["checks"] for c in launches) == int(res.total_checks)
+    assert all(c["round_limit"] == 0 and c["skip"] for c in launches if c["round_limit"] >= 0)
+    solved_now = [c["valid"] for c in now if c["valid"]]
+    pooled = sum(c["valid"] for c in blocks)
+    if branch == "pool":
+        assert not solved_now and pooled == int(res.vf_total) + int(res.ee_total)
+        assert all(c["q"] <= PB and c["valid"] == c["q"] for c in blocks)
+    elif branch == "solve_now":
+        assert not blocks and min(solved_now) > PB
+    else:
+        assert pooled == 2 * 3 * 1024 and solved_now and max(solved_now) <= PB
+
+
+@pytest.mark.parametrize("branch", ["skip", "small", "full"])
+def test_batch_ladder_branches_match_jax(scene, reference, launches, branch):
+    """``skip``: no row is left after a first pass of 10^6 rounds, and both
+    second passes have no valid row; ``small``: a batch's unfinished rows
+    (at most four pool blocks) are pooled into one block-aligned pass;
+    ``full``: the EE batch of 10,392 unfinished rows is solved over the
+    batch."""
+    rounds, batch = {"skip": (1 << 20, 1024), "small": (0, 1024), "full": (0, 1 << 14)}[branch]
+    res = fused_ccd(*scene, escalate_rounds=rounds, escalate_pool="batch", narrow_batch=batch,
+                    presample=False, **CPU)
+    _same_as_jax(res, reference)
+    assert sum(c["checks"] for c in launches) == int(res.total_checks)
+    firsts = [i for i, c in enumerate(launches) if c["round_limit"] >= 0]
+    assert firsts and all(launches[i]["skip"] for i in firsts)
+    for i in firsts:
+        first, small, full = launches[i:i + 3]
+        assert small["round_limit"] < 0 and full["round_limit"] < 0
+        assert small["q"] == min(4 * PB, -(-first["q"] // PB) * PB) and full["q"] == first["q"]
+        if branch == "skip":
+            assert small["valid"] == full["valid"] == 0
+        elif branch == "small":
+            assert small["valid"] == first["valid"] and full["valid"] == 0
+    if branch == "full":
+        ee = [launches[i:i + 3] for i in firsts if not launches[i]["is_vf"]]
+        assert len(ee) == 1 and ee[0][0]["q"] == int(res.ee_total) > 4 * PB
+        assert ee[0][1]["valid"] == 0 and ee[0][2]["valid"] == int(res.ee_total)
+
+
+@pytest.mark.parametrize("kw", [dict(escalate_rounds=0, presample=False),
+                                dict(escalate_pool="batch"), dict(escalate_rounds=-1)])
+def test_exit_on_device_after_toi_reaches_zero(launches, kw):
+    """``dense-cluster`` in f32 collapses to a TOI of 0, in the sixth EE
+    batch of 256; from then on every launch that the JAX loop's ``toi > 0``
+    guards is skipped on the device and adds no checks: the first pass of
+    every later batch (the batch ladder, the plain loop), or the pool's
+    later block (the frame pool, where every row is pooled), and the
+    frame's checks are those of the launches before."""
+    v0, f = read_ply(os.path.join(GOLDEN, "dense-cluster", "frames", "f0.ply"))
+    v1, _ = read_ply(os.path.join(GOLDEN, "dense-cluster", "frames", "f1.ply"))
+    res = fused_ccd(v0, v1, edges_from_faces(f), f, narrow_batch=256, **kw, **CPU)
+    assert float(res.toi) == 0.0 and not bool(res.overflowed)
+    zero = next(i for i, c in enumerate(launches) if c["seed"] <= 0)
+    later = [c for c in launches[zero:] if c["skip"]]
+    assert later and all(c["checks"] == 0 for c in later)
+    assert len(later) >= (1 if "presample" in kw else 8)
+    assert sum(c["checks"] for c in launches) == int(res.total_checks)
+
+
+@pytest.mark.parametrize("branch", ["small", "full"])
+def test_batch_ladder_of_two_stages_matches_jax(scene, reference, launches, branch):
+    """A ladder ``(0, 2)`` makes every stage's choice on the device: each
+    batch's first pass, then the rest of the ladder over the ``K``-row pool
+    (a pass of 2 rounds and its own pool and unbounded passes), then the
+    unbounded pass over the batch.  ``small``: batches of 1,024 are pooled
+    and the ladder's second stage solves them; ``full``: the EE batch of
+    10,392 unfinished rows overflows the pool, is solved over the batch,
+    and the second stage has no valid row."""
+    batch = {"small": 1024, "full": 1 << 14}[branch]
+    res = fused_ccd(*scene, escalate_rounds=(0, 2), escalate_pool="batch", narrow_batch=batch,
+                    presample=False, **CPU)
+    _same_as_jax(res, reference)
+    assert sum(c["checks"] for c in launches) == int(res.total_checks)
+    firsts = [i for i, c in enumerate(launches) if c["round_limit"] == 0]
+    assert firsts and len(launches) == 5 * len(firsts)
+    for i in firsts:
+        first, inner, inner_small, inner_full, full = launches[i:i + 5]
+        pool = min(4 * PB, -(-first["q"] // PB) * PB)
+        assert first["skip"] and not any(c["skip"] for c in (inner, inner_small, inner_full, full))
+        assert inner["round_limit"] == 2
+        assert all(c["round_limit"] < 0 for c in (inner_small, inner_full, full))
+        assert inner["q"] == inner_small["q"] == inner_full["q"] == pool
+        assert full["q"] == first["q"]
+        overflows = first["valid"] > pool
+        assert inner["valid"] == (0 if overflows else first["valid"])
+        assert full["valid"] == (first["valid"] if overflows else 0)
+        assert overflows == (branch == "full" and not first["is_vf"])
