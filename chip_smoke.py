@@ -117,15 +117,19 @@ when it fails:
     counts in every rank, and each rank's ms per frame; the host broad
     phase's f64 pair sets on the bench scene equal to kernel A's;
 17. the narrow loop on the device: kernel C (gather and pack) against its
-    plain version, bitwise, on every 16,384-row batch of the bench scene's
-    VF and EE candidates (kernel A's buffer, read at each batch's offset) in
-    f32, f64 and compensated, and on grid-600's (the congestion ordering)
-    in f32, all timed; the synchronizing calls of one frame
+    plain twins, bitwise, on every chunk of at most 2^20 rows of the bench
+    scene's and grid-600's (the congestion ordering) VF and EE candidates,
+    in f32, f64 and compensated, in both modes: the pairs mode on kernel
+    A's buffer and the records mode on kernel A''s records of the same
+    boxes (the rows and the pairs' ids); each mode timed over a phase's
+    chunks with its bound; a CUDA records frame of the bench scene and of
+    grid-600 with every PyTorch record decode counted (there must be none);
+    the synchronizing calls of one frame
     (``torch.cuda.set_sync_debug_mode("warn")``) of the bench scene (the
     frame pool) and grid-600 (the batch ladder) at ``narrow_batch`` 16,384
-    and 4,096, which must be equal, with kernel C launched for every batch;
-    the device idle share of one bench frame from a ``torch.profiler``
-    trace;
+    and 4,096, which must be equal, with kernel C launched once per chunk of
+    whole batches and for the presample; the device idle share of one bench
+    frame from a ``torch.profiler`` trace;
 last, grid-1000 in f32 timed once.
 
 Each kernel row carries its bound: the least time the card could take,
@@ -149,13 +153,15 @@ and kernel and plain version share.  In f64 a box is 64 bytes and a query row 24
 and the card's non-tensor f64 rate is half its f32 rate: 33.5e12 operations
 and 16.75e12 compares per second.  ``count_only`` moves no pair bytes.  No
 single PyTorch call computes a sweep or a root search, so ``library_ms`` is
-null.  Kernel C (gather and pack) moves 8 bytes of ids and 31 row scalars
-per row (132 bytes in f32, 256 in f64 and compensated), and each table row
-that the frame references once (a vertex's 6 and a face's 18 scalars, or an
-edge's 12: the many candidates that share a row repeat its reads, and a
-scene's tables fit in the card's L2), counted from this run's pairs, and
-does about 400 operations per row; it replaces the XLA-fused glue of ``pack_query_rows`` (no Pallas kernel), and
-no single PyTorch call computes it.
+null.  Kernel C (gather and pack) moves 31 row scalars per row (124 bytes in
+f32, 248 in f64 and compensated) and 8 bytes of ids per row or, in the
+records mode, 32 bytes of record and 8 of pair prefix per record the rows
+lie in, and each table row that the frame references once (a vertex's 6
+and a face's 18 scalars, or an edge's 12: the many candidates that share a
+row repeat its reads, and a scene's tables fit in the card's L2), counted
+from this run's pairs, and does about 400 operations per row; it replaces
+the XLA-fused glue of ``pack_query_rows`` and of the record decode (no
+Pallas kernel), and no single PyTorch call computes it.
 
 The last lines are the kernels' JSON record (one row per kernel and mode),
 the ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -707,6 +713,12 @@ def main():
         {"name": "gather_pack[compensated]", **pack,
          "launches": launched("fused_compensated", "gather_compensated"),
          **loop["compensated"]["both"]},
+        # the records mode: launches of grid-600's records frame (phase 11),
+        # times over grid-600's chunks (phase 17)
+        {"name": "gather_pack[records]", **pack,
+         "replaces": "scalable_ccd_tpu/ops/pallas_sweep_ap.py:1521",
+         "launches": congested["records_counts"]["gather_records"],
+         **loop["grid600_f32"]["records"]},
     ]}))
     emit(phase="done", wall_seconds=time.perf_counter() - T_START)
     print(f"host: {cpu_model}, {cpu_count} CPUs")
@@ -1455,32 +1467,47 @@ def phase_grid1000(torch, dev, cloth_on_sphere):
 
 # ---- 17. the narrow loop on the device ---------------------------------------------
 
-def pack_bound(torch, pairs, is_vf, in_bytes, out_bytes):
+def pack_bound(torch, pairs, is_vf, in_bytes, out_bytes, records=0):
     """The bound of kernel C packing every row of ``pairs`` (the frame's
     ``(n, 2)`` ids) from tables of ``in_bytes``-byte scalars into
-    ``out_bytes``-byte row scalars: each row's two ids (8 B) and 31 row
-    scalars, and each table row the frame references read once (a vertex's
-    6 and a face's 18 scalars, or an edge's 12: a row shared by many
-    candidates is a repeat the caches serve), and OPS_PER_PACKED_ROW
-    operations per row at the input type's rate."""
+    ``out_bytes``-byte row scalars: each row's 31 row scalars and its two
+    ids (8 B) or, in the records mode, each of the ``records`` records the
+    rows lie in read once (32 B) with its entry of the pair prefix (8 B),
+    and each table row the frame references read once (a vertex's 6 and a
+    face's 18 scalars, or an edge's 12: a row shared by many candidates is
+    a repeat the caches serve), and OPS_PER_PACKED_ROW operations per row
+    at the input type's rate."""
     rows = pairs.shape[0]
     if is_vf:
         table_scalars = (6 * torch.unique(pairs[:, 0]).numel()
                          + 18 * torch.unique(pairs[:, 1]).numel())
     else:
         table_scalars = 12 * torch.unique(pairs).numel()
-    return bound(rows * (8 + 31 * out_bytes) + table_scalars * in_bytes,
+    ids = records * (RECORD_BYTES + 8) if records else rows * PAIR_BYTES
+    return bound(rows * 31 * out_bytes + ids + table_scalars * in_bytes,
                  rows * OPS_PER_PACKED_ROW, F32_OPS_PER_S / (in_bytes // 4))
 
 
+def same_bits(k, p):
+    """Equal dtype, shape and bits."""
+    import torch
+
+    ints = {torch.float64: torch.int64, torch.float32: torch.int32}.get(k.dtype, k.dtype)
+    return k.dtype == p.dtype and k.shape == p.shape and torch.equal(
+        k.contiguous().view(ints), p.contiguous().view(ints))
+
+
 def phase_narrow_loop(torch, dev, bench_scene, grid600_scene):
-    """Kernel C against its plain version on the main path's batches, the
-    host syncs per frame at two batch sizes, and the idle share of a bench
-    frame.  Returns the kernel rows' fields per type and phase."""
+    """Kernel C's two modes against their plain twins on every chunk of the
+    main path (bench and grid-600, f32, f64 and compensated), each timed
+    with its bound; a CUDA records frame makes no per-batch decode; the host
+    syncs and kernel C launches per frame at two batch sizes; the idle
+    share of a bench frame.  Returns the kernel rows' fields per scene,
+    type and phase."""
     from scalable_ccd_tpu_torch import fused_ccd
     from scalable_ccd_tpu_torch.narrow_phase import types
     from scalable_ccd_tpu_torch.ops import gather_pack as gp
-    from scalable_ccd_tpu_torch.ops import sweep_ap
+    from scalable_ccd_tpu_torch.ops import sweep_ap, sweep_records
     from scalable_ccd_tpu_torch.pipeline.fused import sorted_phases
     from scalable_ccd_tpu_torch.tools import stages
 
@@ -1489,62 +1516,129 @@ def phase_narrow_loop(torch, dev, bench_scene, grid600_scene):
              "compensated": (torch.float32, True)}
 
     def candidates(args, dtype, bucket):
-        """``{phase: (is_vf, pairs buffer, n, vcat, table)}`` of the main
-        path's sweep (kernel A) in ``dtype``."""
+        """``{phase: (is_vf, sorted boxes, pairs buffer, n, records, n_held,
+        vcat, table)}`` of the main path's sweeps in ``dtype``: kernel A's
+        pairs and kernel A''s records of the same sorted boxes."""
         v0, v1, e, f = args
         vf_sb, ee_sb = sorted_phases(v0, v1, e, f, 0.0, dtype, bucket)
         vcat = types.concat_frames(v0, v1, dtype)
         out = {}
         for ph, is_vf, sb in (("vf", True, vf_sb), ("ee", False, ee_sb)):
-            planes = sweep_ap.partner_planes(sb) if bucket else None
-            total = int(sweep_ap.sweep_pairs(sb, is_vf, count_only=True, any_order=bucket,
-                                             planes=planes))
-            buf, n, _, ovf = sweep_ap.sweep_pairs(sb, is_vf, pow2ceil(total), any_order=bucket,
-                                                  planes=planes)
+            kw = dict(any_order=bucket, planes=sweep_ap.partner_planes(sb) if bucket else None)
+            total = int(sweep_ap.sweep_pairs(sb, is_vf, count_only=True, **kw))
+            buf, n, _, ovf = sweep_ap.sweep_pairs(sb, is_vf, pow2ceil(total), **kw)
             check(not bool(ovf) and int(n) == total, f"narrow loop {ph}: sweep overflowed")
+            rec, n_rec, n_pairs, r_ovf = sweep_records.sweep_records(sb, is_vf, pow2ceil(total),
+                                                                     **kw)
+            check(not bool(r_ovf) and int(n_pairs) == total,
+                  f"narrow loop {ph}: the record sweep overflowed")
             table = (types.pack_face_table(vcat, f) if is_vf
                      else types.pack_edge_table(vcat, e))
-            out[ph] = (is_vf, buf, total, vcat, table)
+            out[ph] = (is_vf, sb, buf, total, rec, min(int(n_rec), rec.shape[0]), vcat, table)
         return out
 
+    def chunks_of(n):
+        return [(c, min(c + gp.CHUNK_ROWS, n)) for c in range(0, n, gp.CHUNK_ROWS)]
+
     def kernel_c(label, cands, comp):
-        """Every batch bitwise, then the kernel (device ms behind a sleep)
-        and the plain version (host-clock ms around a synchronize) timed
-        over all batches of each phase."""
+        """Every chunk of both modes bitwise (the records mode's ids too),
+        then each mode (device ms behind a sleep) and its plain twin
+        (host-clock ms around a synchronize) timed over a phase's chunks."""
         rows = {}
-        for ph, (is_vf, buf, n, vcat, table) in cands.items():
-            cuts = [(s, min(s + BATCH, n)) for s in range(0, n, BATCH)]
+        for ph, (is_vf, sb, buf, n, rec, held, vcat, table) in cands.items():
+            in_b = vcat.element_size()
+            out_b = 8 if comp else in_b
+            cuts = chunks_of(n)
             for a, b in cuts:
                 k = gp.gather_pack(buf, a, b, vcat, table, is_vf, 0.0, TOL, comp)
                 torch.cuda.synchronize()
                 p = gp.gather_pack_reference(buf, a, b, vcat, table, is_vf, 0.0, TOL, comp)
-                ints = torch.int64 if k.dtype == torch.float64 else torch.int32
-                check(k.dtype == p.dtype and torch.equal(k.view(ints), p.view(ints)),
+                check(same_bits(k, p),
                       f"kernel C {label} {ph} rows [{a}, {b}): not bitwise the plain version")
             run = lambda f: [f(buf, a, b, vcat, table, is_vf, 0.0, TOL, comp)  # noqa: E731
                              for a, b in cuts]
-            ms = device_ms(lambda: run(gp.gather_pack), 5)
-            plain_ms = cuda_ms(lambda: run(gp.gather_pack_reference), 3)
-            in_b = vcat.element_size()
-            rows[ph] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                        **pack_bound(torch, buf[:n], is_vf, in_b, 8 if comp else in_b)}
-            emit(phase="narrow_loop_kernel_c", which=label, phase_name=ph, queries=n,
-                 batches=len(cuts), bitwise=True, **rows[ph])
-        both = {k: rows["vf"][k] + rows["ee"][k] for k in ("ms", "plain_ms", "bound_ms")}
-        rows["both"] = {"max_abs_err": 0.0, **both, "bound_by": rows["vf"]["bound_by"]}
+            rows[ph] = {"max_abs_err": 0.0, "ms": device_ms(lambda: run(gp.gather_pack), 5),
+                        "plain_ms": cuda_ms(lambda: run(gp.gather_pack_reference), 3),
+                        **pack_bound(torch, buf[:n], is_vf, in_b, out_b)}
+            emit(phase="narrow_loop_kernel_c", which=label, phase_name=ph, mode="pairs",
+                 queries=n, chunks=len(cuts), bitwise=True, **rows[ph])
+
+            cum = sweep_records.records_pair_prefix(rec, held)
+            check(int(cum[-1]) == n, f"kernel C {label} {ph}: record pairs {int(cum[-1])} "
+                  f"vs {n}")
+            width = min(gp.CHUNK_ROWS, n)
+            ids_k = torch.empty((width, 2), dtype=torch.int32, device=dev)
+            ids_p = torch.empty_like(ids_k)
+            decoded = []
+            for a, b in cuts:
+                k = gp.gather_pack_records(sb, rec, cum, a, b, vcat, table, is_vf, 0.0, TOL, comp,
+                                           pairs_out=ids_k)
+                torch.cuda.synchronize()
+                p = gp.gather_pack_records_reference(sb, rec, cum, a, b, vcat, table, is_vf,
+                                                     0.0, TOL, comp, pairs_out=ids_p)
+                check(same_bits(k, p) and torch.equal(ids_k[:b - a], ids_p[:b - a]),
+                      f"kernel C records {label} {ph} pairs [{a}, {b}): not bitwise the "
+                      "plain twin")
+                decoded.append(ids_p[:b - a].clone())
+            run_r = lambda f: [f(sb, rec, cum, a, b, vcat, table, is_vf, 0.0,  # noqa: E731
+                                 TOL, comp) for a, b in cuts]
+            rows[ph + "_records"] = {
+                "max_abs_err": 0.0, "ms": device_ms(lambda: run_r(gp.gather_pack_records), 5),
+                "plain_ms": cuda_ms(lambda: run_r(gp.gather_pack_records_reference), 3),
+                **pack_bound(torch, torch.cat(decoded), is_vf, in_b, out_b, records=held)}
+            emit(phase="narrow_loop_kernel_c", which=label, phase_name=ph, mode="records",
+                 queries=n, records=held, chunks=len(cuts), bitwise=True,
+                 **rows[ph + "_records"])
+        for name, keys in (("both", ("vf", "ee")), ("records", ("vf_records", "ee_records"))):
+            both = {k: rows[keys[0]][k] + rows[keys[1]][k] for k in ("ms", "plain_ms", "bound_ms")}
+            rows[name] = {"max_abs_err": 0.0, **both, "bound_by": rows[keys[0]]["bound_by"]}
         return rows
 
     out = {}
-    for label, (dtype, comp) in kinds.items():
-        args = scene_on(torch, dev, bench_scene, torch.float64 if dtype == torch.float64
-                        else None)
-        out[label] = kernel_c(label, candidates(args, dtype, False), comp)
+    for scene_name, scene, bucket in (("", bench_scene, False), ("grid600_", grid600_scene, True)):
+        for label, (dtype, comp) in kinds.items():
+            args = scene_on(torch, dev, scene, torch.float64 if dtype == torch.float64 else None)
+            out[scene_name + label] = kernel_c(scene_name + label,
+                                               candidates(args, dtype, bucket), comp)
+            del args
     grid600 = scene_on(torch, dev, grid600_scene)
-    out["grid600"] = kernel_c("grid600_f32", candidates(grid600, torch.float32, True), False)
+
+    # a CUDA records frame decodes no batch in PyTorch: every module of the
+    # package that holds the decode calls a counting wrapper meanwhile
+    real_decode = sweep_records.decode_records_range
+    decodes = [0]
+
+    def counted_decode(*a, **kw):
+        decodes[0] += 1
+        return real_decode(*a, **kw)
+
+    holders = [m for name, m in list(sys.modules.items())
+               if name.startswith("scalable_ccd_tpu_torch")
+               and getattr(m, "decode_records_range", None) is real_decode]
+    bench = scene_on(torch, dev, bench_scene)
+    records_frames = {}
+    try:
+        for m in holders:
+            m.decode_records_range = counted_decode
+        for name, args in (("bench", bench), ("grid600", grid600)):
+            zero_counts()
+            res = fused_ccd(*args, device=dev, validate=False, sweep_impl="records")
+            torch.cuda.synchronize()
+            counts = read_counts()
+            check(decodes[0] == 0, f"{name} records frame: {decodes[0]} PyTorch decodes")
+            check(counts["gather_records"] > 0 and not bool(res.overflowed),
+                  f"{name} records frame: kernel C's records mode did not launch: {counts}")
+            records_frames[name] = counts["gather_records"]
+            emit(phase="narrow_loop_records_frame", scene=name, toi_hex=float(res.toi).hex(),
+                 pytorch_decodes=decodes[0], kernel_c_records_launches=counts["gather_records"],
+                 kernel_c_launches=counts["gather_f32"] + counts["gather_f64"])
+    finally:
+        for m in holders:
+            m.decode_records_range = real_decode
 
     # host syncs per frame: the frame pool (bench) and the batch ladder
-    # (grid-600) at two batch sizes, kernel C launched for every batch
-    bench = scene_on(torch, dev, bench_scene)
+    # (grid-600) at two batch sizes; kernel C launched once per chunk of
+    # whole batches (and for the presample)
     syncs = {}
     for name, args in (("bench", bench), ("grid600", grid600)):
         for batch in (BATCH, BATCH >> 2):
@@ -1555,14 +1649,16 @@ def phase_narrow_loop(torch, dev, bench_scene, grid600_scene):
             res, n, sites = stages.count_syncs(run)
             torch.cuda.synchronize()
             packs = gp.LAUNCHES
-            need = -(-int(res.vf_total) // batch) - (-int(res.ee_total) // batch)
-            check(packs >= need, f"{name} narrow_batch={batch}: {packs} kernel C launches "
-                  f"for {need} batches")
+            chunk = gp.chunk_rows(batch)
+            need = -(-int(res.vf_total) // chunk) - (-int(res.ee_total) // chunk)
+            check(need <= packs <= need + 2, f"{name} narrow_batch={batch}: {packs} kernel C "
+                  f"launches for {need} chunks")
             check(not bool(res.overflowed), f"{name} narrow_batch={batch}: overflowed")
             syncs[name, batch] = (n, float(res.toi).hex())
             emit(phase="narrow_loop_syncs", scene=name, narrow_batch=batch, syncs=n,
-                 sites=sites, kernel_c_launches=packs, batches=need, toi_hex=float(res.toi).hex(),
-                 vf_total=int(res.vf_total), ee_total=int(res.ee_total))
+                 sites=sites, kernel_c_launches=packs, chunks=need,
+                 toi_hex=float(res.toi).hex(), vf_total=int(res.vf_total),
+                 ee_total=int(res.ee_total))
         check(syncs[name, BATCH] == syncs[name, BATCH >> 2],
               f"{name}: syncs and TOI per frame differ between batch sizes: "
               f"{syncs[name, BATCH]} vs {syncs[name, BATCH >> 2]}")
@@ -1574,6 +1670,7 @@ def phase_narrow_loop(torch, dev, bench_scene, grid600_scene):
     res, stats = stages.idle_share(run)
     emit(phase="narrow_loop_idle", scene="cloth_on_sphere(128, 4, drop=0.25)",
          toi=float(res.toi), **stats, seconds=time.perf_counter() - t_phase)
+    out["records_frames"] = records_frames
     return out
 
 

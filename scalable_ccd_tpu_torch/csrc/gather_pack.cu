@@ -1,26 +1,62 @@
-// Kernel C: gather, tolerance, error filter and pack of one narrow batch,
-// written straight into kernel B's column layout.
+// Kernel C: gather, tolerance, error filter and pack of a run of candidate
+// pairs, written straight into kernel B's column layout.
 //
 // Replaces: the glue the JAX package runs inside its jitted narrow batch
 // (scalable_ccd_tpu/pipeline/fused.py, run_solver and run_bounded, which
 // gather with narrow_phase/types.py:gather_vf_queries / gather_ee_queries
 // and pack with ops/pallas_solver.py:pack_query_rows), XLA-fused code there
-// and no Pallas kernel.  Its plain twin is ops/gather_pack.py:
-// gather_pack_reference (narrow_phase/types.py and ops/solver.py:
-// pack_query_rows, transposed).
+// and no Pallas kernel; and, in its records mode, the record decode of
+// ops/pallas_sweep_ap.py:decode_records_range (XLA code too).  Its plain
+// twins are ops/gather_pack.py:gather_pack_reference (narrow_phase/types.py
+// and ops/solver.py:pack_query_rows, transposed) and, for the records mode,
+// ops/sweep_records.py:decode_records_range followed by it.
 //
-// What bounds it on an H100: bytes.  A row reads its two ids (8 B) and
-// writes 31 scalars (124 B in float, 248 B in double and for the
+// The narrow loop packs a phase's candidates in chunks of up to 2^20 rows,
+// one launch per chunk, and kernel B reads each narrow batch as a column
+// slice of its chunk (pipeline/fused.py, the streams).  Two modes:
+// - pairs: row i packs the element-id pair pairs[start + i] (kernel A's
+//   buffer);
+// - records: row i packs pair p = start + i of kernel A''s record stream:
+//   its record r is the first with cum[r] > p (cum the inclusive pair
+//   prefix, records_pair_prefix), found by a binary search over [p / 128,
+//   min(p, R - 1)] (a record holds 1 to 128 pairs), its bit the (p -
+//   cum[r - 1])-th set bit of the record's mask words, its pair (element
+//   ids of sorted slots rec[5] * 128 + bit and rec[4]) in the emit
+//   convention of broad_phase/sweep.py:emit_pairs; the ids are also written
+//   to pairs_out where the caller asks for them.  No cursor: every row finds
+//   its record alone, whatever order chunks and batches come in.
+//
+// What bounds it on an H100: bytes.  A row reads its two ids (8 B; in the
+// records mode its record, 32 B, and cum, 8 B, are read about once per
+// record) and writes 31 scalars (124 B in float, 248 B in double and for the
 // compensated rows); the four points' both-frame endpoints (24 scalars a
 // row) are gathered from table rows that many candidates share, so the
 // least traffic reads each referenced vertex (6 scalars), face (18) or
-// edge (12) row once, and the scenes' tables fit in the 50 MB L2.  About
+// edge (12) row once, and the scenes' tables sit in the 50 MB L2.  About
 // 400 operations per row are 10x under the bytes at the card's rates.
-// chip_smoke.py (pack_bound) counts the bound from a frame's pairs.  The
-// design is the simple one: one
-// thread per row, the endpoint gathers as plain loads (one face or edge row
-// of 72 or 48 contiguous bytes per row), and the 31 stores of a row made
-// by neighbouring threads to neighbouring words of each column.
+// chip_smoke.py (pack_bound) counts the bound from a frame's pairs.
+//
+// The design aims at that byte bound:
+// - one launch packs a whole chunk (up to 2^20 rows) on a grid of as many
+//   256-thread blocks as the card holds at once (the occupancy calculator's
+//   count times the SMs), each thread walking rows with a 64-bit grid
+//   stride, so a phase costs a few launches and not one per 16,384-row
+//   batch;
+// - a thread reads the ids of its next row before it packs the current one,
+//   so each thread keeps two rows' gathers in flight, and the full grid
+//   keeps every SM's worth of threads on them;
+// - the pair ids are one 8-byte load; table rows come through the read-only
+//   path in 16-byte vector loads (a float face row of 72 bytes starts on 8
+//   or 16 bytes: four 16-byte loads and one 8-byte load, in the order its
+//   alignment allows; float edge rows, 48 bytes, and every double row are
+//   whole 16-byte loads);
+// - the 31 stores of a row go to 31 columns, so a warp's 32 neighbouring
+//   rows write 32 neighbouring words of each column.
+// TMA and cp.async are not used: TMA copies tiles of a regular array, and
+// these rows are scattered by runtime ids; staging them in shared memory
+// with cp.async would add a round trip with no reuse, since each gathered
+// row is used by the one thread that loads it.  The latency they would hide
+// is hidden by the rows in flight.
 //
 // Every value is bitwise the plain version's, in the plain version's order
 // of operations: the lerp (pe - ps) * t + ps at t = 0 and at t = 1; the
@@ -32,17 +68,21 @@
 // propagate NaN as torch.amax and torch.clamp do (fmaxf would drop it).
 // ms, the co-domain tolerance and k * eps come in already rounded to the
 // compute type, and the host decides use_ms on the rounded ms.
-// Three instantiations: float rows, double rows, and the compensated rows
-// (float arithmetic, written as double: exact).  -fmad=false keeps every
-// multiply and add separately rounded, as in the plain version.
+// Three instantiations per mode: float rows, double rows, and the
+// compensated rows (float arithmetic, written as double: exact).
+// -fmad=false keeps every multiply and add separately rounded, as in the
+// plain version.
 //
 // Plain C interface, bound with ctypes (ops/gather_pack.py).
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int kThreads = 256;  // rows per block, one per thread
+constexpr int kThreads = 256;  // threads per block
+constexpr int kRow = 128;      // sorted boxes per record a-row
 
 // max that returns NaN if either operand is NaN (torch.amax's rule)
 template <typename T>
@@ -62,6 +102,57 @@ __device__ __forceinline__ int clamp_id(int id, int n) {
   return id < 0 ? 0 : (id > n - 1 ? n - 1 : id);
 }
 
+// N floats of a table row (N even, the row 8-byte aligned): 16-byte loads
+// through the read-only path, an 8-byte load first where the row starts 8
+// bytes past a 16-byte boundary and last where one 8-byte unit is left
+template <int N>
+__device__ __forceinline__ void load_row(const float* __restrict__ r, float (&d)[N]) {
+  constexpr int U = N / 2;  // 8-byte units
+  if ((reinterpret_cast<uintptr_t>(r) & 15) == 0) {
+#pragma unroll
+    for (int u = 0; u + 1 < U; u += 2) {
+      const float4 x = __ldg(reinterpret_cast<const float4*>(r + 2 * u));
+      d[2 * u] = x.x;
+      d[2 * u + 1] = x.y;
+      d[2 * u + 2] = x.z;
+      d[2 * u + 3] = x.w;
+    }
+    if (U % 2) {
+      const float2 x = __ldg(reinterpret_cast<const float2*>(r + N - 2));
+      d[N - 2] = x.x;
+      d[N - 1] = x.y;
+    }
+  } else {
+    const float2 h = __ldg(reinterpret_cast<const float2*>(r));
+    d[0] = h.x;
+    d[1] = h.y;
+#pragma unroll
+    for (int u = 1; u + 1 < U; u += 2) {
+      const float4 x = __ldg(reinterpret_cast<const float4*>(r + 2 * u));
+      d[2 * u] = x.x;
+      d[2 * u + 1] = x.y;
+      d[2 * u + 2] = x.z;
+      d[2 * u + 3] = x.w;
+    }
+    if ((U - 1) % 2) {
+      const float2 x = __ldg(reinterpret_cast<const float2*>(r + N - 2));
+      d[N - 2] = x.x;
+      d[N - 1] = x.y;
+    }
+  }
+}
+
+// N doubles of a table row (N even, the row 16-byte aligned)
+template <int N>
+__device__ __forceinline__ void load_row(const double* __restrict__ r, double (&d)[N]) {
+#pragma unroll
+  for (int k = 0; k < N; k += 2) {
+    const double2 x = __ldg(reinterpret_cast<const double2*>(r + k));
+    d[k] = x.x;
+    d[k + 1] = x.y;
+  }
+}
+
 // F at corner (t, u, v) of the unit cube, coordinate d: p[k][0..2] is
 // point k at t=0, p[k][3..5] at t=1
 template <typename T, bool IS_VF>
@@ -74,36 +165,43 @@ __device__ __forceinline__ T residual(const T (&p)[4][6], int d, T t, T u, T v) 
   return ((q1 - q0) * u + q0) - ((q3 - q2) * v + q2);
 }
 
+// what every row of a launch shares
+template <typename T, typename OUT>
+struct Pack {
+  const T* vcat;   // (nv, 6) both-frame vertices
+  int nv;
+  const T* table;  // (nt, 18) faces when VF, (nt, 12) edges when EE
+  int nt;
+  T ms, co_tol, k_eps;
+  OUT* out;  // column k of row i at out[k * ld + i]
+  long long ld;
+};
+
+// gather the four points of the pair (a, b) and write its row i
 template <typename T, typename OUT, bool IS_VF>
-__global__ void __launch_bounds__(kThreads)
-    gather_pack_kernel(const int* __restrict__ pairs, long long start, int Q,
-                       const T* __restrict__ vcat, int nv,
-                       const T* __restrict__ table, int nt, T ms, T co_tol,
-                       T k_eps, OUT* __restrict__ out, long long ld) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= Q) return;
-  const int a = pairs[2 * (start + i)];
-  const int b = pairs[2 * (start + i) + 1];
+__device__ __forceinline__ void pack_row(int a, int b, const Pack<T, OUT>& c, long long i) {
   T p[4][6];
   if (IS_VF) {
-    const T* vr = vcat + (size_t)clamp_id(a, nv) * 6;
-    const T* fr = table + (size_t)clamp_id(b, nt) * 18;
+    T v[6], fr[18];
+    load_row<6>(c.vcat + (size_t)clamp_id(a, c.nv) * 6, v);
+    load_row<18>(c.table + (size_t)clamp_id(b, c.nt) * 18, fr);
 #pragma unroll
-    for (int c = 0; c < 6; ++c) {
-      p[0][c] = vr[c];
-      p[1][c] = fr[c];
-      p[2][c] = fr[6 + c];
-      p[3][c] = fr[12 + c];
+    for (int k = 0; k < 6; ++k) {
+      p[0][k] = v[k];
+      p[1][k] = fr[k];
+      p[2][k] = fr[6 + k];
+      p[3][k] = fr[12 + k];
     }
   } else {
-    const T* ar = table + (size_t)clamp_id(a, nt) * 12;
-    const T* br = table + (size_t)clamp_id(b, nt) * 12;
+    T ar[12], br[12];
+    load_row<12>(c.table + (size_t)clamp_id(a, c.nt) * 12, ar);
+    load_row<12>(c.table + (size_t)clamp_id(b, c.nt) * 12, br);
 #pragma unroll
-    for (int c = 0; c < 6; ++c) {
-      p[0][c] = ar[c];
-      p[1][c] = ar[6 + c];
-      p[2][c] = br[c];
-      p[3][c] = br[6 + c];
+    for (int k = 0; k < 6; ++k) {
+      p[0][k] = ar[k];
+      p[1][k] = ar[6 + k];
+      p[2][k] = br[k];
+      p[3][k] = br[6 + k];
     }
   }
 
@@ -140,11 +238,12 @@ __global__ void __launch_bounds__(kThreads)
       }
   }
   const T three = T(3);
-  const T tol0 = co_tol / (three * ext_t);
-  const T tol1 = IS_VF ? co_tol / (three * ext_u) : tol0;
-  const T tol2 = IS_VF ? co_tol / (three * ext_v) : co_tol / (three * ext_u);
+  const T tol0 = c.co_tol / (three * ext_t);
+  const T tol1 = IS_VF ? c.co_tol / (three * ext_u) : tol0;
+  const T tol2 = IS_VF ? c.co_tol / (three * ext_v) : c.co_tol / (three * ext_u);
 
-  OUT* col = out + i;
+  OUT* col = c.out + i;
+  const long long ld = c.ld;
   // the eight points: p0s p1s p2s p3s p0e p1e p2e p3e
 #pragma unroll
   for (int e = 0; e < 2; ++e)
@@ -165,54 +264,190 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < 2; ++e)
         if (k + e > 0) m = nan_max(m, abs_of(p[k][3 * e + d]));
     m = m < T(1) ? T(1) : m;  // clamp(min=1); NaN stays NaN
-    col[(size_t)(27 + d) * ld] = (OUT)(((m * m) * m) * k_eps);
+    col[(size_t)(27 + d) * ld] = (OUT)(((m * m) * m) * c.k_eps);
   }
-  col[(size_t)30 * ld] = (OUT)ms;
+  col[(size_t)30 * ld] = (OUT)c.ms;
 }
 
-template <typename T, typename OUT>
-void launch(int is_vf, cudaStream_t s, const void* pairs, long long start,
-            int Q, const void* vcat, int nv, const void* table, int nt,
-            double ms, double co_tol, double k_eps, void* out, long long ld) {
-  const int blocks = (Q + kThreads - 1) / kThreads;
-  if (is_vf)
-    gather_pack_kernel<T, OUT, true><<<blocks, kThreads, 0, s>>>(
-        (const int*)pairs, start, Q, (const T*)vcat, nv, (const T*)table, nt,
-        (T)ms, (T)co_tol, (T)k_eps, (OUT*)out, ld);
+// the pairs mode: row i is pairs[start + i], one 8-byte load
+struct PairIds {
+  const int2* pairs;
+  long long start;
+  __device__ __forceinline__ int2 operator()(long long i) const {
+    return __ldg(pairs + start + i);
+  }
+};
+
+// the records mode: row i is pair start + i of the record stream
+struct RecordIds {
+  const int4* records;  // record r: words 0-3 at [2r], words 4-7 at [2r + 1]
+  long long R;          // rows of the record buffer
+  const long long* cum;  // (R,) inclusive pair prefix
+  const int* element_id;  // (n_boxes,) of the sorted boxes
+  int n_boxes;
+  bool two_lists;
+  long long start;
+  int2* pairs_out;  // (Q, 2) ids of the rows, or null
+  __device__ __forceinline__ int2 operator()(long long i) const {
+    const long long p = start + i;
+    // the first r with cum[r] > p: every record holds 1 to 128 pairs, so
+    // it lies in [p / 128, p]
+    long long lo = p / kRow, hi = p < R - 1 ? p : R - 1;
+    while (lo < hi) {
+      const long long mid = (lo + hi) >> 1;
+      if (__ldg(cum + mid) > p) hi = mid;
+      else lo = mid + 1;
+    }
+    const long long r = lo < R ? lo : R - 1;  // lo < R for any p below the pair count
+    const long long k = p - (r > 0 ? __ldg(cum + r - 1) : 0);
+    const int4 w = __ldg(records + 2 * r);
+    const int4 x = __ldg(records + 2 * r + 1);
+    // the word holding the k-th set bit, and the set bits before it
+    const unsigned w0 = (unsigned)w.x, w1 = (unsigned)w.y, w2 = (unsigned)w.z;
+    const long long c0 = __popc(w0), c1 = c0 + __popc(w1), c2 = c1 + __popc(w2);
+    int g;
+    unsigned word;
+    long long before;
+    if (k < c0) {
+      g = 0, word = w0, before = 0;
+    } else if (k < c1) {
+      g = 1, word = w1, before = c0;
+    } else if (k < c2) {
+      g = 2, word = w2, before = c1;
+    } else {
+      g = 3, word = (unsigned)w.w, before = c2;
+    }
+    // the position of the kk-th set bit of the word, halving the window
+    unsigned kk = (unsigned)(k - before);
+    int bit = 0;
+#pragma unroll
+    for (int s = 16; s >= 1; s >>= 1) {
+      const unsigned low = word & ((1u << s) - 1u);
+      const unsigned n_low = (unsigned)__popc(low);
+      if (kk >= n_low) {
+        kk -= n_low;
+        word >>= s;
+        bit += s;
+      } else {
+        word = low;
+      }
+    }
+    const long long a_slot = (long long)x.y * kRow + g * 32 + bit;
+    const int ea = __ldg(element_id + clamp_id((int)a_slot, n_boxes));
+    const int eb = __ldg(element_id + clamp_id(x.x, n_boxes));
+    const int lo_id = ea < eb ? ea : eb, hi_id = ea < eb ? eb : ea;
+    const int2 ab = make_int2(two_lists ? -lo_id - 1 : lo_id, hi_id);
+    if (pairs_out) pairs_out[i] = ab;
+    return ab;
+  }
+};
+
+template <typename T, typename OUT, bool IS_VF, typename Ids>
+__global__ void __launch_bounds__(kThreads)
+    gather_pack_kernel(Ids ids, long long Q, Pack<T, OUT> c) {
+  const long long stride = (long long)gridDim.x * kThreads;
+  long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= Q) return;
+  int2 ab = ids(i);
+  for (;;) {
+    const long long next = i + stride;
+    // the next row's ids are in flight while this row packs
+    const int2 ab_next = next < Q ? ids(next) : ab;
+    pack_row<T, OUT, IS_VF>(ab.x, ab.y, c, i);
+    if (next >= Q) break;
+    i = next;
+    ab = ab_next;
+  }
+}
+
+// blocks of one launch: enough for every row, at most what the card holds
+// at once
+template <typename Kernel>
+int grid_for(Kernel kernel, long long Q) {
+  int dev = 0, sms = 1, per_sm = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  const long long full = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const long long need = (Q + kThreads - 1) / kThreads;
+  return (int)(need < full ? need : full);
+}
+
+template <typename T, typename OUT, typename Ids>
+void launch(int is_vf, cudaStream_t s, Ids ids, long long Q, const void* vcat, int nv,
+            const void* table, int nt, double ms, double co_tol, double k_eps, void* out,
+            long long ld) {
+  const Pack<T, OUT> c{(const T*)vcat, nv, (const T*)table, nt, (T)ms, (T)co_tol,
+                       (T)k_eps, (OUT*)out, ld};
+  if (is_vf) {
+    auto kernel = gather_pack_kernel<T, OUT, true, Ids>;
+    kernel<<<grid_for(kernel, Q), kThreads, 0, s>>>(ids, Q, c);
+  } else {
+    auto kernel = gather_pack_kernel<T, OUT, false, Ids>;
+    kernel<<<grid_for(kernel, Q), kThreads, 0, s>>>(ids, Q, c);
+  }
+}
+
+template <typename Ids>
+int dispatch(int kind, int is_vf, cudaStream_t s, Ids ids, long long Q, const void* vcat,
+             int nv, const void* table, int nt, double ms, double co_tol, double k_eps,
+             void* out, long long ld) {
+  if (kind == 0)
+    launch<float, float>(is_vf, s, ids, Q, vcat, nv, table, nt, ms, co_tol, k_eps, out, ld);
+  else if (kind == 1)
+    launch<double, double>(is_vf, s, ids, Q, vcat, nv, table, nt, ms, co_tol, k_eps, out,
+                           ld);
   else
-    gather_pack_kernel<T, OUT, false><<<blocks, kThreads, 0, s>>>(
-        (const int*)pairs, start, Q, (const T*)vcat, nv, (const T*)table, nt,
-        (T)ms, (T)co_tol, (T)k_eps, (OUT*)out, ld);
+    launch<float, double>(is_vf, s, ids, Q, vcat, nv, table, nt, ms, co_tol, k_eps, out,
+                          ld);
+  return (int)cudaGetLastError();
+}
+
+bool bad_args(long long Q, long long ld, int kind, int nv, int nt) {
+  return Q < 0 || ld < Q || kind < 0 || kind > 2 || nv < 1 || nt < 1;
 }
 
 }  // namespace
 
-// pairs: int32 (N, 2), rows start .. start + Q - 1 are packed.  vcat: (nv,
-// 6) both-frame vertices; table: the face table (nt, 18) when is_vf, else
-// the edge table (nt, 12); both in the compute type.  kind: 0 float rows,
-// 1 double rows, 2 compensated (float compute, double rows).  ms, co_tol
-// and k_eps (k * eps of the error filter, k = 30 or 28, plus 4 when ms > 0)
-// are exact in the compute type.  out: column k of row i at out[k * ld +
-// i], ld >= Q.  Returns the launch's CUDA error code (0 on success).
-extern "C" int sccd_gather_pack(const void* pairs, long long start, int Q,
-                                const void* vcat, int nv, const void* table,
-                                int nt, int is_vf, int kind, double ms,
-                                double co_tol, double k_eps, void* out,
-                                long long ld, void* stream) {
-  if (Q < 0 || ld < Q || kind < 0 || kind > 2 || nv < 1 || nt < 1)
+// The pairs mode.  pairs: int32 (N, 2), 8-byte aligned; rows start .. start
+// + Q - 1 are packed.  vcat: (nv, 6) both-frame vertices; table: the face
+// table (nt, 18) when is_vf, else the edge table (nt, 12); both in the
+// compute type and 16-byte aligned.  kind: 0 float rows, 1 double rows, 2
+// compensated (float compute, double rows).  ms, co_tol and k_eps (k * eps
+// of the error filter, k = 30 or 28, plus 4 when ms > 0) are exact in the
+// compute type.  out: column k of row i at out[k * ld + i], ld >= Q.
+// Returns the launch's CUDA error code (0 on success).
+extern "C" int sccd_gather_pack(const void* pairs, long long start, long long Q,
+                                const void* vcat, int nv, const void* table, int nt,
+                                int is_vf, int kind, double ms, double co_tol,
+                                double k_eps, void* out, long long ld, void* stream) {
+  if (bad_args(Q, ld, kind, nv, nt)) return (int)cudaErrorInvalidValue;
+  if (Q == 0) return 0;
+  return dispatch(kind, is_vf, (cudaStream_t)stream, PairIds{(const int2*)pairs, start}, Q,
+                  vcat, nv, table, nt, ms, co_tol, k_eps, out, ld);
+}
+
+// The records mode: pairs start .. start + Q - 1 of the record stream, each
+// below the stream's pair count.  records: int32 (R, 8), 16-byte aligned;
+// cum: int64 (R,), records_pair_prefix; element_id: int32 (n_boxes,) of the
+// sorted boxes; the pairs in the emit convention of two lists when is_vf
+// (VF), of one list otherwise (EE).  pairs_out: int32 (Q, 2) for the rows'
+// ids, or null.  The rest as for sccd_gather_pack.
+extern "C" int sccd_gather_pack_records(const void* records, long long R, const void* cum,
+                                        const void* element_id, int n_boxes,
+                                        long long start, long long Q, const void* vcat,
+                                        int nv, const void* table, int nt, int is_vf,
+                                        int kind, double ms, double co_tol, double k_eps,
+                                        void* out, long long ld, void* pairs_out,
+                                        void* stream) {
+  if (bad_args(Q, ld, kind, nv, nt) || start < 0 || (Q > 0 && (R < 1 || n_boxes < 1)))
     return (int)cudaErrorInvalidValue;
   if (Q == 0) return 0;
-  auto s = (cudaStream_t)stream;
-  if (kind == 0)
-    launch<float, float>(is_vf, s, pairs, start, Q, vcat, nv, table, nt, ms,
-                         co_tol, k_eps, out, ld);
-  else if (kind == 1)
-    launch<double, double>(is_vf, s, pairs, start, Q, vcat, nv, table, nt, ms,
-                           co_tol, k_eps, out, ld);
-  else
-    launch<float, double>(is_vf, s, pairs, start, Q, vcat, nv, table, nt, ms,
-                          co_tol, k_eps, out, ld);
-  return (int)cudaGetLastError();
+  const RecordIds ids{(const int4*)records, R, (const long long*)cum,
+                      (const int*)element_id, n_boxes, is_vf != 0, start,
+                      (int2*)pairs_out};
+  return dispatch(kind, is_vf, (cudaStream_t)stream, ids, Q, vcat, nv, table, nt, ms,
+                  co_tol, k_eps, out, ld);
 }
 
 extern "C" const char* sccd_gather_pack_error_string(int err) {

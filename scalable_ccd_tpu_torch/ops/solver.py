@@ -70,6 +70,7 @@ __all__ = [
     "normalize_round_limits",
     "LAUNCHES",
     "LAUNCHES_BY_MODE",
+    "MAX_STEPS",
     "POOL_BLOCK",
     "ROW_WIDTH",
 ]
@@ -89,6 +90,11 @@ POOL_BLOCK = 2048
 
 #: floats per packed query row: 8 endpoints, tol (3), err (3), ms
 ROW_WIDTH = 31
+
+#: the runaway guard: a query of an unbounded plain solve stops after this
+#: many domain evaluations, accepts its earliest unexplored time and sets
+#: overflow (kernel B's ``kMaxSteps``, ``csrc/solver.cu``)
+MAX_STEPS = 1 << 20
 
 #: most domains the plain solver evaluates per round (the JAX queue solver's
 #: largest tile); a round takes at most max(queries, 256) of them, as in the
@@ -397,7 +403,11 @@ def solve_packed_reference(qrows, valid, is_vf: bool, toi_init, tolerance,
     query TOI (``per_query``), and pushes the children back with the
     earlier-time child on top.  The stack grows as needed (no queue
     capacity, so no spill accepts); the depth and per-dimension caps are the
-    kernel's.  Unbounded results do not depend on the exploration order.  A
+    kernel's, and so is its runaway guard: a query past :data:`MAX_STEPS`
+    evaluations (with a cap, past the last evaluation a capped search can
+    make) accepts the earliest time still on its stack and sets overflow.
+    Unbounded results do not depend on the exploration order, unless the
+    guard fires (then the accepted time depends on it, as in the kernel).  A
     global bounded call counts each query's evaluations as the JAX queue
     solver does (the domains of one query popped in one round all see the
     count from before the round); where the cap binds, the kernel's result
@@ -442,6 +452,10 @@ def _frontier(qrows, valid, is_vf, toi, tpq, co_tol, caps, allow_zero_toi, per_q
     dimcnt = torch.zeros((n0, 3), dtype=torch.int32, device=dev)
     inf = torch.full((), float("inf"), dtype=dt, device=dev)
     tile = min(max(n_rows, 256), _TILE)
+    # the kernel raises its guard past a cap's last evaluation (the cap,
+    # then one dropped evaluation per pending sibling)
+    guard = MAX_STEPS if max_iterations < 0 else max(
+        MAX_STEPS, max_iterations + 2 * caps.max_depth + 2)
     while qid.shape[0] > 0:
         count = qid.shape[0]
         top = max(count - tile, 0)
@@ -449,10 +463,11 @@ def _frontier(qrows, valid, is_vf, toi, tpq, co_tol, caps, allow_zero_toi, per_q
         p_depth, p_cnt = depth[top:], dimcnt[top:]
         q, tol, err, ms = _unpack(qrows[p_q])
         bound = tpq[p_q] if per_query else toi.expand(p_q.shape)
+        # pre-round counts
+        pre = qchecks[p_q]
+        qchecks.index_add_(0, p_q, torch.ones_like(pre))
         if max_iterations >= 0:
-            # pre-round counts; a dropped domain is pruned (no bound < -inf)
-            pre = qchecks[p_q]
-            qchecks.index_add_(0, p_q, torch.ones_like(pre))
+            # a dropped domain is pruned (no bound < -inf)
             bound = torch.where(pre > max_iterations, -inf, bound)
         st = bisect_step(
             q, p_lo, p_hi, tol, err, ms, co_tol, bound, p_depth, p_cnt,
@@ -481,6 +496,18 @@ def _frontier(qrows, valid, is_vf, toi, tpq, co_tol, caps, allow_zero_toi, per_q
         qid = torch.cat([qid[:top], two(p_q)[keep]])
         depth = torch.cat([depth[:top], two(c_depth)[keep]])
         dimcnt = torch.cat([dimcnt[:top], two(c_cnt)[keep]])
+        # the runaway guard: a query past it accepts the earliest time
+        # still on its stack, and its domains leave the stack
+        over = qchecks[qid] >= guard
+        if bool(over.any()):
+            t_over, q_over = lo[over, 0], qid[over]
+            if per_query:
+                tpq.scatter_reduce_(0, q_over, t_over, "amin")
+            else:
+                toi = torch.minimum(toi, t_over.amin())
+            ovf.fill_(True)
+            stay = ~over
+            lo, hi, qid, depth, dimcnt = lo[stay], hi[stay], qid[stay], depth[stay], dimcnt[stay]
     checks = torch.tensor(checks, dtype=torch.int64, device=dev)
     if not per_query:
         return toi, ovf, checks

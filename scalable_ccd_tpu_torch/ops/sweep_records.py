@@ -11,8 +11,10 @@ leaves the sweep as records, one per (partner ``j``, 128-box a-row ``r``)
 with a survivor ``i < j``: eight int32 words, ``w0..w3`` the 128-bit mask of
 the surviving a-lanes (lane ``i % 128`` is bit ``i % 32`` of word
 ``(i % 128) // 32``), ``w4 = j``, ``w5 = r = i // 128``, ``w6 = w7 = 0``.
-A narrow batch decodes its own range of pairs with a monotone record
-cursor.  The TPU's ``layout`` knob (four ways to place the same records in
+The narrow loop packs its rows straight from the records (kernel C's
+records mode, :func:`scalable_ccd_tpu_torch.ops.gather_pack.
+gather_pack_records`), whose plain twin decodes a range of pairs with
+:func:`decode_records_range`.  The TPU's ``layout`` knob (four ways to place the same records in
 VMEM) and the a-side extent classing are not ported, so ``w5`` is always
 ``i // 128`` and the buffer is a plain ``(R, 8)`` tensor.  The box planes
 are f32 or f64 (the kernel is instantiated for both); records hold positions

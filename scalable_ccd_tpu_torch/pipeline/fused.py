@@ -12,13 +12,16 @@ Counterpart of ``scalable_ccd_tpu/pipeline/fused.py:fused_ccd``.  In order:
    :func:`scalable_ccd_tpu_torch.ops.sweep_records.sweep_records` (kernel
    A', ``sweep_impl="records"``), each with ``any_order`` under the
    congestion ordering;
-4. take the candidates in narrow batches of ``narrow_batch`` (16,384) pairs
-   (records decode each batch's range), gather and pack them with
-   tolerances, error filters and the minimum separation, and solve them
-   with kernel B (:mod:`scalable_ccd_tpu_torch.ops.solver`).  VF runs before
-   EE and one running TOI is threaded through both; below 2^20 boxes (or as
-   ``presample`` says) a phase starts with one warm-start batch spread over
-   its candidates, and it stops early once the TOI reaches 0;
+4. take the candidates in narrow batches of ``narrow_batch`` (16,384) pairs,
+   gathered and packed with tolerances, error filters and the minimum
+   separation by kernel C (:mod:`scalable_ccd_tpu_torch.ops.gather_pack`)
+   in chunks of whole batches, at most 2^20 rows each, one launch per chunk
+   (records are decoded inside it), and solve each batch, a column slice of
+   its chunk, with kernel B (:mod:`scalable_ccd_tpu_torch.ops.solver`).
+   VF runs before EE and one running TOI is threaded through both; below
+   2^20 boxes (or as ``presample`` says) a phase starts with one warm-start
+   batch spread over its candidates, and it stops early once the TOI
+   reaches 0;
 5. staged escalation (``escalate_rounds``, 128 rounds on the global path):
    below 2^20 VF boxes the frame straggler pool (every batch runs one
    bounded pass and appends its unfinished rows to a phase-wide pool,
@@ -62,8 +65,10 @@ resolve to no escalation; an explicit ``escalate_rounds`` still applies.
 
 The JAX package runs this as one XLA program; here it is eager PyTorch, with
 the narrow loop's decisions on the device as the JAX package keeps them:
-every batch is one kernel C launch (gather and pack, :mod:`scalable_ccd_tpu_
-torch.ops.gather_pack`) and kernel B launches; the ``toi > 0`` exit is
+a phase's candidates are packed in a few kernel C launches (gather and pack,
+:mod:`scalable_ccd_tpu_torch.ops.gather_pack`, one per chunk of at most
+2^20 rows, sized from the pair count the host already holds), every batch
+is kernel B launches on its slice of its chunk; the ``toi > 0`` exit is
 kernel B's ``skip_if_done`` (a batch after the TOI reached 0 does nothing);
 the frame pool's pool/solve-now choice and the batch ladder's skip/small/
 full choice are predicates on device scalars.  At the defaults the host
@@ -101,7 +106,12 @@ from scalable_ccd_tpu_torch.narrow_phase.types import (
     pack_edge_table,
     pack_face_table,
 )
-from scalable_ccd_tpu_torch.ops.gather_pack import gather_pack, row_dtype
+from scalable_ccd_tpu_torch.ops.gather_pack import (
+    chunk_rows,
+    gather_pack,
+    gather_pack_records,
+    row_dtype,
+)
 from scalable_ccd_tpu_torch.ops.solver import (
     POOL_BLOCK,
     ROW_WIDTH,
@@ -110,7 +120,6 @@ from scalable_ccd_tpu_torch.ops.solver import (
 )
 from scalable_ccd_tpu_torch.ops.sweep_ap import partner_planes, sweep_pairs
 from scalable_ccd_tpu_torch.ops.sweep_records import (
-    decode_records_range,
     records_pair_prefix,
     sample_first_pairs,
     sweep_records,
@@ -350,13 +359,25 @@ class NarrowSolver(NamedTuple):
         """The dtype of the packed rows the solver takes."""
         return row_dtype(self.vcat.dtype, self.compensated)
 
-    def rows(self, pairs, exact=False):
-        """``(31, P)`` packed columns of ``(P, 2)`` element-id pairs
-        (kernel C, :func:`scalable_ccd_tpu_torch.ops.gather_pack.
-        gather_pack`: the one place the narrow loop packs rows); ``exact``
-        packs them with no minimum separation."""
-        return gather_pack(pairs, 0, pairs.shape[0], self.vcat, self.table, self.is_vf,
-                           0.0 if exact else self.ms, self.tolerance, self.compensated)
+    def pack(self, pairs, start=0, stop=None, *, out=None, exact=False):
+        """``(31, stop - start)`` packed columns of the element-id pairs
+        ``pairs[start:stop]`` (all of them by default), one launch of kernel
+        C's pairs mode (:func:`scalable_ccd_tpu_torch.ops.gather_pack.
+        gather_pack`), into ``out`` where given; ``exact`` packs them with
+        no minimum separation."""
+        stop = pairs.shape[0] if stop is None else stop
+        return gather_pack(pairs, start, stop, self.vcat, self.table, self.is_vf,
+                           0.0 if exact else self.ms, self.tolerance, self.compensated,
+                           out=out)
+
+    def pack_records(self, stream, start, stop, *, out=None, pairs_out=None):
+        """The same of pairs ``[start, stop)`` of a :class:`RecordStream`,
+        straight from its records (kernel C's records mode,
+        :func:`scalable_ccd_tpu_torch.ops.gather_pack.gather_pack_records`),
+        their ids into ``pairs_out`` where given."""
+        return gather_pack_records(stream.sb, stream.records, stream.cum, start, stop,
+                                   self.vcat, self.table, self.is_vf, self.ms,
+                                   self.tolerance, self.compensated, pairs_out, out=out)
 
     def _narrowed(self, out):
         """A solve's outputs with its TOIs in the phase's TOI dtype: a
@@ -375,12 +396,18 @@ class NarrowSolver(NamedTuple):
             widened=self.compensated, **modes))
 
     def solve(self, pairs, toi, per_query=False, exact=False, skip_if_done=False):
-        """Solve ``(P, 2)`` element-id pairs from the running TOI ``toi``;
-        the outputs of :func:`solve_cols`.  ``exact`` is the IPC
-        re-solve: no minimum separation, no cap and no zero TOI.  Global
+        """:meth:`solve_batch` of ``(P, 2)`` element-id pairs, packed first
+        (:meth:`pack`)."""
+        return self.solve_batch(self.pack(pairs, exact=exact), toi, per_query, exact,
+                                skip_if_done)
+
+    def solve_batch(self, cols, toi, per_query=False, exact=False, skip_if_done=False):
+        """Solve a batch's packed columns ``cols`` (a column slice of its
+        chunk is read in place) from the running TOI ``toi``; the outputs
+        of :func:`solve_cols`.  ``exact`` is the IPC re-solve: no cap and
+        no zero TOI (the columns packed with no minimum separation).  Global
         solves without a cap go through the escalation ladder.
         ``skip_if_done`` (global solves) does nothing once ``toi`` is 0."""
-        cols = self.rows(pairs, exact)
         max_iter, zero_ok = (-1, False) if exact else (self.max_iterations, self.allow_zero_toi)
         valid = torch.ones((cols.shape[1],), dtype=torch.bool, device=cols.device)
         if per_query:
@@ -409,13 +436,62 @@ def append_hits(collisions: list, pairs, tois) -> None:
     collisions.extend((int(a), int(b), float(ti)) for (a, b), ti in zip(p, t))
 
 
-class PairStream:
-    """A phase's candidates as decoded pair rows (kernel A's buffer)."""
+class _Stream:
+    """A phase's ``n`` candidates, taken in narrow batches of ``batch`` and
+    packed for kernel B chunk by chunk: a chunk is the most whole batches
+    that fit in 2^20 rows (:func:`scalable_ccd_tpu_torch.ops.gather_pack.
+    chunk_rows`), packed with one kernel C launch when a batch of it is
+    first asked for, into the stream's one column buffer (the chunk's width,
+    or ``n`` columns where fewer), and a batch is a column slice of it,
+    which kernel B reads in place.  Batches may come in any order; a slice
+    is valid until the next chunk is packed, which the device orders after
+    every launch already queued on it."""
 
-    def __init__(self, pairs: torch.Tensor, n: int):
-        self.pairs, self.n = pairs, n
+    def __init__(self, n: int, nar: "NarrowSolver | None", batch: int, with_ids: bool):
+        self.n, self.nar, self.batch = n, nar, int(batch)
+        self.chunk = chunk_rows(batch)
+        self.with_ids = with_ids
+        self._c0 = None
+        self._cols = self._ids = None
 
-    def batch(self, start: int, stop: int) -> torch.Tensor:
+    def _chunk_of(self, start: int, stop: int) -> int:
+        """The first row of the chunk holding candidates ``[start, stop)``,
+        packed now unless it is the chunk in the buffer."""
+        c0 = start - start % self.chunk
+        if not 0 <= start < stop <= min(c0 + self.chunk, self.n):
+            raise ValueError(f"candidates [{start}, {stop}) are not a run of one chunk of "
+                             f"{self.chunk} rows of the {self.n}")
+        if c0 != self._c0:
+            if self._cols is None:
+                width, dev = min(self.chunk, self.n), self.nar.vcat.device
+                self._cols = torch.empty((ROW_WIDTH, width), dtype=self.nar.row_dtype,
+                                         device=dev)
+                if self.with_ids:
+                    self._ids = torch.empty((width, 2), dtype=torch.int32, device=dev)
+            self._pack(c0, min(c0 + self.chunk, self.n))
+            self._c0 = c0
+        return c0
+
+    def cols(self, start: int, stop: int) -> torch.Tensor:
+        """``(31, stop - start)`` packed columns of candidates ``[start,
+        stop)``, a run inside one chunk: a column view of its chunk."""
+        c0 = self._chunk_of(start, stop)
+        return self._cols[:, start - c0:stop - c0]
+
+
+class PairStream(_Stream):
+    """A phase's candidates as pair rows (kernel A's buffer)."""
+
+    def __init__(self, pairs: torch.Tensor, n: int, nar=None, batch: int = _NARROW_BATCH):
+        super().__init__(n, nar, batch, with_ids=False)
+        self.pairs = pairs
+
+    def _pack(self, c0, c1):
+        self.nar.pack(self.pairs, c0, c1, out=self._cols)
+
+    def ids(self, start: int, stop: int) -> torch.Tensor:
+        """The ``(stop - start, 2)`` element-id pairs of candidates ``[start,
+        stop)``."""
         return self.pairs[start:stop]
 
     def sample(self, batch: int) -> torch.Tensor:
@@ -428,34 +504,50 @@ class PairStream:
         return self.pairs[:self.n]
 
 
-class RecordStream:
-    """A phase's candidates as kernel A' records, decoded batch by batch
-    with the monotone record cursor (batches are taken in order)."""
+class RecordStream(_Stream):
+    """A phase's candidates as kernel A' records, packed straight from the
+    records (kernel C's records mode), which also writes the pairs' ids
+    where ``with_ids`` asks for them (the hits of ``collisions=``)."""
 
-    def __init__(self, sorted_boxes, records, n_records: int, pair_budget: int, is_vf: bool):
+    def __init__(self, sorted_boxes, records, n_records: int, pair_budget: int, is_vf: bool,
+                 nar, batch: int, with_ids: bool = False):
         self.sb, self.records, self.n_records = sorted_boxes, records, n_records
         self.is_vf = is_vf
         self.cum = records_pair_prefix(records, n_records)
         # the pairs of the records the buffer holds, at most the budget
-        self.n = min(int(self.cum[-1]), pair_budget) if records.shape[0] else 0
-        self.cursor = 0
+        super().__init__(min(int(self.cum[-1]), pair_budget) if records.shape[0] else 0,
+                         nar, batch, with_ids)
 
-    def batch(self, start: int, stop: int) -> torch.Tensor:
-        chunk, self.cursor = decode_records_range(
-            self.sb, self.records, self.cum, start, stop, self.cursor, self.is_vf)
-        return chunk
+    def _pack(self, c0, c1):
+        self.nar.pack_records(self, c0, c1, out=self._cols, pairs_out=self._ids)
+
+    def ids(self, start: int, stop: int) -> torch.Tensor:
+        """The ``(stop - start, 2)`` element-id pairs of candidates ``[start,
+        stop)``, written beside their chunk's rows (``with_ids``)."""
+        if not self.with_ids:
+            raise ValueError("RecordStream: ids need with_ids=True")
+        c0 = self._chunk_of(start, stop)
+        return self._ids[start - c0:stop - c0]
 
     def sample(self, batch: int) -> torch.Tensor:
         return sample_first_pairs(self.sb, self.records, self.n_records, batch, self.is_vf)
 
     def all(self) -> torch.Tensor:
-        return decode_records_range(self.sb, self.records, self.cum, 0, self.n, 0,
-                                    self.is_vf)[0]
+        """Every candidate's element-id pair, written by kernel C's records
+        mode chunk by chunk (the rows it packs beside them are dropped)."""
+        ids = torch.empty((self.n, 2), dtype=torch.int32, device=self.records.device)
+        for c0 in range(0, self.n, self.chunk):
+            c1 = min(c0 + self.chunk, self.n)
+            self.nar.pack_records(self, c0, c1, pairs_out=ids[c0:c1])
+        return ids
 
 
-def _sweep_phase(sorted_boxes, is_vf, budget, auto, knobs: Knobs):
+def _sweep_phase(sorted_boxes, is_vf, budget, auto, knobs: Knobs, nar, narrow_batch,
+                 with_ids):
     """Sweep one phase; on an auto-budget overflow, sweep once more from
-    the exact totals.  Returns ``(stream, n_true, overflow, budget, grew)``."""
+    the exact totals.  Returns ``(stream, n_true, overflow, budget, grew)``,
+    the stream in batches of ``min(narrow_batch, budget)``, packing through
+    ``nar`` (with the pairs' ids where ``with_ids``)."""
     sb = sorted_boxes
     planes = partner_planes(sb) if knobs.bucket_minor else None
     if knobs.sweep_impl == "pairs":
@@ -472,14 +564,16 @@ def _sweep_phase(sorted_boxes, is_vf, budget, auto, knobs: Knobs):
     if grew:
         budget = _pow2ceil(total)
         buf, n_first, n_true, overflow = sweep(budget, _pow2ceil(first))
+    batch = min(narrow_batch, budget)
     if knobs.sweep_impl == "pairs":
-        stream = PairStream(buf, min(total, budget))
+        stream = PairStream(buf, min(total, budget), nar, batch)
     else:
-        stream = RecordStream(sb, buf, min(first, buf.shape[0]), budget, is_vf)
+        stream = RecordStream(sb, buf, min(first, buf.shape[0]), budget, is_vf, nar, batch,
+                              with_ids)
     return stream, n_true, overflow, budget, grew
 
 
-def _frame_pool_loop(stream, budget, batch, nar: NarrowSolver, toi, checks, capped):
+def _frame_pool_loop(stream, budget, nar: NarrowSolver, toi, checks, capped):
     """Escalation through the frame straggler pool (JAX ``fused.py:1257-1376``):
     every batch runs one bounded pass; a batch's unfinished rows join the
     pool, unless there are more than one pool block of them or the pool is
@@ -496,7 +590,7 @@ def _frame_pool_loop(stream, budget, batch, nar: NarrowSolver, toi, checks, capp
     pooled).  The bounded pass and the pool blocks skip once the TOI is 0
     (``skip_if_done``).  The host reads the cursor once, to size the pool's
     pass."""
-    dev = toi.device
+    dev, batch = toi.device, stream.batch
     cap = -(-min(_FRAME_POOL_MAX, max(_FRAME_POOL_MIN, budget >> 6)) // POOL_BLOCK) * POOL_BLOCK
     # columns [cap + POOL_BLOCK, cap + 2 * POOL_BLOCK): where a batch that is
     # not pooled writes its gathered rows
@@ -505,7 +599,7 @@ def _frame_pool_loop(stream, budget, batch, nar: NarrowSolver, toi, checks, capp
     lane = torch.arange(POOL_BLOCK, device=dev)
     ones = torch.ones((max(batch, POOL_BLOCK),), dtype=torch.bool, device=dev)
     for start in range(0, stream.n, batch):
-        cols = nar.rows(stream.batch(start, min(start + batch, stream.n)))
+        cols = stream.cols(start, min(start + batch, stream.n))
         q = cols.shape[1]
         toi_b, ovf, ck, unfin = nar.solve_rows(cols, ones[:q], toi,
                                                round_limit=int(nar.round_limit),
@@ -533,11 +627,11 @@ def _frame_pool_loop(stream, budget, batch, nar: NarrowSolver, toi, checks, capp
     return toi, checks, capped
 
 
-def _narrow_phase(stream, budget, batch, presample, nar: NarrowSolver, toi,
-                  collisions, ipc_refine, frame_pool):
-    """Solve one phase's candidates in batches; returns (toi, checks,
-    capped, refinements)."""
-    dev = toi.device
+def _narrow_phase(stream, budget, presample, nar: NarrowSolver, toi, collisions,
+                  ipc_refine, frame_pool):
+    """Solve one phase's candidates in the stream's batches; returns (toi,
+    checks, capped, refinements)."""
+    dev, batch = toi.device, stream.batch
     checks = torch.zeros((), dtype=torch.int64, device=dev)
     capped = torch.zeros((), dtype=torch.bool, device=dev)
     refinements = 0
@@ -545,12 +639,12 @@ def _narrow_phase(stream, budget, batch, presample, nar: NarrowSolver, toi,
     if collisions is not None:
         hit_pairs, hit_tois = [], []
         for start in range(0, n_pairs, batch):
-            chunk = stream.batch(start, min(start + batch, n_pairs))
-            toi_b, cap, ck, pq = nar.solve(chunk, toi, per_query=True)
+            stop = min(start + batch, n_pairs)
+            toi_b, cap, ck, pq = nar.solve_batch(stream.cols(start, stop), toi, per_query=True)
             toi = torch.minimum(toi, toi_b)
             checks, capped = checks + ck, capped | cap
             hit = pq < 1
-            hit_pairs.append(chunk[hit])
+            hit_pairs.append(stream.ids(start, stop)[hit])
             hit_tois.append(pq[hit])
         if hit_pairs:
             append_hits(collisions, torch.cat(hit_pairs), torch.cat(hit_tois))
@@ -563,24 +657,24 @@ def _narrow_phase(stream, budget, batch, presample, nar: NarrowSolver, toi,
         toi = torch.minimum(toi, toi_s)
         checks, capped = checks + ck, capped | cap
     if frame_pool:
-        toi, checks, capped = _frame_pool_loop(stream, budget, batch, nar, toi,
-                                               checks, capped)
+        toi, checks, capped = _frame_pool_loop(stream, budget, nar, toi, checks, capped)
         return toi, checks, capped, refinements
     if ipc_refine:
         pairs = stream.all()
-        stream = PairStream(pairs[_key_order(pairs)], n_pairs)
+        stream = PairStream(pairs[_key_order(pairs)], n_pairs, nar, batch)
     start = 0
     # the reference chunk loop's `remaining_queries && toi > 0`: each batch's
     # first launch skips on the device once the TOI is 0 (skip_if_done);
     # the IPC rule reads the TOI on the host anyway, and stops there
     while start < n_pairs and (not ipc_refine or float(toi) > 0):
-        chunk = stream.batch(start, min(start + batch, n_pairs))
-        toi_b, cap, ck = nar.solve(chunk, toi, skip_if_done=True)
+        stop = min(start + batch, n_pairs)
+        toi_b, cap, ck = nar.solve_batch(stream.cols(start, stop), toi, skip_if_done=True)
         toi_after = torch.minimum(toi, toi_b)
         # compared in the working dtype, as the JAX package's in-dispatch
         # rule does
         if ipc_refine and bool(toi_after < IPC_MIN_TOI):
-            toi_r, cap_r, ck_r = nar.solve(chunk, toi, exact=True)
+            # packs its own rows, with no minimum separation
+            toi_r, cap_r, ck_r = nar.solve(stream.ids(start, stop), toi, exact=True)
             toi_after = torch.minimum(toi, toi_r) * IPC_BACKOFF
             cap, ck = cap | cap_r, ck + ck_r
             refinements += 1
@@ -708,14 +802,14 @@ def fused_ccd(
         (vf_sorted, True, int(vf_budget), vf_auto, knobs.presample_vf),
         (ee_sorted, False, int(ee_budget), ee_auto, knobs.presample_ee),
     )):
-        stream, n_true, overflow, budget, grew = _sweep_phase(sb, is_vf, budget, auto, knobs)
-        grown[k] = budget if grew else 0
         nar = NarrowSolver.for_phase(is_vf, v0, v1, e, f, min_distance, tolerance,
                                      allow_zero_toi, max_iterations, knobs.escalate_rounds,
                                      dtype, compensated)
+        stream, n_true, overflow, budget, grew = _sweep_phase(
+            sb, is_vf, budget, auto, knobs, nar, int(narrow_batch), collisions is not None)
+        grown[k] = budget if grew else 0
         toi, checks, capped, refined = _narrow_phase(
-            stream, budget, min(int(narrow_batch), budget), ps, nar, toi,
-            collisions, ipc_refine, frame_pool,
+            stream, budget, ps, nar, toi, collisions, ipc_refine, frame_pool,
         )
         out.append((n_true, overflow, checks, capped, refined))
     if memo_key is not None and any(grown):

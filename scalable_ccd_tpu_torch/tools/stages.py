@@ -14,12 +14,15 @@ times, per phase (VF, EE) where the stage has one:
   stream-only time);
 - ``sweep_pairs``: kernel A emitting; its time less ``sweep_count_only``'s is
   what the atomic append costs;
-- ``sweep_records`` and ``sweep_records_decode``: kernel A', alone and with
-  the decode of every pair;
+- ``sweep_records``: kernel A';
 - ``gather_pack``: the query gather and row packing of every candidate, in
-  the main path's narrow batches, through ``NarrowSolver.rows`` (kernel C
-  on CUDA);
-- ``solve``: kernel B over those batches, one unbounded global pass each,
+  the main path's chunks (kernel C's pairs mode on CUDA, one launch per
+  chunk of at most 2^20 rows, ``launches``), through ``NarrowSolver.pack``;
+- ``records_pack``: the same rows packed straight from kernel A''s records,
+  as ``sweep_impl="records"`` packs them: the pair prefix of the records and
+  kernel C's records mode over the same chunks;
+- ``solve``: kernel B over the main path's batches of 16,384 rows (column
+  slices of the chunks), one unbounded global pass each,
   the running TOI threaded through VF and then EE; on CUDA one more,
   untimed pass reads each query's evaluation count and the line carries
   their spread (``checks_spread``, ``ops/solver.py:_checks_spread``; ``null``
@@ -46,7 +49,8 @@ on a CUDA device; run from two trees in turns, it compares two kernels::
     python -m scalable_ccd_tpu_torch.tools.stages --kernel-a
 
 ``--frames`` measures whole frames on a CUDA device (:func:`run_frames`):
-each frame's TOI bitwise, totals and host ms, the synchronizing calls of
+each frame's TOI bitwise, totals, host ms and kernel C's launches per
+frame, the synchronizing calls of
 one frame (:func:`count_syncs`) at two batch sizes, and the device idle
 share of one bench frame (:func:`idle_share`).  It uses the entry points
 alone, so the tool can time another tree's package, the one found first on
@@ -75,13 +79,9 @@ from scalable_ccd_tpu_torch.geometry.aabb import (
 )
 from scalable_ccd_tpu_torch.geometry.mesh import edges_from_faces, read_ply
 from scalable_ccd_tpu_torch.geometry.scenes import cloth_on_sphere
-from scalable_ccd_tpu_torch.ops import solver
+from scalable_ccd_tpu_torch.ops import gather_pack, solver
 from scalable_ccd_tpu_torch.ops.sweep_ap import ROW, partner_planes, sweep_pairs
-from scalable_ccd_tpu_torch.ops.sweep_records import (
-    decode_records_range,
-    records_pair_prefix,
-    sweep_records,
-)
+from scalable_ccd_tpu_torch.ops.sweep_records import records_pair_prefix, sweep_records
 from scalable_ccd_tpu_torch.pipeline.ccd import ccd
 from scalable_ccd_tpu_torch.pipeline.fused import (
     _NARROW_BATCH,
@@ -171,19 +171,26 @@ def run_stages(grid: int = 128, subdiv: int = 4, drop: float = 0.25,
         rec = stage("sweep_records", phase, lambda: sweep_records(sb, is_vf, budget, **kw),
                     pairs=lambda r: int(r[2]), records=lambda r: int(r[1]), budget=budget)
 
-        def records_decoded():
-            records, n_records, n_pairs, _ = sweep_records(sb, is_vf, budget, **kw)
-            cum = records_pair_prefix(records, n_records)
-            return decode_records_range(sb, records, cum, 0, int(n_pairs), 0, is_vf)[0]
-
-        stage("sweep_records_decode", phase, records_decoded, pairs=lambda r: r.shape[0],
-              records=int(rec[1]))
-
         nar = NarrowSolver.for_phase(is_vf, v0, v1, e, f, 0.0, 1e-6, True, -1, -1, dtype)
-        cuts = range(0, total, _NARROW_BATCH)
-        rows = stage("gather_pack", phase,
-                     lambda: [nar.rows(pairs[s:s + _NARROW_BATCH]) for s in cuts],
-                     queries=total, batches=len(cuts))
+        chunk = gather_pack.chunk_rows(_NARROW_BATCH)
+        chunks = [(c, min(c + chunk, total)) for c in range(0, total, chunk)]
+        packed = stage("gather_pack", phase,
+                       lambda: [nar.pack(pairs, a, b) for a, b in chunks],
+                       queries=lambda r: sum(c.shape[1] for c in r), launches=len(chunks))
+        records, n_records = rec[0], int(rec[1])
+        held = min(n_records, records.shape[0])
+
+        def records_packed():
+            cum = records_pair_prefix(records, held)
+            return [gather_pack.gather_pack_records(sb, records, cum, a, b, nar.vcat,
+                                                    nar.table, is_vf, nar.ms, nar.tolerance)
+                    for a, b in chunks]
+
+        stage("records_pack", phase, records_packed,
+              queries=lambda r: sum(c.shape[1] for c in r), records=n_records,
+              launches=len(chunks))
+        rows = [p[:, s:s + _NARROW_BATCH] for p in packed
+                for s in range(0, p.shape[1], _NARROW_BATCH)]
         valids = [torch.ones((r.shape[1],), dtype=torch.bool, device=device) for r in rows]
 
         def solve(toi=toi):
@@ -203,7 +210,7 @@ def run_stages(grid: int = 128, subdiv: int = 4, drop: float = 0.25,
                 planes.append(plane)
             return solver._checks_spread(torch.cat(planes))
 
-        toi = stage("solve", phase, solve, queries=total, batches=len(cuts),
+        toi = stage("solve", phase, solve, queries=total, batches=len(rows),
                     toi=lambda r: float(r[0]), checks=lambda r: int(r[1]),
                     checks_spread=spread)[0]
 
@@ -634,8 +641,9 @@ def run_frames(device=None, reps=5, emit=print) -> list:
     ``_FRAME_SCENES``, ``fused_ccd`` at its defaults with ``sweep_impl``
     ``"pairs"`` and ``"records"`` (and on the bench scene in f64 and
     compensated): the TOI and its ``float.hex``, totals, checks,
-    ``overflowed``, ``solver_capped`` and the median host ms of ``reps``
-    frames after a warm-up; ``ccd()`` on the bench scene; the synchronizing
+    ``overflowed``, ``solver_capped``, the median host ms of ``reps``
+    frames after a warm-up and kernel C's launches per frame; ``ccd()`` on
+    the bench scene; the synchronizing
     calls of one frame (:func:`count_syncs`) of the bench scene and grid-600
     at ``narrow_batch`` 16,384 and 4,096, after a warm-up frame; the idle
     share of one bench frame (:func:`idle_share`); the golden
@@ -649,6 +657,18 @@ def run_frames(device=None, reps=5, emit=print) -> list:
     def out(**line):
         lines.append(line)
         emit(json.dumps(line))
+
+    def timed_frame(frame, **kw):
+        """``_timed`` of ``frame(**kw)``, with kernel C's launches per frame
+        (all of them, and those of its records mode where the tree has
+        one)."""
+        counts = gather_pack.LAUNCHES_BY_MODE
+        before = (gather_pack.LAUNCHES, counts.get("records", 0))
+        res, wall, _ = _timed(lambda: frame(**kw), reps, device)
+        n = reps + 1
+        return res, wall, {"kernel_c_launches": (gather_pack.LAUNCHES - before[0]) // n,
+                           "kernel_c_records_launches": (counts.get("records", 0)
+                                                         - before[1]) // n}
 
     def result(res):
         return {"toi": float(res.toi), "toi_hex": float(res.toi).hex(),
@@ -669,8 +689,9 @@ def run_frames(device=None, reps=5, emit=print) -> list:
             variants.update(float64={"dtype": torch.float64},
                             compensated={"precision": "compensated"})
         for label, kw in variants.items():
-            res, wall, _ = _timed(lambda: frame(**kw), reps, device)
-            out(frame="fused_ccd", scene=name, variant=label, **result(res), ms=wall)
+            res, wall, launches = timed_frame(frame, **kw)
+            out(frame="fused_ccd", scene=name, variant=label, **result(res), ms=wall,
+                **launches)
         if name in ("bench", "grid600"):
             for batch in (_NARROW_BATCH, _NARROW_BATCH >> 2):
                 frame(narrow_batch=batch)
@@ -693,10 +714,10 @@ def run_frames(device=None, reps=5, emit=print) -> list:
             def frame(kw=kw):
                 return fused_ccd(v0, v1, e, f, device=device, validate=False, **kw)
 
-            res, wall, _ = _timed(frame, reps, device)
+            res, wall, launches = timed_frame(frame)
             _, n, sites = count_syncs(frame)
             out(frame="fused_ccd", scene="dense_cluster", variant=label, **result(res), ms=wall,
-                syncs=n, sites=sites)
+                syncs=n, sites=sites, **launches)
     return lines
 
 

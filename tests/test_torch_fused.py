@@ -84,9 +84,9 @@ def test_fused_defaults_are_auto_presample_and_batches_of_16384(monkeypatch):
     calls = []
     real = port_fused._narrow_phase
     monkeypatch.setattr(port_fused, "_narrow_phase",
-                        lambda stream, budget, batch, presample, *a: calls.append(
-                            (budget, batch, presample))
-                        or real(stream, budget, batch, presample, *a))
+                        lambda stream, budget, presample, *a: calls.append(
+                            (budget, stream.batch, presample))
+                        or real(stream, budget, presample, *a))
     res = fused_ccd(*_args(s), **CPU)
     assert len(calls) == 2
     assert all(batch == min(budget, 1 << 14) and ps for budget, batch, ps in calls)

@@ -15,6 +15,17 @@ plain version, on ``pairs[start:stop]``, must be bitwise the transpose of:
 - compensated: the JAX queue solver's compensated rows of f32 queries,
   widened to f64 (the port solves them as f64).
 
+The narrow loop packs a phase in chunks of whole batches (the streams of
+``pipeline/fused.py``, with the chunk cap lowered here to a few batches so
+that seams occur): every batch's column slice of its chunk must be bitwise
+the per-batch plain columns, for pair rows and for kernel A' records.  The
+records mode's plain twin (one search of the pair prefix, the decode, the
+pack) must be bitwise the decode of the whole stream with the monotone
+cursor followed by the pack, on runs that start and stop inside records, on
+a record buffer cut at a budget and on an empty phase; and its rows and ids
+must be, as a multiset of ``(pair, row)``, the JAX package's
+``decode_records_range`` plus ``pack_query_rows`` of the same records.
+
 On the card the kernel is held to this plain version bitwise
 (``tests/test_torch_kernels_gpu.py``, ``chip_smoke.py``).
 """
@@ -24,11 +35,18 @@ import numpy as np
 import pytest
 import torch
 
+from scalable_ccd_tpu.broad_phase import merge_two_lists as jmerge
+from scalable_ccd_tpu.broad_phase import sort_boxes as jsort
+from scalable_ccd_tpu.geometry import aabb as jaabb
+from scalable_ccd_tpu.geometry import scenes as jscenes
 from scalable_ccd_tpu.narrow_phase import types as jtypes
+from scalable_ccd_tpu.ops import pallas_sweep_ap as jap
 from scalable_ccd_tpu.ops.pallas_solver import pack_query_rows as jpack
+from scalable_ccd_tpu_torch.interop import from_numpy_boxes
 from scalable_ccd_tpu_torch.narrow_phase import types
 from scalable_ccd_tpu_torch.ops import gather_pack as gp
-from scalable_ccd_tpu_torch.pipeline.fused import NarrowSolver
+from scalable_ccd_tpu_torch.ops import sweep_records
+from scalable_ccd_tpu_torch.pipeline.fused import NarrowSolver, PairStream, RecordStream
 
 torch.set_num_threads(2)
 
@@ -139,7 +157,7 @@ def test_out_of_range_ids_are_clamped(mesh, is_vf):
 
 def test_wrapper_on_cpu_is_the_plain_version(mesh, monkeypatch):
     """CPU tensors take the plain version and launch nothing, also through
-    ``NarrowSolver.rows`` (the narrow loop's one call site); other devices
+    ``NarrowSolver.pack`` (the narrow loop's call site); other devices
     raise."""
     monkeypatch.setattr(gp, "LAUNCHES", 0)
     v0, v1, faces, edges, vf, _ = mesh
@@ -147,10 +165,171 @@ def test_wrapper_on_cpu_is_the_plain_version(mesh, monkeypatch):
     nar = NarrowSolver.for_phase(True, torch.from_numpy(v0), torch.from_numpy(v1),
                                  torch.from_numpy(edges), torch.from_numpy(faces), 1e-3, TOL,
                                  True, -1)
-    got = nar.rows(pairs)
+    got = nar.pack(pairs)
     want = gp.gather_pack_reference(pairs, 0, N_PAIRS, vcat, table, True, 1e-3, TOL)
     assert torch.equal(got, want) and gp.LAUNCHES == 0
-    assert torch.equal(nar.rows(pairs, exact=True)[30], torch.zeros(N_PAIRS))
+    assert torch.equal(nar.pack(pairs, exact=True)[30], torch.zeros(N_PAIRS))
     with pytest.raises(ValueError, match="unsupported device"):
         gp.gather_pack(pairs.to("meta"), 0, 4, vcat.to("meta"), table.to("meta"), True,
                        0.0, TOL)
+
+
+KINDS = {"f32": (torch.float32, False), "f64": (torch.float64, False),
+         "compensated": (torch.float32, True)}
+
+
+def _solver(mesh, is_vf, kind, ms=1e-3):
+    v0, v1, faces, edges, _, _ = mesh
+    dtype, comp = KINDS[kind]
+    return NarrowSolver.for_phase(is_vf, torch.from_numpy(v0), torch.from_numpy(v1),
+                                  torch.from_numpy(edges), torch.from_numpy(faces), ms, TOL,
+                                  True, -1, -1, dtype, comp)
+
+
+def _bitwise(a, b):
+    ints = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(ints), b.contiguous().view(ints))
+
+
+def test_chunk_rows_are_whole_batches_under_the_cap(monkeypatch):
+    assert gp.CHUNK_ROWS == 1 << 20
+    assert gp.chunk_rows(1 << 14) == 1 << 20 and gp.chunk_rows(1000) == 1048000
+    assert gp.chunk_rows(3 << 20) == 3 << 20  # a batch past the cap is its own chunk
+    monkeypatch.setattr(gp, "CHUNK_ROWS", 53)
+    assert gp.chunk_rows(16) == 48 and gp.chunk_rows(60) == 60
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
+@pytest.mark.parametrize("is_vf", [True, False])
+def test_chunked_pair_columns_equal_batch_columns(mesh, monkeypatch, is_vf, kind):
+    """Batches of 16 out of chunks of three batches (the cap 53), taken in
+    reverse order: each batch's column slice of its chunk is bitwise the
+    plain columns of that batch alone, and the stream keeps one buffer of
+    the chunk's width."""
+    monkeypatch.setattr(gp, "CHUNK_ROWS", 53)
+    nar = _solver(mesh, is_vf, kind)
+    pairs = torch.from_numpy(mesh[4] if is_vf else mesh[5])
+    stream = PairStream(pairs, N_PAIRS, nar, 16)
+    assert stream.chunk == 48
+    buffers = set()
+    for start in reversed(range(0, N_PAIRS, 16)):
+        stop = min(start + 16, N_PAIRS)
+        cols = stream.cols(start, stop)
+        want = gp.gather_pack_reference(pairs, start, stop, nar.vcat, nar.table, is_vf, 1e-3,
+                                        TOL, KINDS[kind][1])
+        assert cols.stride() == (48, 1) and _bitwise(cols, want), (start, stop)
+        assert torch.equal(stream.ids(start, stop), pairs[start:stop])
+        buffers.add(cols.untyped_storage().data_ptr())
+    assert len(buffers) == 1
+    with pytest.raises(ValueError, match="one chunk"):
+        stream.cols(40, 56)
+
+
+def _record_phase(is_vf, rec_budget=0):
+    """``(scene, JAX sorted boxes, sorted boxes, records, n_records,
+    n_pairs, nar)`` of one phase of a small cloth scene, with kernel A''s
+    plain version."""
+    s = jscenes.cloth_on_sphere(grid_n=14, sphere_subdiv=1, drop=0.35)
+    vb = jaabb.build_vertex_boxes(s.vertices_t0, s.vertices_t1, dtype=jnp.float32)
+    m = (jmerge(vb, jaabb.build_face_boxes(vb, s.faces)) if is_vf
+         else jaabb.build_edge_boxes(vb, s.edges))
+    jsb = jsort(m)
+    sb = from_numpy_boxes(jsb)
+    rec, n_rec, n_pairs, _ = sweep_records.sweep_records(sb, is_vf, 1 << 15, rec_budget)
+    nar = NarrowSolver.for_phase(is_vf, torch.from_numpy(s.vertices_t0),
+                                 torch.from_numpy(s.vertices_t1), torch.from_numpy(s.edges),
+                                 torch.from_numpy(s.faces), 1e-3, TOL, True, -1)
+    return s, jsb, sb, rec, int(n_rec), int(n_pairs), nar
+
+
+@pytest.mark.parametrize("is_vf", [True, False])
+def test_chunked_record_columns_equal_decode_then_pack(monkeypatch, is_vf):
+    """A records stream in batches of 7 out of chunks of three batches
+    (seams inside records), taken in reverse order: each batch's columns
+    and ids bitwise the decode of the whole stream (monotone cursor) packed
+    per batch; ``all()`` gives the whole decode."""
+    monkeypatch.setattr(gp, "CHUNK_ROWS", 23)
+    _, _, sb, rec, n_rec, n_pairs, nar = _record_phase(is_vf)
+    stream = RecordStream(sb, rec, n_rec, 1 << 15, is_vf, nar, 7, with_ids=True)
+    assert stream.n == n_pairs > 3 * stream.chunk and stream.chunk == 21
+    cum = stream.cum
+    seams = range(stream.chunk, n_pairs, stream.chunk)
+    assert any(not (cum == c).any() for c in seams), "no seam falls inside a record"
+    whole = sweep_records.decode_records_range(sb, rec, cum, 0, n_pairs, 0, is_vf)[0]
+    for start in reversed(range(0, n_pairs, 7)):
+        stop = min(start + 7, n_pairs)
+        want = gp.gather_pack_reference(whole, start, stop, nar.vcat, nar.table, is_vf, 1e-3,
+                                        TOL)
+        assert _bitwise(stream.cols(start, stop), want), (start, stop)
+        assert torch.equal(stream.ids(start, stop), whole[start:stop])
+    assert torch.equal(stream.all(), whole)
+
+
+@pytest.mark.parametrize("is_vf", [True, False])
+def test_record_twin_on_cut_runs_budget_and_empty_phase(is_vf):
+    """The records mode's plain twin on runs that start and stop inside
+    records, on a record buffer cut at a budget of 97 records with the pair
+    count cut inside the last one, and on an empty stream: bitwise the
+    cursor decode of the held pairs, then the pack."""
+    _, _, sb, rec, n_rec, _, nar = _record_phase(is_vf, rec_budget=97)
+    assert rec.shape[0] == 97 < n_rec
+    held = sweep_records.records_pair_prefix(rec, 97)
+    n = int(held[-1]) - 3
+    whole = sweep_records.decode_records_range(sb, rec, held, 0, n, 0, is_vf)[0]
+    stream = RecordStream(sb, rec, 97, n, is_vf, nar, 50, with_ids=True)
+    assert stream.n == n
+    for a, b in ((0, n), (1, n - 1), (5, 6), (n - 7, n), (17, 17)):
+        ids = torch.zeros((b - a, 2), dtype=torch.int32)
+        got = gp.gather_pack_records(sb, rec, held, a, b, nar.vcat, nar.table, is_vf, 1e-3,
+                                     TOL, pairs_out=ids)
+        want = gp.gather_pack_reference(whole, a, b, nar.vcat, nar.table, is_vf, 1e-3, TOL)
+        assert _bitwise(got, want) and torch.equal(ids, whole[a:b]), (a, b)
+    for start in range(0, n, 50):
+        assert torch.equal(stream.ids(start, min(start + 50, n)), whole[start:start + 50])
+    empty = torch.zeros((0, 8), dtype=torch.int32)
+    none = RecordStream(sb, empty, 0, 1 << 15, is_vf, nar, 50)
+    assert none.n == 0 and none.all().shape == (0, 2)
+    cols = gp.gather_pack_records(sb, empty, sweep_records.records_pair_prefix(empty, 0), 0, 0,
+                                  nar.vcat, nar.table, is_vf, 1e-3, TOL)
+    assert cols.shape == (31, 0)
+
+
+@pytest.mark.parametrize("is_vf", [True, False])
+def test_record_rows_equal_jax_decode_and_pack(monkeypatch, is_vf):
+    """Kernel C's records mode (plain version, in chunks of 120 pairs) on
+    the records of a cloth scene against the JAX package's
+    ``decode_records_range`` and ``pack_query_rows`` of the same records
+    (in JAX's tiled buffer), as a multiset of ``(pair, row)``, bitwise."""
+    monkeypatch.setattr(gp, "CHUNK_ROWS", 120)
+    s, jsb, sb, rec, n_rec, n_pairs, nar = _record_phase(is_vf)
+    nar = nar._replace(ms=0.0)
+    stream = RecordStream(sb, rec, n_rec, 1 << 15, is_vf, nar, 40, with_ids=True)
+    cuts = [(a, min(a + 40, n_pairs)) for a in range(0, n_pairs, 40)]
+    cols = torch.cat([stream.cols(a, b).clone() for a, b in cuts], 1)
+    ids = torch.cat([stream.ids(a, b).clone() for a, b in cuts])
+    # JAX's buffer: 16 records of 8 words per 128-word row
+    tiled = np.zeros((-(-rec.shape[0] // 16) * 16, 8), np.int32)
+    tiled[:rec.shape[0]] = rec.numpy()
+    jrec = jnp.asarray(tiled.reshape(-1, 128))
+    jcum = jap.records_pair_prefix(jrec, jnp.int32(n_rec))
+    packed, _ = jap.pack_boxes_ap(jsb)
+    jpairs, _ = jap.decode_records_range(packed, jrec, jcum, jnp.int32(0), n_pairs,
+                                         jnp.int32(n_pairs), jnp.int32(0), is_vf)
+    jpairs = np.asarray(jpairs)[:n_pairs]
+    j0 = jnp.asarray(s.vertices_t0, jnp.float32)
+    j1 = jnp.asarray(s.vertices_t1, jnp.float32)
+    jq = (jtypes.gather_vf_queries(j0, j1, s.faces, jnp.asarray(jpairs), dtype=jnp.float32)
+          if is_vf else
+          jtypes.gather_ee_queries(j0, j1, s.edges, jnp.asarray(jpairs), dtype=jnp.float32))
+    jrows = np.asarray(jpack(jq, is_vf, 0.0, TOL))
+
+    def keyed(pairs, rows):
+        p = np.asarray(pairs, np.int64)
+        order = np.argsort(p[:, 0] * (1 << 32) + p[:, 1], kind="stable")
+        return p[order], _bits(np.ascontiguousarray(rows)[order])
+
+    kp, kr = keyed(ids.numpy(), cols.t().numpy())
+    jp_, jr = keyed(jpairs, jrows)
+    assert len(np.unique(kp, axis=0)) == n_pairs
+    assert np.array_equal(kp, jp_) and np.array_equal(kr, jr)

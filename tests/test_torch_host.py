@@ -6,7 +6,25 @@ two lists, 1 against 8 threads, the empty input and the batched sweep
 against the unbatched one, with JAX ``host.sort_and_sweep`` and
 ``brute_force_overlaps`` as the reference.  The port's library is built
 here with ``g++``; a build that fails fails the tests (nothing skips).
+
+The JAX package's loader compiles straight to its fixed output path and
+loads that path whenever the file exists, and it keeps a failed load for the
+life of the process.  Test processes that start together (pytest-xdist
+workers, each of which evaluates ``tests/test_host_native.py``'s skip
+condition at collection) build that one file at once, and a worker can load
+it half written.  Where the JAX library did not load in this process, the
+module fixture builds the same source with the same flags into a file of
+its own under ``build/host/`` (a temporary file, then renamed) and points the
+JAX loader at it for this module.
 """
+
+import hashlib
+import os
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -24,6 +42,47 @@ from scalable_ccd_tpu.broad_phase import (
 from scalable_ccd_tpu.geometry.aabb import build_edge_boxes, build_face_boxes, build_vertex_boxes
 from scalable_ccd_tpu.geometry.scenes import cloth_on_sphere, triangle_soup
 from scalable_ccd_tpu_torch import host
+
+
+REPO = Path(__file__).resolve().parent.parent
+
+#: the JAX package's compiler flags (``scalable_ccd_tpu/host/__init__.py:_compile``)
+_JAX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC")
+
+
+def _build_jax_library() -> Path:
+    """The JAX package's ``_native/sweep.cpp`` built with its flags into a
+    file of this test's own under ``build/host/``: a temporary file beside
+    it, then renamed, so no process loads it half written."""
+    src = Path(jax_host._SRC)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(_JAX_FLAGS).encode()).hexdigest()[:16]
+    out = host.BUILD_DIR / f"libsccd_host_jax-{digest}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    try:
+        proc = subprocess.run(["g++", *_JAX_FLAGS, "-o", tmp, str(src), "-pthread"],
+                              capture_output=True, text=True)
+        assert proc.returncode == 0, f"g++ failed on {src.name}:\n{proc.stderr}"
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_library():
+    """The JAX package's host library loaded in this process: its own when
+    it loads, else a private build (module docstring)."""
+    mp = pytest.MonkeyPatch()
+    if not jax_host.native_available():
+        mp.setattr(jax_host, "_LIB_PATH", str(_build_jax_library()))
+        mp.setattr(jax_host, "_lib", None)
+        mp.setattr(jax_host, "_load_error", None)
+        assert jax_host.native_available(), f"the JAX host library: {jax_host._load_error}"
+    yield
+    mp.undo()
 
 
 @pytest.fixture(scope="module")
@@ -135,3 +194,37 @@ def test_builds_into_the_build_directory(scene):
     assert not (host._SRC.parent / "libsccd_host.so").exists()
     with pytest.raises(ValueError, match="CPU tensors"):
         host._array(torch.zeros(3, device="meta"), np.float64)
+
+
+_TWO_BUILDS = """
+import sys, time
+from pathlib import Path
+from scalable_ccd_tpu_torch import host
+build, me, other = Path(sys.argv[1]), sys.argv[2], sys.argv[3]
+host.BUILD_DIR = build
+(build.parent / me).touch()
+deadline = time.monotonic() + 120
+while not (build.parent / other).exists() and time.monotonic() < deadline:
+    time.sleep(0.01)
+ok = host.native_available()
+print(ok, host._load_error)
+sys.exit(0 if ok else 1)
+"""
+
+
+def test_port_library_builds_from_two_processes_at_once(tmp_path):
+    """Two processes that find no library build it into the same path at
+    once (each waits for the other to be ready first); both load it, since
+    each writes a temporary file and renames it, and nothing is left beside
+    the library."""
+    build = tmp_path / "host"
+    env = {**os.environ, "PYTHONPATH": str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    procs = [subprocess.Popen([sys.executable, "-c", _TWO_BUILDS, str(build), me, other],
+                              cwd=tmp_path, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for me, other in (("a", "b"), ("b", "a"))]
+    t0 = time.monotonic()
+    outs = [p.communicate(timeout=300)[0] for p in procs]
+    assert time.monotonic() - t0 < 300
+    assert [p.returncode for p in procs] == [0, 0], outs
+    assert [p.name for p in build.iterdir()] == [host._library_path().name]

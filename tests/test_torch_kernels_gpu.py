@@ -17,6 +17,7 @@ from scalable_ccd_tpu_torch.interop import from_numpy_scene
 from scalable_ccd_tpu_torch.narrow_phase import types
 from scalable_ccd_tpu_torch.ops import gather_pack as gp
 from scalable_ccd_tpu_torch.ops import solver, sweep_ap, sweep_records
+from scalable_ccd_tpu_torch.pipeline.fused import NarrowSolver, PairStream, RecordStream
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
@@ -941,15 +942,135 @@ def test_solver_kernel_reads_column_slices_and_skips_when_done(cuda, kind):
                                      skip_if_done=True, **kw)[2]) == 0
 
 
-def test_fused_launches_gather_pack_every_batch(cuda):
-    """Every narrow batch of ``fused_ccd`` packs through kernel C: one
-    launch per batch of each phase (and the presample's)."""
+@pytest.mark.parametrize("sweep_impl", ["pairs", "records"])
+def test_fused_launches_gather_pack_every_batch(cuda, sweep_impl, monkeypatch):
+    """Every narrow batch of ``fused_ccd`` packs through kernel C, one
+    launch per chunk of whole batches of each phase: with the chunk cap at
+    three batches of 128, ``ceil(total / 384)`` launches a phase, in the
+    records mode for ``sweep_impl="records"``; TOI and totals as on the
+    CPU."""
+    monkeypatch.setattr(gp, "CHUNK_ROWS", 3 * 128 + 100)
     s = _scene()
     args = (s.vertices_t0, s.vertices_t1, s.edges, s.faces)
     before = dict(gp.LAUNCHES_BY_MODE)
-    res = fused_ccd(*args, device=cuda, narrow_batch=256, presample=False)
+    res = fused_ccd(*args, device=cuda, narrow_batch=128, presample=False,
+                    sweep_impl=sweep_impl)
     torch.cuda.synchronize()
+    launches = 0
     for mode, total in (("vf", res.vf_total), ("ee", res.ee_total)):
-        assert gp.LAUNCHES_BY_MODE[mode] - before[mode] == -(-int(total) // 256)
-    ref = fused_ccd(*args, device="cpu", narrow_batch=256, presample=False)
+        assert int(total) > 384
+        assert gp.LAUNCHES_BY_MODE[mode] - before[mode] == -(-int(total) // 384)
+        launches += -(-int(total) // 384)
+    records = gp.LAUNCHES_BY_MODE["records"] - before["records"]
+    assert records == (launches if sweep_impl == "records" else 0)
+    ref = fused_ccd(*args, device="cpu", narrow_batch=128, presample=False)
     assert float(res.toi) == pytest.approx(float(ref.toi), abs=1e-7)
+    assert (int(res.vf_total), int(res.ee_total)) == (int(ref.vf_total), int(ref.ee_total))
+
+
+def _bench_stream(device, dtype, comp, is_vf, sweep_impl, batch, with_ids=False):
+    """A narrow-loop stream of the bench scene's candidates in ``dtype``
+    (``comp``: compensated rows), on ``device``, in batches of ``batch``."""
+    s = from_numpy_scene(scenes.cloth_on_sphere(grid_n=128, sphere_subdiv=4, drop=0.25),
+                         device)
+    vb = aabb.build_vertex_boxes(s.vertices_t0, s.vertices_t1, dtype=dtype)
+    boxes = (merge_two_lists(vb, aabb.build_face_boxes(vb, s.faces)) if is_vf
+             else aabb.build_edge_boxes(vb, s.edges))
+    sb = sort_boxes(boxes)
+    nar = NarrowSolver.for_phase(is_vf, s.vertices_t0, s.vertices_t1, s.edges, s.faces, 0.0,
+                                 TOL, True, -1, -1, dtype, comp)
+    if sweep_impl == "pairs":
+        pairs, n, _, _ = sweep_ap.sweep_pairs(sb, is_vf, 1 << 18)
+        return PairStream(pairs, int(n), nar, batch)
+    rec, n_rec, _, _ = sweep_records.sweep_records(sb, is_vf, 1 << 18)
+    return RecordStream(sb, rec, int(n_rec), 1 << 18, is_vf, nar, batch, with_ids)
+
+
+@pytest.mark.parametrize("sweep_impl", ["pairs", "records"])
+@pytest.mark.parametrize("kind", sorted(_C_KINDS))
+@pytest.mark.parametrize("is_vf", [True, False])
+def test_gather_pack_chunks_equal_plain_bitwise(cuda, monkeypatch, is_vf, kind, sweep_impl):
+    """The narrow loop's chunks at a cap of three batches of 4,096 plus a
+    few rows (so chunk seams fall inside records): every batch's column
+    slice of its chunk, taken in reverse order, bitwise the plain version
+    on the same rows, one kernel C launch per chunk; in the records mode
+    the written ids are the plain decode's."""
+    dtype, comp = _C_KINDS[kind]
+    monkeypatch.setattr(gp, "CHUNK_ROWS", 3 * 4096 + 5)
+    stream = _bench_stream(cuda, dtype, comp, is_vf, sweep_impl, 4096, with_ids=True)
+    n, nar = stream.n, stream.nar
+    assert stream.chunk == 3 * 4096 and n > 2 * stream.chunk
+    if sweep_impl == "pairs":
+        want_ids = stream.pairs[:n]
+    else:
+        want_ids = sweep_records.decode_records_range(stream.sb, stream.records, stream.cum,
+                                                      0, n, 0, is_vf)[0]
+    before = gp.LAUNCHES
+    chunks = set()
+    for start in reversed(range(0, n, 4096)):
+        stop = min(start + 4096, n)
+        cols = stream.cols(start, stop)
+        torch.cuda.synchronize()
+        assert cols.stride() == (min(stream.chunk, n), 1)
+        want = gp.gather_pack_reference(want_ids, start, stop, nar.vcat, nar.table, is_vf,
+                                        0.0, TOL, comp)
+        assert _same_bits(cols.contiguous(), want), (start, stop)
+        assert torch.equal(stream.ids(start, stop), want_ids[start:stop])
+        chunks.add(start // stream.chunk)
+    assert gp.LAUNCHES - before == len(chunks) == -(-n // stream.chunk)
+
+
+@pytest.mark.parametrize("is_vf", [True, False])
+def test_gather_pack_records_edges_equal_plain(cuda, is_vf):
+    """Kernel C's records mode on a record buffer cut at a budget (a
+    truncated stream whose last chunk ends inside a record), on runs that
+    start and stop inside records, and on an empty run, bitwise its plain
+    twin with the same ids; ``out`` a slice of a wider buffer; bad
+    arguments raise."""
+    s = from_numpy_scene(_scene(), cuda)
+    vb = aabb.build_vertex_boxes(s.vertices_t0, s.vertices_t1)
+    boxes = (merge_two_lists(vb, aabb.build_face_boxes(vb, s.faces)) if is_vf
+             else aabb.build_edge_boxes(vb, s.edges))
+    sb = sort_boxes(boxes)
+    full, _, n_pairs, _ = sweep_records.sweep_records(sb, is_vf, 1 << 16)
+    rec, n_rec, _, ovf = sweep_records.sweep_records(sb, is_vf, int(n_pairs), 97)
+    assert bool(ovf) and rec.shape[0] == 97
+    cum = sweep_records.records_pair_prefix(rec, min(int(n_rec), 97))
+    n = int(cum[-1]) - 3  # a budget that cuts the last record
+    vcat = types.concat_frames(s.vertices_t0, s.vertices_t1, torch.float32)
+    table = types.pack_face_table(vcat, s.faces) if is_vf else types.pack_edge_table(vcat, s.edges)
+    wide = torch.full((31, n + 50), float("nan"), device=cuda)
+    for a, b in ((0, n), (1, n - 1), (5, 6), (n - 7, n), (9, 9)):
+        ids_k = torch.zeros((max(b - a, 1), 2), dtype=torch.int32, device=cuda)
+        ids_p = torch.zeros_like(ids_k)
+        k = gp.gather_pack_records(sb, rec, cum, a, b, vcat, table, is_vf, 1e-3, TOL,
+                                   pairs_out=ids_k, out=wide[:, 7:])
+        torch.cuda.synchronize()
+        p = gp.gather_pack_records_reference(sb, rec, cum, a, b, vcat, table, is_vf, 1e-3,
+                                             TOL, pairs_out=ids_p)
+        assert k.shape == (31, b - a) and k.stride() == (n + 50, 1)
+        assert _same_bits(k.contiguous(), p) and torch.equal(ids_k, ids_p), (a, b)
+    with pytest.raises(ValueError, match="outside"):
+        gp.gather_pack_records(sb, rec, cum, 0, 128 * 97 + 1, vcat, table, is_vf, 0.0, TOL)
+    with pytest.raises(ValueError, match="int64"):
+        gp.gather_pack_records(sb, rec, cum.int(), 0, 4, vcat, table, is_vf, 0.0, TOL)
+    with pytest.raises(ValueError, match="out must"):
+        gp.gather_pack_records(sb, rec, cum, 0, 4, vcat, table, is_vf, 0.0, TOL,
+                               out=wide[:, :3])
+
+
+def test_solver_kernel_guard_flags_a_runaway_query(cuda):
+    """One vertex falling through a triangle with a minimum separation of
+    0.1: no search ends on its tolerances, and kernel B stops the query at
+    its runaway guard with overflow set and a conservative TOI (the vertex
+    comes within 0.1 of the plane at t = 0.45)."""
+    v0 = torch.tensor([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0.2, 0.2, 1]], device=cuda)
+    v1 = v0.clone()
+    v1[3, 2] = -1.0
+    vcat = types.concat_frames(v0, v1)
+    table = types.pack_face_table(vcat, torch.tensor([[0, 1, 2]], device=cuda))
+    pairs = torch.tensor([[3, 0]], dtype=torch.int32, device=cuda)
+    cols = gp.gather_pack(pairs, 0, 1, vcat, table, True, 0.1, TOL)
+    valid = torch.ones((1,), dtype=torch.bool, device=cuda)
+    toi, ovf, checks = solver.solve_cols(cols, valid, True, 1.0, TOL)
+    assert bool(ovf) and 0.0 <= float(toi) <= 0.45 and int(checks) > 0

@@ -10,8 +10,11 @@ call of the frame (rows, valid rows, round limit, seed, checks) to show
 that the branch ran, and holds the frame to JAX ``fused_ccd`` on the same
 scene: TOI within ``abs=1e-7``, pair totals exact.  The JAX frame runs once
 (its CPU path, the XLA sweep and queue solver); no Pallas interpret call.
-Last, the exit on the golden ``dense-cluster`` scene in f32, whose TOI is 0:
-the batches after the TOI reached 0 add no checks.
+Then the exit on the golden ``dense-cluster`` scene in f32, whose TOI is 0:
+the batches after the TOI reached 0 add no checks.  Last, the chunks kernel
+C packs (the chunk cap lowered to three batches): each branch on both
+``sweep_impl``s against JAX, one pack call per chunk, and the exact modes
+from records against pairs.
 """
 
 import os
@@ -24,6 +27,7 @@ from scalable_ccd_tpu.geometry import scenes as jscenes
 from scalable_ccd_tpu.pipeline.fused import fused_ccd as jax_fused_ccd
 from scalable_ccd_tpu_torch import fused_ccd
 from scalable_ccd_tpu_torch.geometry import edges_from_faces, read_ply
+from scalable_ccd_tpu_torch.ops import gather_pack as gp
 from scalable_ccd_tpu_torch.ops import solver
 from scalable_ccd_tpu_torch.pipeline import fused as port_fused
 
@@ -187,3 +191,76 @@ def test_batch_ladder_of_two_stages_matches_jax(scene, reference, launches, bran
         assert inner["valid"] == (0 if overflows else first["valid"])
         assert full["valid"] == (first["valid"] if overflows else 0)
         assert overflows == (branch == "full" and not first["is_vf"])
+
+
+@pytest.fixture
+def packs(monkeypatch):
+    """The narrow loop's kernel C calls of the frames run in the test, in
+    order: ``(mode, is_vf, rows)``, ``mode`` "pairs" or "records", with
+    the chunk cap lowered to three batches of 1,024 and a few rows."""
+    monkeypatch.setattr(gp, "CHUNK_ROWS", 3 * 1024 + 7)
+    calls = []
+
+    def counted(mode, real):
+        def pack(*args, **kw):
+            out = real(*args, **kw)
+            is_vf = args[7] if mode == "records" else args[5]
+            calls.append((mode, bool(is_vf), out.shape[1]))
+            return out
+        return pack
+
+    monkeypatch.setattr(port_fused, "gather_pack", counted("pairs", gp.gather_pack))
+    monkeypatch.setattr(port_fused, "gather_pack_records",
+                        counted("records", gp.gather_pack_records))
+    return calls
+
+
+@pytest.mark.parametrize("sweep_impl", ["pairs", "records"])
+@pytest.mark.parametrize("kw", [dict(escalate_pool="frame", escalate_rounds=0),
+                                dict(escalate_pool="batch", escalate_rounds=0),
+                                dict(escalate_rounds=-1)],
+                         ids=["frame_pool", "ladder", "unbounded"])
+def test_chunked_loop_matches_jax(scene, reference, launches, packs, sweep_impl, kw):
+    """Batches of 1,024 read as column slices of chunks of three batches:
+    the frame pool, the batch ladder and the unbounded loop give JAX's
+    frame on both ``sweep_impl``s, kernel C packs each phase in
+    ``ceil(candidates / 3,072)`` calls of the sweep's mode (chunks of 3,072
+    rows and a shorter last one), and kernel B sees every batch of 1,024."""
+    res = fused_ccd(*scene, narrow_batch=1024, presample=False, sweep_impl=sweep_impl, **kw,
+                    **CPU)
+    _same_as_jax(res, reference)
+    assert sum(c["checks"] for c in launches) == int(res.total_checks)
+    for is_vf, total in ((True, int(res.vf_total)), (False, int(res.ee_total))):
+        rows = [q for mode, vf, q in packs if vf == is_vf]
+        assert {mode for mode, vf, _ in packs if vf == is_vf} == {sweep_impl}
+        assert rows == [min(3072, total - c) for c in range(0, total, 3072)]
+        firsts = [c["q"] for c in launches if c["is_vf"] == is_vf and c["skip"]
+                  and c["round_limit"] == kw["escalate_rounds"]]
+        assert firsts == [min(1024, total - s) for s in range(0, total, 1024)]
+
+
+@pytest.mark.parametrize("mode", ["collisions", "ipc_refine"])
+def test_chunked_exact_modes_records_equal_pairs(packs, monkeypatch, mode):
+    """``collisions=`` (the hits' ids written beside the chunk's rows) and
+    ``ipc_refine`` (every pair's ids, then key-ordered pair rows) on chunks
+    of three batches of 256 give the same frame and hits from records as
+    from pairs, and as with one chunk a phase, on ``cloth_on_sphere(24,
+    2)`` (1,462 VF and 4,729 EE candidates)."""
+    monkeypatch.setattr(gp, "CHUNK_ROWS", 3 * 256 + 7)
+    s = jscenes.cloth_on_sphere(grid_n=24, sphere_subdiv=2, drop=0.3)
+    scene = (s.vertices_t0, s.vertices_t1, s.edges, s.faces)
+    out = {}
+    for impl in ("pairs", "records"):
+        hits = [] if mode == "collisions" else None
+        kw = dict(collisions=hits) if mode == "collisions" else dict(ipc_refine=True)
+        res = fused_ccd(*scene, narrow_batch=256, sweep_impl=impl, **kw, **CPU)
+        out[impl] = (float(res.toi).hex(), int(res.vf_total), int(res.ee_total),
+                     int(res.ipc_refinements), hits)
+    assert out["pairs"] == out["records"]
+    assert len([m for m, _, _ in packs if m == "records"]) >= 2 + 7
+    if mode == "collisions":
+        assert out["pairs"][4]
+        monkeypatch.setattr(gp, "CHUNK_ROWS", 1 << 20)
+        hits = []
+        fused_ccd(*scene, narrow_batch=256, collisions=hits, **CPU)
+        assert hits == out["pairs"][4]

@@ -102,11 +102,13 @@ def test_stage_tool_totals_equal_fused(staged):
     by = {(o["stage"], o["phase"]): o for o in out}
     want = {"vf": int(ref.vf_total), "ee": int(ref.ee_total)}
     for ph in ("vf", "ee"):
-        for stage in ("sweep_count_only", "sweep_pairs", "sweep_records",
-                      "sweep_records_decode"):
+        for stage in ("sweep_count_only", "sweep_pairs", "sweep_records"):
             assert by[(stage, ph)]["pairs"] == want[ph], (stage, ph)
-        for stage in ("gather_pack", "solve"):
+        for stage in ("gather_pack", "records_pack", "solve"):
             assert by[(stage, ph)]["queries"] == want[ph]
+        # one chunk a phase, from the pairs or straight from the records
+        assert by[("gather_pack", ph)]["launches"] == by[("records_pack", ph)]["launches"] == 1
+        assert by[("records_pack", ph)]["records"] == by[("sweep_records", ph)]["records"]
         # every budget is sized from the count_only total
         assert by[("sweep_pairs", ph)]["budget"] == 1 << (want[ph] - 1).bit_length()
         assert by[("sweep_records", ph)]["records"] <= want[ph]
