@@ -46,19 +46,29 @@ when it fails:
    written are records of the full run); A' plus the full decode timed
    against kernel A;
 10. kernel B ``round_limit`` 128 against its plain version on the bench
-    candidates: seeded with the final TOI the unfinished rows and checks
-    are equal; from a cold start the ladder gives the unbounded TOI
-    bitwise; then kernel B global and ``round_limit`` 128 against their
-    plain versions on grid-600's first four batches per phase (the plain
-    ``any_order`` sweep's row order): the cold global TOI within 1e-7, and
-    seeded with it the unfinished rows and checks equal;
+    candidates: each phase's rows in one launch (the main path's pass over
+    a chunk, kernel B's persistent one-thread form) seeded with the final
+    TOI give every 16,384-row batch's unfinished rows, checks and per-query
+    checks of the plain version, and equal the per-batch launches, both
+    timed; from a cold start the ladder gives the unbounded TOI bitwise;
+    then kernel B global, bounded (per-query caps 10 and 100, a global cap
+    of 10^6) and ``round_limit`` 128 against their plain versions on
+    grid-600's first four batches per phase (the plain ``any_order``
+    sweep's row order): the cold global TOI within 1e-7, the capped
+    per-query TOIs and checks equal, the global cap's TOI the unbounded one,
+    and seeded with the global TOI the unfinished rows and checks equal;
+    and the round-limited pass over each phase's first chunk of up to 2^20
+    rows in one launch against the plain version on every batch, timed
+    against the same rows in per-batch launches;
 11. the congested main path: ``fused_ccd(..., device="cuda")`` at its
     defaults on grid-600 (auto must resolve to the congestion ordering, the
     batch ladder and no presample) with zeroed launch counters, against
     ``bucket_minor=False, escalate_rounds=-1``, then timed in turns with
     that run and with the ordering alone (``escalate_rounds=-1``); the same with
     ``sweep_impl="records"``; the bench scene at the new defaults (frame
-    pool) against ``escalate_rounds=-1``, both timed;
+    pool) against ``escalate_rounds=-1``, both timed; the round-limited
+    launches of a default frame, which must be one per chunk (grid-600 4;
+    the bench 2, and one more per phase for its presample batch);
 12. the f64 kernels against their plain versions on the bench scene built
     in f64: kernel A whole, ranged and ``any_order`` (equal pair sets and
     totals, a subset of the f32 set), kernel A' (equal record multisets,
@@ -91,14 +101,15 @@ when it fails:
     are;
 15. kernel B on the rows the main path gives it, recorded from its frames
     (``scalable_ccd_tpu_torch.tools.stages --kernel-b``): the bench frame's
-    16,384-row round-limited passes and frame pool blocks, the bench frame
-    without escalation, grid-600's first four batches per phase and the
+    round-limited passes (one per chunk, also replayed in 16,384-row
+    launches) and frame pool blocks, the bench frame without escalation,
+    grid-600's first round-limited pass and first four batches per phase and the
     per-query rows of ``fused_ccd(collisions=[])`` on
     ``cloth_on_sphere(64, 3)``, in each of their modes, against the plain
     version (equal TOIs, and equal checks and unfinished rows where the
     order fixes them), with the spread of the per-query checks (mean, p50,
-    p99, max; the lane efficiency of warps of 32 queries, the one-thread
-    layout, and of groups of 4) and both times; ``ptxas``'s registers,
+    p99, max; the lane efficiency of warps of 32 consecutive queries each
+    held by its deepest, and of groups of 4) and both times; ``ptxas``'s registers,
     spills and shared memory for every instantiation of kernels B, A and
     A', and kernel A''s sweep grid (blocks, dynamic shared memory);
 16. the multi-device path: kernel A''s ``row_range`` against its plain
@@ -624,7 +635,8 @@ def main():
     congestion = phase_congestion(torch, grid600, sweep_ap)
     records = phase_records(torch, bargs, congestion["sorted"], sweep_ap, sweep_records)
     escalation = phase_escalation(torch, dev, bench_rows, solver)
-    phase_grid_solver(torch, dev, grid600, congestion["sample"], types, solver)
+    grid_b = phase_grid_solver(torch, dev, grid600, congestion["sample"], congestion["chunk"],
+                               types, solver)
     congested = phase_congested_main(torch, dev, grid600, bargs, cloth_on_sphere, res)
     congestion_row = congestion["row"]
     del grid600, congestion
@@ -1098,8 +1110,9 @@ def phase_congestion(torch, args, sweep_ap):
     """The bucket-ordered sort of grid-600 and kernel A ``any_order`` on it,
     against its plain version and against kernel A on the major sort."""
     from scalable_ccd_tpu_torch.broad_phase import sort_boxes
+    from scalable_ccd_tpu_torch.ops.gather_pack import chunk_rows
 
-    out = {"sorted": {}, "sample": {}}
+    out = {"sorted": {}, "sample": {}, "chunk": {}}
     kms_sum = pms_sum = 0.0
     bnd = bound(0, 0)
     for ph, (two, boxes) in phase_boxes(args).items():
@@ -1142,6 +1155,9 @@ def phase_congestion(torch, args, sweep_ap):
         out["sorted"][ph] = (two, boxes, bucket, major, planes, budget, work)
         # the first four narrow batches, in the plain sweep's row order
         out["sample"][ph] = p[0][: min(int(p[1]), 4 * BATCH)]
+        # the first chunk the narrow loop packs (kernel C) and kernel B's
+        # round-limited pass reads in one launch
+        out["chunk"][ph] = p[0][: min(int(p[1]), chunk_rows(BATCH))]
         emit(phase="congestion", scene="cloth_on_sphere(600, 4)", which=ph, boxes=bucket.n,
              pairs=n_true, major_slots=major_slots(major), any_order_slots=work[0],
              any_order_row_tests=work[1], sort_both_ms=sort_ms,
@@ -1241,30 +1257,60 @@ def phase_records(torch, bench_args, grid_sorted, sweep_ap, sweep_records):
 
 # ---- 10. kernel B's round limit --------------------------------------------------
 
+def round_limited_chunk(torch, solver, batches, is_vf, seed, limit, label):
+    """Kernel B's round-limited pass over the rows of ``batches`` in one
+    launch, the shape of the main path's pass over a chunk, seeded with
+    ``seed`` (at most the rows' unbounded TOI, so no query lowers it),
+    against the plain lockstep DFS on every batch: the unfinished rows,
+    checks and per-query checks of each batch's segment equal, the TOI
+    unmoved; and the same launch cut into the batches (the earlier shape)
+    equal to it.  Returns ``(unfinished, checks, ms, batches_ms, plain_ms)``,
+    device ms of the one launch and of the per-batch launches (each behind
+    a GPU sleep) and host ms of the plain version."""
+    rows = torch.cat(batches)
+    valid = torch.ones((rows.shape[0],), dtype=torch.bool, device=rows.device)
+    k = solver._solve_query_checks(rows, valid, is_vf, seed, TOL, round_limit=limit)
+    torch.cuda.synchronize()
+    ps, plain_ms = timed_once(lambda: [
+        solver._reference_query_checks(b, valid[:b.shape[0]], is_vf, seed, TOL,
+                                       round_limit=limit) for b in batches])
+    check(not bool(k[1]) and float(k[0]) == float(seed), f"{label}: toi moved or overflow")
+    s = 0
+    for i, (b, p) in enumerate(zip(batches, ps)):
+        seg = slice(s, s + b.shape[0])
+        check(torch.equal(k[3][seg], p[3]), f"{label} batch {i}: unfinished rows differ")
+        check(torch.equal(k[4][seg], p[4]) and int(k[4][seg].sum()) == int(p[2]),
+              f"{label} batch {i}: checks differ ({int(k[4][seg].sum())} vs {int(p[2])})")
+        s += b.shape[0]
+    cols = rows.t().contiguous()
+    parts = [solver.solve_cols(cols[:, s:s + BATCH], valid[s:s + BATCH], is_vf, seed, TOL,
+                               round_limit=limit) for s in range(0, rows.shape[0], BATCH)]
+    check(torch.equal(torch.cat([o[3] for o in parts]), k[3])
+          and sum(int(o[2]) for o in parts) == int(k[2]),
+          f"{label}: one launch and per-batch launches differ")
+    ms = device_ms(lambda: solver.solve_cols(cols, valid, is_vf, seed, TOL,
+                                             round_limit=limit), 5)
+    batches_ms = device_ms(lambda: [
+        solver.solve_cols(cols[:, s:s + BATCH], valid[s:s + BATCH], is_vf, seed, TOL,
+                          round_limit=limit) for s in range(0, rows.shape[0], BATCH)], 3)
+    return int(k[3].sum()), int(k[2]), ms, batches_ms, plain_ms
+
+
 def phase_escalation(torch, dev, bench_rows, solver):
     """Kernel B ``round_limit`` 128 against the plain lockstep DFS on the
-    bench candidates in batches of 16,384: seeded with the final TOI the
-    unfinished rows and checks are equal; from a cold start the ladder gives
-    the unbounded TOI bitwise."""
+    bench candidates: each phase's rows in one launch, the main path's pass
+    over a chunk, seeded with the final TOI, hold every 16,384-row batch's
+    unfinished rows, checks and per-query checks to the plain version's, and
+    equal the per-batch launches; from a cold start the ladder gives the
+    unbounded TOI bitwise.  The row's ``ms`` is the one launch per phase."""
     limit = 128
     kms_sum = pms_sum = 0.0
     bnd = bound(0, 0)
     for is_vf, (batches, valids, final) in bench_rows.items():
         ph = "vf" if is_vf else "ee"
         seed = torch.tensor(final, dtype=torch.float32, device=dev)
-        unfin = checks = 0
-
-        def seeded(fn):
-            return [fn(b, v, is_vf, seed, TOL, round_limit=limit) for b, v in zip(batches, valids)]
-
-        ks, kms = timed_once(lambda: seeded(solver.solve_packed))
-        ps, pms = timed_once(lambda: seeded(solver.solve_packed_reference))
-        for i, (k, p) in enumerate(zip(ks, ps)):
-            check(torch.equal(k[3], p[3]), f"round_limit {ph} batch {i}: unfinished rows differ")
-            check(int(k[2]) == int(p[2]), f"round_limit {ph} batch {i}: checks {int(k[2])} "
-                  f"vs plain {int(p[2])}")
-            check(float(k[0]) == float(p[0]) == final, f"round_limit {ph} batch {i}: toi moved")
-            unfin, checks = unfin + int(k[3].sum()), checks + int(k[2])
+        unfin, checks, kms, batches_ms, pms = round_limited_chunk(
+            torch, solver, batches, is_vf, seed, limit, f"round_limit {ph}")
 
         def cold(fn):
             toi = torch.ones((), dtype=torch.float32, device=dev)
@@ -1280,43 +1326,83 @@ def phase_escalation(torch, dev, bench_rows, solver):
         kms_sum, pms_sum = kms_sum + kms, pms_sum + pms
         n_q = sum(b.shape[0] for b in batches)
         bnd = add_bounds(bnd, solve_bound(n_q, checks, n_q))
-        emit(phase="escalation", which=ph, round_limit=limit, queries=n_q, unfinished=unfin,
-             seeded_checks=checks, round_limit_ms=kms, plain_ms=pms, ladder_toi=ladder,
-             unbounded_toi=final, ladder_ms=esc_ms, unbounded_ms=one_ms)
+        emit(phase="escalation", which=ph, round_limit=limit, queries=n_q, batches=len(batches),
+             unfinished=unfin, seeded_checks=checks, round_limit_ms=kms,
+             round_limit_batches_ms=batches_ms, plain_ms=pms, ladder_toi=ladder,
+             unbounded_toi=final, ladder_ms=esc_ms, unbounded_ms=one_ms,
+             grid=solver._lane_grid(n_q, is_vf, False, False))
     return {"max_abs_err": 0.0, "ms": kms_sum, "plain_ms": pms_sum, **bnd}
 
 
-def phase_grid_solver(torch, dev, args, samples, types, solver):
-    """Kernel B global and ``round_limit`` 128 against the plain versions on
-    grid-600's first four batches of 16,384 candidates per phase: from a
-    cold start the global TOIs agree within 1e-7; seeded with that TOI the
-    round-limited pass's unfinished rows and checks are equal."""
+def phase_grid_solver(torch, dev, args, samples, chunks, types, solver):
+    """Kernel B on grid-600's candidates (the plain ``any_order`` sweep's row
+    order): global, bounded (per-query caps 10 and 100, a global cap of
+    10^6) and ``round_limit`` 128 against the plain versions on the first
+    four batches of 16,384 per phase; the cold global TOIs within 1e-7, the
+    capped per-query TOIs and checks equal, the global cap giving the
+    unbounded TOI, and seeded with the global TOI the round-limited pass's
+    unfinished rows and checks equal.  Then the round-limited pass over
+    each phase's first chunk (up to 2^20 rows) in one launch, seeded with
+    the chunk's own unbounded TOI, against the plain version on every batch
+    (``round_limited_chunk``).  Returns the JSON fields of the bounded and
+    round-limited modes."""
     limit = 128
     v0, v1, e, f = args
     vcat = types.concat_frames(v0, v1, torch.float32)
-    for ph, pairs in samples.items():
-        is_vf = ph == "vf"
+
+    def packed(pairs, is_vf):
         if is_vf:
             q = types.gather_vf_queries(vcat, types.pack_face_table(vcat, f), pairs)
         else:
             q = types.gather_ee_queries(types.pack_edge_table(vcat, e), pairs)
         rows = solver.pack_query_rows(q, is_vf, 0.0, TOL)
-        batches = [rows[s:s + BATCH].contiguous() for s in range(0, rows.shape[0], BATCH)]
+        return [rows[s:s + BATCH].contiguous() for s in range(0, rows.shape[0], BATCH)]
+
+    out = {"bounded": {"ms": 0.0, "plain_ms": 0.0, **bound(0, 0)},
+           "round_limit": {"ms": 0.0, "plain_ms": 0.0, **bound(0, 0)}}
+    for ph, pairs in samples.items():
+        is_vf = ph == "vf"
+        batches = packed(pairs, is_vf)
         valids = [torch.ones((b.shape[0],), dtype=torch.bool, device=dev) for b in batches]
 
-        def cold(fn):
+        def cold(fn, **kw):
             toi = torch.ones((), dtype=torch.float32, device=dev)
-            checks = 0
+            checks, pqs = 0, []
             for b, v in zip(batches, valids):
-                t, _, c = fn(b, v, is_vf, toi, TOL)
-                toi, checks = torch.minimum(toi, t), checks + c
-            return toi, checks
+                o = fn(b, v, is_vf, toi, TOL, **kw)
+                toi, checks = torch.minimum(toi, o[0]), checks + int(o[2])
+                pqs += [o[3]] if len(o) > 3 else []
+            return toi, checks, pqs
 
-        (tk, ck), (tp, cp) = cold(solver.solve_packed), cold(solver.solve_packed_reference)
+        (tk, ck, _), (tp, cp, _) = cold(solver.solve_packed), cold(solver.solve_packed_reference)
         err = abs(float(tk) - float(tp))
         check(err <= 1e-7, f"grid-600 kernel B {ph}: toi {float(tk)} vs plain {float(tp)}")
         g_ms, g_plain_ms = alternate(lambda: cold(solver.solve_packed_reference),
                                      lambda: cold(solver.solve_packed), 1)
+        n_q = sum(b.shape[0] for b in batches)
+        bounded = {}
+        for label, kw in (("cap10", dict(per_query=True, max_iterations=10)),
+                          ("cap100", dict(per_query=True, max_iterations=100)),
+                          ("global_cap", dict(max_iterations=1_000_000))):
+            (tb, cb, pk), b_ms = timed_once(lambda: cold(solver.solve_packed, **kw))
+            (tq, cq, pp), b_plain_ms = timed_once(
+                lambda: cold(solver.solve_packed_reference, **kw))
+            if kw.get("per_query"):
+                check(all(torch.equal(x, y) for x, y in zip(pk, pp)) and cb == cq
+                      and float(tb) == float(tq),
+                      f"grid-600 bounded {label} {ph}: per-query TOIs or checks differ")
+                need = cq
+            else:
+                check(float(tb) == float(tk) and float(tq) == float(tp),
+                      f"grid-600 {label} {ph}: capped {float(tb)} / plain {float(tq)} vs "
+                      f"unbounded {float(tk)} / plain {float(tp)}")
+                need = least_checks(solver, batches, is_vf, tp)
+            b_ms = device_ms(lambda: cold(solver.solve_packed, **kw), 3)
+            bb = solve_bound(n_q, need, 4 * n_q if kw.get("per_query") else 0)
+            bounded[label] = {"ms": b_ms, "plain_ms": b_plain_ms, "checks": cb, **bb}
+            o = out["bounded"]
+            o.update(ms=o["ms"] + b_ms, plain_ms=o["plain_ms"] + b_plain_ms,
+                     **add_bounds({k: o[k] for k in ("bound_ms", "bound_by")}, bb))
         seed = torch.tensor(float(tk), dtype=torch.float32, device=dev)
 
         def seeded(fn):
@@ -1332,15 +1418,33 @@ def phase_grid_solver(torch, dev, args, samples, types, solver):
             check(float(k[0]) == float(p[0]) == float(tk),
                   f"grid-600 round_limit {ph} batch {i}: toi moved")
             unfin, checks = unfin + int(k[3].sum()), checks + int(k[2])
-        n_q = rows.shape[0]
         least = least_checks(solver, batches, is_vf, tp)
         gb, rb = solve_bound(n_q, least), solve_bound(n_q, checks, n_q)
+
+        # the first chunk in one launch, seeded with its own unbounded TOI
+        cb = packed(chunks[ph], is_vf)
+        n_c = sum(b.shape[0] for b in cb)
+        cvalid = torch.ones((n_c,), dtype=torch.bool, device=dev)
+        c_toi = solver.solve_packed(torch.cat(cb), cvalid, is_vf, 1.0, TOL)[0]
+        c_unfin, c_checks, c_ms, c_batches_ms, c_plain_ms = round_limited_chunk(
+            torch, solver, cb, is_vf, c_toi, limit, f"grid-600 round_limit chunk {ph}")
+        cbnd = solve_bound(n_c, c_checks, n_c)
+        o = out["round_limit"]
+        o.update(ms=o["ms"] + c_ms, plain_ms=o["plain_ms"] + c_plain_ms,
+                 **add_bounds({k: o[k] for k in ("bound_ms", "bound_by")}, cbnd))
         emit(phase="grid600_solver", which=ph, queries=n_q, batches=len(batches),
-             toi=float(tk), plain_toi=float(tp), abs_err=err, checks=int(ck),
-             plain_checks=int(cp), least_checks=least, global_ms=g_ms, global_plain_ms=g_plain_ms, global_bound_ms=gb["bound_ms"],
-             global_bound_by=gb["bound_by"], unfinished=unfin, seeded_checks=checks,
+             toi=float(tk), plain_toi=float(tp), abs_err=err, checks=ck,
+             plain_checks=cp, least_checks=least, global_ms=g_ms, global_plain_ms=g_plain_ms,
+             global_bound_ms=gb["bound_ms"], global_bound_by=gb["bound_by"],
+             bounded=bounded, unfinished=unfin, seeded_checks=checks,
              round_limit_ms=r_ms, round_limit_plain_ms=r_plain_ms,
-             round_limit_bound_ms=rb["bound_ms"], round_limit_bound_by=rb["bound_by"])
+             round_limit_bound_ms=rb["bound_ms"], round_limit_bound_by=rb["bound_by"],
+             chunk_queries=n_c, chunk_batches=len(cb), chunk_toi=float(c_toi),
+             chunk_unfinished=c_unfin, chunk_checks=c_checks, chunk_round_limit_ms=c_ms,
+             chunk_round_limit_batches_ms=c_batches_ms, chunk_plain_ms=c_plain_ms,
+             chunk_bound_ms=cbnd["bound_ms"], chunk_bound_by=cbnd["bound_by"],
+             chunk_grid=solver._lane_grid(n_c, is_vf, False, False))
+    return {k: {"max_abs_err": 0.0, **v} for k, v in out.items()}
 
 
 # ---- 11. the congested main path ---------------------------------------------------
@@ -1375,6 +1479,12 @@ def phase_congested_main(torch, dev, grid600, bench_args, cloth_on_sphere, bench
               f"{label}: pair totals differ")
         return err
 
+    from scalable_ccd_tpu_torch.ops.gather_pack import chunk_rows
+
+    def chunks(res):
+        """The chunks of a frame's candidates: one round-limited pass each."""
+        return sum(-(-int(n) // chunk_rows(BATCH)) for n in (res.vf_total, res.ee_total))
+
     n_vf = grid600[0].shape[0] + grid600[3].shape[0]
     n_ee = grid600[2].shape[0]
     knobs = resolve_knobs(n_vf, n_ee)
@@ -1390,6 +1500,9 @@ def phase_congested_main(torch, dev, grid600, bench_args, cloth_on_sphere, bench
     counts = read_counts()
     check(counts["sweep_any_order"] > 0 and counts["solve_round_limit"] > 0
           and counts["solve_global"] > 0, f"grid-600 main path skipped a kernel mode: {counts}")
+    check(counts["solve_round_limit"] == chunks(res),
+          f"grid-600: {counts['solve_round_limit']} round-limited launches, "
+          f"{chunks(res)} chunks")
     ref = run(grid600, bucket_minor=False, escalate_rounds=-1)
     err = same(res, ref, "grid-600 defaults vs plain ordering unbounded")
     # in turns: defaults, plain ordering unbounded, congestion ordering
@@ -1419,6 +1532,28 @@ def phase_congested_main(torch, dev, grid600, bench_args, cloth_on_sphere, bench
          ms_per_frame_median=rms, ms_per_frame=rtimes)
 
     # the bench scene at the new defaults (frame pool) against one unbounded pass
+    # one round-limited pass per chunk, and one more per phase for the
+    # presample's batch, which is escalated on its own as in the JAX package
+    kb = resolve_knobs(bench_args[0].shape[0] + bench_args[3].shape[0], bench_args[2].shape[0])
+    bench_counts = {}
+    for label, kw in (("defaults", {}), ("presample_off", {"presample": False})):
+        zero_counts()
+        run(bench_args, **kw)
+        torch.cuda.synchronize()
+        bench_counts[label] = read_counts()
+    presampled = int(kb.presample_vf) + int(kb.presample_ee)
+    for label, want in (("defaults", chunks(bench_res) + presampled),
+                        ("presample_off", chunks(bench_res))):
+        got = bench_counts[label]["solve_round_limit"]
+        check(got == want, f"bench {label}: {got} round-limited launches, expected {want} "
+              f"({chunks(bench_res)} chunks)")
+    emit(phase="round_limited_launches_per_frame",
+         bench=bench_counts["defaults"]["solve_round_limit"],
+         bench_presample_off=bench_counts["presample_off"]["solve_round_limit"],
+         bench_chunks=chunks(bench_res), bench_presample_batches=presampled,
+         grid600=counts["solve_round_limit"], grid600_chunks=chunks(res),
+         bench_kernel_b=bench_counts["defaults"]["solve_f32"],
+         grid600_kernel_b=counts["solve_f32"])
     bref = run(bench_args, escalate_rounds=-1)
     berr = same(bench_res, bref, "bench defaults vs escalate_rounds=-1")
     zero_counts()
@@ -2229,8 +2364,8 @@ def phase_precision_path(torch, dev, bench_scene, mid_scene, grid600_scene, f32_
 
 def ptxas_by_instantiation(log_text):
     """``{instantiation: "N registers, ..."}`` from a ``ptxas -v`` build log:
-    kernel B's entry functions by scalar type and template flags (VF,
-    per-query, shared domains), kernel A's by scalar type and mode
+    kernel B's entry functions by scalar type, template flags (VF,
+    per-query) and form (shared domains, one thread per query), kernel A's by scalar type and mode
     (``any_order``, ``count_only``) and kernel A''s by scalar type and
     ordering, each with its two unit-count launches."""
     import re
@@ -2241,10 +2376,10 @@ def ptxas_by_instantiation(log_text):
             name = None
             flags = lambda m: [f == "1" for f in re.findall(r"Lb([01])E", m.group(2))]  # noqa: E731
             fp = lambda m: "f32" if m.group(1) == "f" else "f64"  # noqa: E731
-            if m := re.search(r"solve_kernelI([fd])((?:Lb[01]E)+)", line):
-                vf, pq, share = flags(m)
-                name = (f"{fp(m)} {'vf' if vf else 'ee'}{' per_query' if pq else ''}"
-                        f"{' shared' if share else ''}")
+            if m := re.search(r"solve(_lane)?_kernelI([fd])((?:Lb[01]E)+)", line):
+                vf, pq = [f == "1" for f in re.findall(r"Lb([01])E", m.group(3))]
+                name = (f"{'f32' if m.group(2) == 'f' else 'f64'} {'vf' if vf else 'ee'}"
+                        f"{' per_query' if pq else ''}{' one_thread' if m.group(1) else ' shared'}")
             elif m := re.search(r"sweep_units_kernelI([fd])((?:Lb[01]E)+)", line):
                 any_order, count_only = flags(m)
                 name = (f"sweep {fp(m)} {'any_order' if any_order else 'whole'}"

@@ -1,6 +1,6 @@
 // Kernel B: tight-inclusion root finder; in the unbounded modes eight lanes
-// per query and domains shared inside a block, elsewhere one thread per
-// query.
+// per query and domains shared inside a block, elsewhere one lane per query
+// on a persistent grid.
 //
 // Replaces: scalable_ccd_tpu/ops/pallas_solver.py, _solver_kernel (global,
 // per_query, max_iterations and round_limit modes, launched by
@@ -17,21 +17,46 @@
 // a frame pool block whose deepest query did 806 took 0.44 ms on an H100
 // (tools/stages.py --kernel-b).  f64 rows cost what f32 rows cost.
 //
-// Design: a block holds 32 queries, their rows staged in shared memory; the
-// host picks the form from the mode (template SHARE):
+// Design: the host picks the form from the mode.
 //
-// 1. Bounded and round-limited modes: one thread per query, as the
-//    reference's kernel, in 32-thread blocks.  Their results (the unfin
-//    plane, the checks, a capped TOI) are defined by each query's
-//    depth-first order, so nothing may change it; and they are throughput
-//    passes over full batches of mostly shallow queries.  Eight lanes per
-//    query measured 10-40% slower there (the lanes split only the corners,
-//    and an evaluation's chain is its decisions, stack and unwind).
-// 2. Unbounded global and per-query modes: domains shared inside a block,
-//    eight lanes per query.  Their TOIs do not depend on the order (accept,
-//    reject and the caps are decisions of the domain alone, and pruning
-//    drops only domains at or after an accepted time), and their time is
-//    that of the deepest query.
+// 1. Bounded and round-limited modes (solve_lane_kernel): one lane per
+//    query, as the reference's kernel.  Their results (the unfin plane, the
+//    checks, a capped TOI) are defined by each query's depth-first order,
+//    so nothing may change it.  They are throughput passes over many mostly
+//    shallow queries (a median of ~10 evaluations; a round-limited query
+//    stops at its limit, 128 rounds on the main path), so what bounds them
+//    is the latency of each query's chain and how many chains the card
+//    keeps in flight; the bytes (one 31-scalar row per query) are 500x
+//    under it.  Launched one per 16,384-row batch in 32-thread blocks, this
+//    form filled ~4 warps of an SM's 64, and each warp of 32 queries lasted
+//    as long as its deepest.  Now:
+//    - a persistent grid of 128-thread blocks, as many as stay resident
+//      (cudaOccupancyMaxActiveBlocksPerMultiprocessor times the SMs) and no
+//      more than the queries need, so that one launch over a chunk of up to
+//      2^20 rows fills the card (the narrow loop's round-limited pass runs
+//      once per chunk, pipeline/fused.py);
+//    - each warp takes 32 consecutive queries at a time from a global cursor
+//      (one atomicAdd per warp), stages their rows coalesced into its own
+//      slice of shared memory with 1 / tol, the exactness flag and the valid
+//      byte (Stage), and hands them out lane by lane: a lane whose query
+//      ends takes the next staged query, so a deep query holds its own lane
+//      and not its warp; the warp fetches the next 32 once every staged
+//      query is taken;
+//    - the search loop is flat: an iteration runs one round of every busy
+//      lane's search, then the idle lanes refill, so no lane waits at the
+//      end of another's search.  A lane keeps its query's row in registers
+//      (the staged slot is refilled while the query runs).
+//    Each query's search is the form's as before: the same order, round
+//    count, cap and guard, and its unfin byte and checks are written by
+//    query index.  Eight lanes per query measured 10-40% slower in these
+//    modes (the lanes split only the corners, and an evaluation's chain is
+//    its decisions, stack and unwind).
+// 2. Unbounded global and per-query modes (solve_kernel): domains shared
+//    inside a block, eight lanes per query, a block of 32 queries with
+//    their rows staged in shared memory.  Their TOIs do not depend on the
+//    order (accept, reject and the caps are decisions of the domain alone,
+//    and pruning drops only domains at or after an accepted time), and
+//    their time is that of the deepest query.
 //    - Eight lanes per query: lane (it, iu, iv) computes F at one corner of
 //      the domain with the expression and association of domain_corners
 //      (narrow_phase/types.py), and the per-dimension min and max are
@@ -65,8 +90,8 @@
 // In both forms the split choice's w / tol is w * (1 / tol), exact because
 // every width is a power of two (below).
 //
-// Modes (template PER_QUERY and SHARE, runtime max_iterations and
-// round_limit; allow_zero_toi is a runtime flag too):
+// Modes (template PER_QUERY, runtime max_iterations and round_limit;
+// allow_zero_toi is a runtime flag too):
 // - global (the TPU kernel's default mode): the running TOI is one device
 //   float, seeded with toi_init, read at every evaluation and lowered with
 //   atomicMin on its int bits (valid for non-negative floats; the
@@ -156,15 +181,16 @@ template <> struct Scalar<double> { static constexpr int kDepth = 128; };
 constexpr int kMaxDepth = 128;  // the deepest stack of any scalar type
 constexpr long long kMaxSteps = 1ll << 20;  // runaway guard per query
 constexpr unsigned kDimMask = 3u, kSideHi = 4u, kPending = 8u;
+constexpr unsigned kFullMask = 0xffffffffu;
 
 constexpr int kRowWidth = 31;  // scalars per packed query row
-constexpr int kGroups = 32;  // queries (lane groups) per block
-// lanes per query: eight where domains are shared (one corner each), one
-// where each query keeps its order (measured faster there, PERF.md)
-template <bool SHARE> struct Layout {
-  static constexpr int kLanes = SHARE ? 8 : 1;
-  static constexpr int kThreads = kLanes * kGroups;
-};
+// form 2: queries (lane groups) per block, lanes per query, threads
+constexpr int kGroups = 32;
+constexpr int kShareLanes = 8;
+constexpr int kShareThreads = kShareLanes * kGroups;
+// form 1: threads per block (four warps, each staging its own queries)
+constexpr int kLaneThreads = 128;
+constexpr int kLaneWarps = kLaneThreads / 32;
 // states of a queue entry
 constexpr int kEmpty = 0, kHeld = 1, kFull = 2;
 // a pending sibling is handed to an idle group only from this many levels
@@ -174,6 +200,10 @@ constexpr int kStealMin = 3;
 // an idle group that has waited this many cycles (~35 s) for work gives up
 // and flags overflow rather than hang the card; no correct run comes near
 constexpr long long kStallCycles = 1ll << 36;
+
+// form 1's query cursor: the next query a warp takes, reset before each
+// launch on its stream (sccd_solve_packed)
+__device__ unsigned long long g_cursor;
 
 __device__ __forceinline__ float tmin(float a, float b) { return fminf(a, b); }
 __device__ __forceinline__ float tmax(float a, float b) { return fmaxf(a, b); }
@@ -209,10 +239,28 @@ __device__ __forceinline__ T load_volatile(const T* addr) {
   return *reinterpret_cast<const volatile T*>(addr);
 }
 
-// The block's query rows, staged in shared memory as (31, 32): field k of
-// the query in slot s at v[k][s], so the queries of a warp read
-// neighbouring words and the eight lanes of a group one (a broadcast).
-// rcp[d][s] = 1 / tol_d and exact[s] are computed once per query (below).
+// 1 / tol per dimension, and whether w * (1 / tol) is w / tol bitwise for
+// every width w of a domain.  Every width is a power of two 2^-k (a dyadic
+// domain), so w / tol is 2^-k * (1 / tol) rounded once, and scaling by 2^-k
+// commutes with the rounding while both values stay normal: w * rcp is the
+// quotient bitwise.  Tolerances whose reciprocal lies outside [2^-64, 2^64]
+// (0, inf, NaN, extreme values) keep the division.
+template <typename T>
+__device__ __forceinline__ bool reciprocals(T t0, T t1, T t2, T (&rcp)[3]) {
+  const T t[3] = {t0, t1, t2};
+  bool exact = true;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    rcp[d] = T(1) / t[d];
+    exact = exact && rcp[d] >= T(5.421010862427522e-20) && rcp[d] <= T(1.8446744073709552e19);
+  }
+  return exact;
+}
+
+// Form 2's block rows, staged in shared memory as (31, 32): field k of the
+// query in slot s at v[k][s], so the queries of a warp read neighbouring
+// words and the eight lanes of a group one (a broadcast).  rcp[d][s] = 1 /
+// tol_d and exact[s] are computed once per query (reciprocals).
 template <typename T>
 struct Rows {
   T v[kRowWidth][kGroups];
@@ -220,24 +268,42 @@ struct Rows {
   int exact[kGroups];
 };
 
+// Form 1's staged queries of one warp, the same layout; flags[s]: bit 0 the
+// reciprocals are exact, bit 1 the row is valid.
+template <typename T>
+struct Stage {
+  T v[kRowWidth][32];
+  T rcp[3][32];
+  int flags[32];
+};
+
+// A query's 24 point coordinates, field 3k + d, read from the block's rows
+// at every evaluation (form 2).  `slot` is made opaque to the compiler so
+// that it does not hoist them into 24 registers for the whole search (fewer
+// registers, more queries resident per SM).  Form 1 passes them as a
+// register array.
+template <typename T>
+struct SharedPoints {
+  const T* row;
+  __device__ __forceinline__ T operator[](int i) const { return row[i * kGroups]; }
+};
+
+template <typename T>
+__device__ __forceinline__ SharedPoints<T> shared_points(const Rows<T>& rows, int slot) {
+  asm volatile("" : "+r"(slot));
+  return {&rows.v[0][slot]};
+}
+
 // min/max over the 8 corners of the box of F, per xyz dim: this lane's
 // corners (bit 2: t, bit 1: u, bit 0: v) with the association of
 // domain_corners (narrow_phase/types.py), then a butterfly over the group's
 // LANES lanes; min and max are exact, so the order of the reduction is free.
-// With several lanes per query its 24 point coordinates are read from the
-// block's rows at every evaluation: `slot` is made opaque to the compiler so
-// that it does not hoist them into 24 registers for the whole search (fewer
-// registers, more queries resident per SM).  One lane keeps them in
-// registers.
-template <typename T, bool IS_VF, int LANES>
-__device__ __forceinline__ void corners_minmax(const Rows<T>& rows, int slot,
-                                               const T (&lo)[3],
+template <typename T, bool IS_VF, int LANES, typename Points>
+__device__ __forceinline__ void corners_minmax(const Points& pts, const T (&lo)[3],
                                                const T (&hi)[3], int corner,
                                                unsigned gmask, T (&cmin)[3],
                                                T (&cmax)[3]) {
   constexpr int kCorners = 8 / LANES;  // domain corners per lane
-  if (LANES > 1) asm volatile("" : "+r"(slot));
-  const T* row = &rows.v[0][slot];
 #pragma unroll
   for (int j = 0; j < kCorners; ++j) {
     const int c = corner * kCorners + j;
@@ -248,7 +314,7 @@ __device__ __forceinline__ void corners_minmax(const Rows<T>& rows, int slot,
     for (int d = 0; d < 3; ++d) {
       T p[8];
 #pragma unroll
-      for (int k = 0; k < 8; ++k) p[k] = row[(3 * k + d) * kGroups];
+      for (int k = 0; k < 8; ++k) p[k] = pts[3 * k + d];
       // p[k] is coordinate d of point k: v0..v3 at t=0 then at t=1
       const T q0 = (p[4] - p[0]) * t + p[0];
       const T q1 = (p[5] - p[1]) * t + p[1];
@@ -274,6 +340,115 @@ __device__ __forceinline__ void corners_minmax(const Rows<T>& rows, int slot,
     for (int d = 0; d < 3; ++d) {
       cmin[d] = tmin(cmin[d], __shfl_xor_sync(gmask, cmin[d], off));
       cmax[d] = tmax(cmax[d], __shfl_xor_sync(gmask, cmax[d], off));
+    }
+  }
+}
+
+// What an evaluation decides about the domain [lo, hi]: accept it, or
+// split it (want) along `split` at `mid`; neither when it is pruned or
+// misses.  The caller applies the depth and split caps.
+template <typename T>
+struct Verdict {
+  bool accept, want;
+  int split;
+  T mid;
+};
+
+template <typename T>
+__device__ __forceinline__ Verdict<T> judge(const T (&lo)[3], const T (&hi)[3],
+                                            const T (&cmin)[3], const T (&cmax)[3],
+                                            const T (&tol)[3], const T (&err)[3], T ms,
+                                            const T (&rcp)[3], bool exact_rcp, T co_tol,
+                                            bool allow_zero, bool pruned) {
+  bool miss = false, box_in = true;
+  T true_tol = T(0);
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    miss = miss || (cmin[d] - ms > err[d]) || (cmax[d] + ms < -err[d]);
+    box_in = box_in && !((cmin[d] + ms < -err[d]) || (cmax[d] - ms > err[d]));
+    true_tol = tmax(true_tol, cmax[d] - cmin[d]);
+  }
+  true_tol = tmax(true_tol, T(0));
+  const T w0 = hi[0] - lo[0], w1 = hi[1] - lo[1], w2 = hi[2] - lo[2];
+  const bool pos_ok = allow_zero || lo[0] > T(0);
+  const bool cond1 = w0 <= tol[0] && w1 <= tol[1] && w2 <= tol[2];
+  const bool cond2 = box_in && pos_ok;
+  const bool cond3 = true_tol <= co_tol && pos_ok;
+  // split dim: argmax of widths / tol, first index on ties
+  T r0, r1, r2;
+  if (exact_rcp) {
+    r0 = w0 * rcp[0];
+    r1 = w1 * rcp[1];
+    r2 = w2 * rcp[2];
+  } else {
+    r0 = w0 / tol[0];
+    r1 = w1 / tol[1];
+    r2 = w2 / tol[2];
+  }
+  const bool d0 = r0 >= r1 && r0 >= r2;
+  const bool d1 = !d0 && r1 >= r2;
+  Verdict<T> v;
+  v.split = d0 ? 0 : (d1 ? 1 : 2);
+  const T s_lo = sel3(lo, v.split), s_hi = sel3(hi, v.split);
+  v.mid = (s_lo + s_hi) * T(0.5);
+  const bool degenerate = s_lo >= v.mid || v.mid >= s_hi;
+  const bool live = !pruned && !miss;
+  v.accept = live && (cond1 || cond2 || cond3 || degenerate);
+  v.want = live && !v.accept;
+  return v;
+}
+
+// Split [lo, hi] along `split` at `mid` and descend into child1 = [s_lo,
+// mid]; its sibling [mid, s_hi] is kept pending unless it is culled (VF: a
+// t-split sibling at or past the running TOI, or a u/v one past the u + v
+// limit; EE: a t-split sibling at or past the TOI).
+template <typename T, bool IS_VF, int kPathWords>
+__device__ __forceinline__ void descend(unsigned (&path)[kPathWords], T (&lo)[3], T (&hi)[3],
+                                        unsigned& dimcnt, int& sp, T& pend_min, int split,
+                                        T mid, T bound, T uv_limit) {
+  bool push2;
+  if (IS_VF) {
+    const T other = split == 1 ? lo[2] : lo[1];
+    push2 = split == 0 ? mid <= bound : (mid + other) <= uv_limit;
+  } else {
+    push2 = split != 0 || mid <= bound;
+  }
+  const unsigned meta = (unsigned)split | kSideHi | (push2 ? kPending : 0u);
+#pragma unroll
+  for (int k = kPathWords - 1; k > 0; --k) path[k] = (path[k] << 4) | (path[k - 1] >> 28);
+  path[0] = (path[0] << 4) | meta;
+  dimcnt += 1u << (8 * split);
+  if (push2) pend_min = tmin(pend_min, split == 0 ? mid : lo[0]);
+  set3(hi, split, mid);
+  ++sp;
+}
+
+// Unwind finished levels, at most `levels`, until a pending sibling is
+// entered (cur becomes true) or the stack is empty.
+template <typename T, int kPathWords>
+__device__ __forceinline__ void unwind(unsigned (&path)[kPathWords], T (&lo)[3], T (&hi)[3],
+                                       unsigned& dimcnt, int& sp, bool& cur, int levels) {
+  for (int lv = 0; lv < levels && !cur && sp > 0; ++lv) {
+    const unsigned m = path[0] & 15u;
+    const int dim = (int)(m & kDimMask);
+    const bool side_hi = (m & kSideHi) != 0u;
+    const bool pending = (m & kPending) != 0u;
+    const T old_hi = sel3(hi, dim), old_lo = sel3(lo, dim);
+    if (side_hi) {
+      set3(hi, dim, T(2) * old_hi - old_lo);
+    } else {
+      set3(lo, dim, T(2) * old_lo - old_hi);
+    }
+    if (pending && side_hi) {
+      set3(lo, dim, old_hi);  // the sibling [mid, H]
+      path[0] = (path[0] & ~15u) | (unsigned)dim;
+      cur = true;
+    } else {
+#pragma unroll
+      for (int k = 0; k < kPathWords - 1; ++k) path[k] = (path[k] >> 4) | (path[k + 1] << 28);
+      path[kPathWords - 1] >>= 4;
+      dimcnt -= 1u << (8 * dim);
+      --sp;
     }
   }
 }
@@ -340,28 +515,23 @@ __device__ __forceinline__ int take(BlockQueue<T>& sh) {
   return -1;
 }
 
-template <typename T, bool IS_VF, bool PER_QUERY, bool SHARE>
-__global__ void __launch_bounds__(Layout<SHARE>::kThreads)
+// Form 2: the unbounded global and per-query modes.
+template <typename T, bool IS_VF, bool PER_QUERY>
+__global__ void __launch_bounds__(kShareThreads)
     solve_kernel(const T* __restrict__ cols, long long ld,
                  const T* __restrict__ skip_seed,
                  const unsigned char* __restrict__ valid, int Q, T co_tol,
-                 T uv_limit, unsigned dim_cap, bool allow_zero,
-                 long long max_iterations,
-                 long long round_limit, long long max_steps, T* toi,
-                 T* __restrict__ pq_out, unsigned char* __restrict__ unfin_out,
-                 unsigned long long* __restrict__ checks_out,
-                 int* __restrict__ ovf_out,
-                 long long* __restrict__ qchecks_out) {
+                 T uv_limit, unsigned dim_cap, bool allow_zero, long long max_steps, T* toi,
+                 T* __restrict__ pq_out, unsigned long long* __restrict__ checks_out,
+                 int* __restrict__ ovf_out, long long* __restrict__ qchecks_out) {
   constexpr int kDepth = Scalar<T>::kDepth;
   constexpr int kPathWords = kDepth / 8;
-  constexpr int kLanes = Layout<SHARE>::kLanes;
-  constexpr int kThreads = Layout<SHARE>::kThreads;
   const T inf = (T)INFINITY;
-  const int corner = threadIdx.x & (kLanes - 1);
-  const int leader = (threadIdx.x & 31) & ~(kLanes - 1);  // lane 0's lane
-  const unsigned gmask = (0xFFu >> (8 - kLanes)) << leader;
+  const int corner = threadIdx.x & (kShareLanes - 1);
+  const int leader = (threadIdx.x & 31) & ~(kShareLanes - 1);  // lane 0's lane
+  const unsigned gmask = 0xFFu << leader;
   const bool head = corner == 0;
-  const int group = threadIdx.x / kLanes;
+  const int group = threadIdx.x / kShareLanes;
   const int q_own = blockIdx.x * kGroups + group;
   // the loop's exit on the card: a launch made where the caller's loop
   // would have stopped (its seed, the running TOI, already 0) does nothing
@@ -370,46 +540,31 @@ __global__ void __launch_bounds__(Layout<SHARE>::kThreads)
 
   __shared__ Rows<T> rows;
   __shared__ BlockQueue<T> sh;
-  for (int i = threadIdx.x; i < kRowWidth * kGroups; i += kThreads) {
+  for (int i = threadIdx.x; i < kRowWidth * kGroups; i += kShareThreads) {
     const int k = i / kGroups, s = i % kGroups;
     const int q = blockIdx.x * kGroups + s;
     rows.v[k][s] = q < Q ? cols[(size_t)k * ld + q] : T(0);
   }
   __syncthreads();
   if (threadIdx.x < kGroups) {
-    // Every width is a power of two 2^-k (a dyadic domain), so w / tol is
-    // 2^-k * (1 / tol) rounded once, and scaling by 2^-k commutes with the
-    // rounding while both values stay normal: w * rcp is the quotient
-    // bitwise.  Tolerances whose reciprocal lies outside [2^-64, 2^64]
-    // (0, inf, NaN, extreme values) keep the division.
     const int s = threadIdx.x;
-    bool exact = true;
+    T r[3];
+    rows.exact[s] = reciprocals(rows.v[24][s], rows.v[25][s], rows.v[26][s], r);
 #pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      const T r = T(1) / rows.v[24 + d][s];
-      rows.rcp[d][s] = r;
-      exact = exact && r >= T(5.421010862427522e-20) && r <= T(1.8446744073709552e19);
-    }
-    rows.exact[s] = exact;
-  }
-  if (SHARE && threadIdx.x < kGroups) {
-    sh.state[threadIdx.x] = kEmpty;
-    sh.tpq[threadIdx.x] = inf;
-    sh.qcnt[threadIdx.x] = 0;
+    for (int d = 0; d < 3; ++d) rows.rcp[d][s] = r[d];
+    sh.state[s] = kEmpty;
+    sh.tpq[s] = inf;
+    sh.qcnt[s] = 0;
   }
   const int n_valid = __syncthreads_count(head && own_valid);
-  if (SHARE) {
-    if (threadIdx.x == 0) {
-      sh.work = n_valid;
-      sh.hungry = kGroups - n_valid;
-    }
-    __syncthreads();
+  if (threadIdx.x == 0) {
+    sh.work = n_valid;
+    sh.hungry = kGroups - n_valid;
   }
+  __syncthreads();
 
   unsigned long long checks = 0;  // this group's evaluations
   int ovf = 0;
-  unsigned char unfin = 0;
-  T tpq = inf;  // per_query without sharing: this query's running TOI
 
   // the current task: a domain of query `slot`, its absolute depth and
   // split counters; first the own query's unit cube
@@ -423,7 +578,6 @@ __global__ void __launch_bounds__(Layout<SHARE>::kThreads)
 
   while (true) {
     if (!busy) {
-      if (!SHARE) break;
       int got = head ? take(sh) : -1;
       got = __shfl_sync(gmask, got, leader);
       if (got < 0) {
@@ -475,15 +629,11 @@ __global__ void __launch_bounds__(Layout<SHARE>::kThreads)
     int next_hungry = 0;
     int qbase = 0;  // the query's evaluations counted before this task
     if (head) {
-      if (SHARE) {
-        next_bound = PER_QUERY ? load_volatile(&sh.tpq[slot]) : load_volatile(toi);
-        next_hungry = load_volatile(&sh.hungry);
-        qbase = load_volatile(&sh.qcnt[slot]);
-      } else if (!PER_QUERY) {
-        next_bound = load_volatile(toi);
-      }
+      next_bound = PER_QUERY ? load_volatile(&sh.tpq[slot]) : load_volatile(toi);
+      next_hungry = load_volatile(&sh.hungry);
+      qbase = load_volatile(&sh.qcnt[slot]);
     }
-    if (SHARE) qbase = __shfl_sync(gmask, qbase, leader);
+    qbase = __shfl_sync(gmask, qbase, leader);
 
     unsigned path[kPathWords];
 #pragma unroll
@@ -493,110 +643,40 @@ __global__ void __launch_bounds__(Layout<SHARE>::kThreads)
     T pend_min = inf;  // lower bound of every pending sibling kept here
     int task_checks = 0;
 
-    // unwind levels per round: two in round_limit mode, else all of them
-    const int levels = round_limit >= 0 ? 2 : kDepth + 1;
-    long long rounds = 0;
-    // without sharing checks counts this query's evaluations, so it is also
-    // its step count
-    while ((cur || sp > 0) &&
-           (SHARE || ((long long)checks < max_steps &&
-                      (round_limit < 0 || rounds < round_limit)))) {
-      ++rounds;
+    while (cur || sp > 0) {
       if (cur) {
-        if (SHARE && qbase + task_checks >= max_steps) break;  // guard
-        T bound;
-        int hungry = 0;
-        if (!SHARE && PER_QUERY) {
-          bound = tpq;
-        } else {
-          const T b = next_bound;
-          const int h = next_hungry;
-          if (head) {
-            next_bound = SHARE && PER_QUERY ? load_volatile(&sh.tpq[slot])
-                                            : load_volatile(toi);
-            if (SHARE) next_hungry = load_volatile(&sh.hungry);
-          }
-          bound = tmin(__shfl_sync(gmask, b, leader), own);
-          if (SHARE) hungry = __shfl_sync(gmask, h, leader);
+        if (qbase + task_checks >= max_steps) break;  // guard
+        const T b = next_bound;
+        const int h = next_hungry;
+        if (head) {
+          next_bound = PER_QUERY ? load_volatile(&sh.tpq[slot]) : load_volatile(toi);
+          next_hungry = load_volatile(&sh.hungry);
         }
+        const T bound = tmin(__shfl_sync(gmask, b, leader), own);
+        const int hungry = __shfl_sync(gmask, h, leader);
         const T min_t = lo[0];
-        // bounded: the pre-increment count is compared, and a domain past
-        // the cap is dropped, not accepted
-        const bool pruned =
-            min_t >= bound ||
-            (max_iterations >= 0 && (long long)checks > max_iterations);
         ++checks;
         ++task_checks;
         T cmin[3], cmax[3];
-        corners_minmax<T, IS_VF, kLanes>(rows, slot, lo, hi, corner, gmask, cmin, cmax);
-        bool miss = false, box_in = true;
-        T true_tol = T(0);
-#pragma unroll
-        for (int d = 0; d < 3; ++d) {
-          miss = miss || (cmin[d] - ms > err[d]) || (cmax[d] + ms < -err[d]);
-          box_in = box_in &&
-                   !((cmin[d] + ms < -err[d]) || (cmax[d] - ms > err[d]));
-          true_tol = tmax(true_tol, cmax[d] - cmin[d]);
-        }
-        true_tol = tmax(true_tol, T(0));
-        const T w0 = hi[0] - lo[0], w1 = hi[1] - lo[1], w2 = hi[2] - lo[2];
-        const bool pos_ok = allow_zero || min_t > T(0);
-        const bool cond1 = w0 <= tol[0] && w1 <= tol[1] && w2 <= tol[2];
-        const bool cond2 = box_in && pos_ok;
-        const bool cond3 = true_tol <= co_tol && pos_ok;
-        // split dim: argmax of widths / tol, first index on ties
-        T r0, r1, r2;
-        if (exact_rcp) {
-          r0 = w0 * rcp[0];
-          r1 = w1 * rcp[1];
-          r2 = w2 * rcp[2];
-        } else {
-          r0 = w0 / tol[0];
-          r1 = w1 / tol[1];
-          r2 = w2 / tol[2];
-        }
-        const bool d0 = r0 >= r1 && r0 >= r2;
-        const bool d1 = !d0 && r1 >= r2;
-        const int split = d0 ? 0 : (d1 ? 1 : 2);
-        const T s_lo = sel3(lo, split), s_hi = sel3(hi, split);
-        const T mid = (s_lo + s_hi) * T(0.5);
-        const bool degenerate = s_lo >= mid || mid >= s_hi;
-
-        const bool live = !pruned && !miss;
-        bool accept = live && (cond1 || cond2 || cond3 || degenerate);
-        const bool want = live && !accept;
-        const unsigned cnt_d = (dimcnt >> (8 * split)) & 255u;
+        corners_minmax<T, IS_VF, kShareLanes>(shared_points(rows, slot), lo, hi, corner,
+                                              gmask, cmin, cmax);
+        const Verdict<T> v = judge(lo, hi, cmin, cmax, tol, err, ms, rcp, exact_rcp, co_tol,
+                                   allow_zero, min_t >= bound);
+        const unsigned cnt_d = (dimcnt >> (8 * v.split)) & 255u;
         const bool full = base + sp >= kDepth || cnt_d >= dim_cap;
-        if (want && full) {
+        bool accept = v.accept;
+        if (v.want && full) {
           ovf = 1;
           accept = true;  // conservative accept
         }
         if (accept) {
-          if (!SHARE && PER_QUERY) {
-            tpq = tmin(tpq, min_t);
-          } else {
-            own = tmin(own, min_t);
-            if (head) atomic_min_nonneg(SHARE && PER_QUERY ? &sh.tpq[slot] : toi, min_t);
-          }
+          own = tmin(own, min_t);
+          if (head) atomic_min_nonneg(PER_QUERY ? &sh.tpq[slot] : toi, min_t);
         }
-        if (want && !full) {
-          bool push2;
-          if (IS_VF) {
-            const T other = split == 1 ? lo[2] : lo[1];
-            push2 = split == 0 ? mid <= bound : (mid + other) <= uv_limit;
-          } else {
-            push2 = split != 0 || mid <= bound;
-          }
-          const unsigned meta = (unsigned)split | kSideHi | (push2 ? kPending : 0u);
-#pragma unroll
-          for (int k = kPathWords - 1; k > 0; --k)
-            path[k] = (path[k] << 4) | (path[k - 1] >> 28);
-          path[0] = (path[0] << 4) | meta;
-          dimcnt += 1u << (8 * split);
-          if (push2) pend_min = tmin(pend_min, split == 0 ? mid : lo[0]);
-          set3(hi, split, mid);  // descend into child1 = [s_lo, mid]
-          ++sp;
-          if (SHARE && hungry > 0) {
+        if (v.want && !full) {
+          descend<T, IS_VF>(path, lo, hi, dimcnt, sp, pend_min, v.split, v.mid, bound,
+                            uv_limit);
+          if (hungry > 0) {
             // an idle group waits: give it the shallowest pending sibling
             // on this stack, the largest subtree left here
             int pick = -1;
@@ -654,44 +734,15 @@ __global__ void __launch_bounds__(Layout<SHARE>::kThreads)
         cur = false;
       }
       // unwind finished levels until a pending sibling is entered
-      for (int lv = 0; lv < levels && !cur && sp > 0; ++lv) {
-        const unsigned m = path[0] & 15u;
-        const int dim = (int)(m & kDimMask);
-        const bool side_hi = (m & kSideHi) != 0u;
-        const bool pending = (m & kPending) != 0u;
-        const T old_hi = sel3(hi, dim), old_lo = sel3(lo, dim);
-        if (side_hi) {
-          set3(hi, dim, T(2) * old_hi - old_lo);
-        } else {
-          set3(lo, dim, T(2) * old_lo - old_hi);
-        }
-        if (pending && side_hi) {
-          set3(lo, dim, old_hi);  // the sibling [mid, H]
-          path[0] = (path[0] & ~15u) | (unsigned)dim;
-          cur = true;
-        } else {
-#pragma unroll
-          for (int k = 0; k < kPathWords - 1; ++k)
-            path[k] = (path[k] >> 4) | (path[k + 1] << 28);
-          path[kPathWords - 1] >>= 4;
-          dimcnt -= 1u << (8 * dim);
-          --sp;
-        }
-      }
+      unwind(path, lo, hi, dimcnt, sp, cur, kDepth + 1);
     }
-    if ((cur || sp > 0) && round_limit >= 0) {
-      unfin = 1;  // out of rounds: left to the caller's re-solve
-    } else if (cur || sp > 0) {
+    if (cur || sp > 0) {
       // runaway guard: accept the earliest unexplored time conservatively
       const T left = cur ? tmin(lo[0], pend_min) : pend_min;
-      if (!SHARE && PER_QUERY) {
-        tpq = tmin(tpq, left);
-      } else if (head) {
-        atomic_min_nonneg(SHARE && PER_QUERY ? &sh.tpq[slot] : toi, left);
-      }
+      if (head) atomic_min_nonneg(PER_QUERY ? &sh.tpq[slot] : toi, left);
       ovf = 1;
     }
-    if (SHARE && head) {
+    if (head) {
       atomicAdd(&sh.qcnt[slot], task_checks);
       atomicSub(&sh.work, 1);
       atomicAdd(&sh.hungry, 1);
@@ -699,23 +750,21 @@ __global__ void __launch_bounds__(Layout<SHARE>::kThreads)
     busy = false;
   }
 
-  if (SHARE) __syncthreads();
+  __syncthreads();
   if (head && q_own < Q) {
     if (PER_QUERY) {
-      const T t = SHARE ? sh.tpq[group] : tpq;
+      const T t = sh.tpq[group];
       pq_out[q_own] = t;
       if (t < inf) atomic_min_nonneg(toi, t);
     }
-    if (unfin_out != nullptr) unfin_out[q_own] = unfin;
-    if (qchecks_out != nullptr)
-      qchecks_out[q_own] = SHARE ? (long long)sh.qcnt[group] : (long long)checks;
+    if (qchecks_out != nullptr) qchecks_out[q_own] = (long long)sh.qcnt[group];
   }
   if (!head) checks = 0;  // every lane of a group counted the same
   // one atomic per warp
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    checks += __shfl_down_sync(0xffffffffu, checks, off);
-    ovf |= __shfl_down_sync(0xffffffffu, ovf, off);
+    checks += __shfl_down_sync(kFullMask, checks, off);
+    ovf |= __shfl_down_sync(kFullMask, ovf, off);
   }
   if ((threadIdx.x & 31) == 0) {
     if (checks) atomicAdd(checks_out, checks);
@@ -723,40 +772,285 @@ __global__ void __launch_bounds__(Layout<SHARE>::kThreads)
   }
 }
 
-template <typename T, bool IS_VF, bool PER_QUERY, bool SHARE>
-void launch(int blocks, cudaStream_t s, const void* c, long long ld,
-            const void* seed, const void* v, int Q,
-            double co_tol, double uv_limit, int dim_cap, int allow_zero,
-            long long max_iter, long long round_limit, long long max_steps,
-            void* t, void* pq, void* u, void* k, void* o, void* qk) {
-  solve_kernel<T, IS_VF, PER_QUERY, SHARE><<<blocks, Layout<SHARE>::kThreads, 0, s>>>(
-      (const T*)c, ld, (const T*)seed, (const unsigned char*)v, Q, (T)co_tol,
-      (T)uv_limit, (unsigned)dim_cap, allow_zero != 0, max_iter, round_limit, max_steps,
-      (T*)t, (T*)pq, (unsigned char*)u, (unsigned long long*)k, (int*)o,
-      (long long*)qk);
-}
+// Form 1: the bounded and round-limited modes, one lane per query on a
+// persistent grid (the design note above).  `cursor` is zero at launch.
+template <typename T, bool IS_VF, bool PER_QUERY>
+__global__ void __launch_bounds__(kLaneThreads)
+    solve_lane_kernel(const T* __restrict__ cols, long long ld,
+                      const T* __restrict__ skip_seed,
+                      const unsigned char* __restrict__ valid, int Q, T co_tol,
+                      T uv_limit, unsigned dim_cap, bool allow_zero,
+                      long long max_iterations, long long round_limit,
+                      long long max_steps, T* toi, T* __restrict__ pq_out,
+                      unsigned char* __restrict__ unfin_out,
+                      unsigned long long* __restrict__ checks_out,
+                      int* __restrict__ ovf_out, long long* __restrict__ qchecks_out,
+                      unsigned long long* cursor) {
+  constexpr int kDepth = Scalar<T>::kDepth;
+  constexpr int kPathWords = kDepth / 8;
+  const T inf = (T)INFINITY;
+  // the loop's exit on the card, read once (form 2's note)
+  if (skip_seed != nullptr && *skip_seed <= T(0)) return;
+  __shared__ Stage<T> stages[kLaneWarps];
+  Stage<T>& st = stages[threadIdx.x >> 5];
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;  // the lanes before this one
+  // unwind levels per round: two in round_limit mode, else all of them
+  const int levels = round_limit >= 0 ? 2 : kDepth + 1;
 
-template <typename T, bool IS_VF, typename... Args>
-void launch_share(int per_query, int share, Args... a) {
-  if (per_query) {
-    if (share)
-      launch<T, IS_VF, true, true>(a...);
-    else
-      launch<T, IS_VF, true, false>(a...);
-  } else {
-    if (share)
-      launch<T, IS_VF, false, true>(a...);
-    else
-      launch<T, IS_VF, false, false>(a...);
+  // the warp's staged queries, sbase + [0, staged), handed out from `next`
+  // (the same in every lane)
+  long long sbase = 0;
+  int staged = 0, next = 0;
+  bool drained = false;  // the cursor has passed Q
+
+  unsigned long long checks = 0;  // this lane's evaluations, every query
+  int ovf = 0;
+  T own = inf;  // global modes: the earliest time this lane accepted
+
+  // this lane's query: its index, row (in registers) and search state
+  bool busy = false;
+  long long q = 0;
+  T pts[24], tol[3], err[3], rcp[3];
+  T ms = T(0);
+  bool exact_rcp = true;
+  T lo[3], hi[3];
+  unsigned path[kPathWords];
+  int sp = 0;
+  bool cur = false;   // the current domain is still to be evaluated
+  T pend_min = inf;   // lower bound of every pending sibling
+  T tpq = inf;        // per_query: this query's running TOI
+  T next_bound = inf; // global modes: the running TOI, read one round ahead
+  unsigned dimcnt = 0u;  // 8-bit split counters: dims 0/1/2 at bits 0/8/16
+  long long rounds = 0, qchecks = 0;
+
+  while (true) {
+    // idle lanes take staged queries, in lane order; an invalid row writes
+    // its outputs and leaves its lane idle
+    unsigned idle = __ballot_sync(kFullMask, !busy);
+    while (idle != 0u && !drained) {
+      if (next == staged) {
+        unsigned long long b = 0;
+        if (lane == 0) b = atomicAdd(cursor, 32ull);
+        b = __shfl_sync(kFullMask, b, 0);
+        if (b >= (unsigned long long)Q) {
+          drained = true;
+          break;
+        }
+        __syncwarp();  // every lane has read its row of the last stage
+        sbase = (long long)b;
+        staged = min(32, Q - (int)b);
+        next = 0;
+        if (lane < staged) {
+          const T* src = cols + sbase + lane;
+#pragma unroll
+          for (int k = 0; k < kRowWidth; ++k) st.v[k][lane] = src[(size_t)k * ld];
+          T r[3];
+          const bool exact = reciprocals(st.v[24][lane], st.v[25][lane], st.v[26][lane], r);
+#pragma unroll
+          for (int d = 0; d < 3; ++d) st.rcp[d][lane] = r[d];
+          st.flags[lane] = (exact ? 1 : 0) | (valid[sbase + lane] ? 2 : 0);
+        }
+        __syncwarp();
+      }
+      const int n_take = min(__popc(idle), staged - next);
+      const int r = __popc(idle & below);
+      if (!busy && r < n_take) {
+        const int s = next + r;
+        q = sbase + s;
+        const int flags = st.flags[s];
+        if (flags & 2) {
+#pragma unroll
+          for (int k = 0; k < 24; ++k) pts[k] = st.v[k][s];
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            tol[d] = st.v[24 + d][s];
+            err[d] = st.v[27 + d][s];
+            rcp[d] = st.rcp[d][s];
+            lo[d] = T(0);
+            hi[d] = T(1);
+          }
+          ms = st.v[30][s];
+          exact_rcp = (flags & 1) != 0;
+#pragma unroll
+          for (int k = 0; k < kPathWords; ++k) path[k] = 0u;
+          sp = 0;
+          cur = true;
+          pend_min = inf;
+          tpq = inf;
+          dimcnt = 0u;
+          rounds = 0;
+          qchecks = 0;
+          if (!PER_QUERY) next_bound = load_volatile(toi);
+          busy = true;
+        } else {
+          if (PER_QUERY) pq_out[q] = inf;
+          if (unfin_out != nullptr) unfin_out[q] = 0;
+          if (qchecks_out != nullptr) qchecks_out[q] = 0;
+        }
+      }
+      next += n_take;
+      idle = __ballot_sync(kFullMask, !busy);
+    }
+    if (idle == kFullMask) break;  // drained, and every query done
+
+    if (busy) {
+      // one round of this lane's search (the bounded and round-limited
+      // loop of form 2's search, without sharing)
+      if ((cur || sp > 0) && qchecks < max_steps &&
+          (round_limit < 0 || rounds < round_limit)) {
+        ++rounds;
+        bool pushed = false;
+        if (cur) {
+          T bound;
+          if (PER_QUERY) {
+            bound = tpq;
+          } else {
+            bound = tmin(next_bound, own);
+            next_bound = load_volatile(toi);
+          }
+          const T min_t = lo[0];
+          // bounded: the pre-increment count is compared, and a domain past
+          // the cap is dropped, not accepted
+          const bool pruned =
+              min_t >= bound || (max_iterations >= 0 && qchecks > max_iterations);
+          ++checks;
+          ++qchecks;
+          T cmin[3], cmax[3];
+          corners_minmax<T, IS_VF, 1>(pts, lo, hi, 0, kFullMask, cmin, cmax);
+          const Verdict<T> v = judge(lo, hi, cmin, cmax, tol, err, ms, rcp, exact_rcp,
+                                     co_tol, allow_zero, pruned);
+          const unsigned cnt_d = (dimcnt >> (8 * v.split)) & 255u;
+          const bool full = sp >= kDepth || cnt_d >= dim_cap;
+          bool accept = v.accept;
+          if (v.want && full) {
+            ovf = 1;
+            accept = true;  // conservative accept
+          }
+          if (accept) {
+            if (PER_QUERY) {
+              tpq = tmin(tpq, min_t);
+            } else {
+              own = tmin(own, min_t);
+              atomic_min_nonneg(toi, min_t);
+            }
+          }
+          if (v.want && !full) {
+            descend<T, IS_VF>(path, lo, hi, dimcnt, sp, pend_min, v.split, v.mid, bound,
+                              uv_limit);
+            pushed = true;
+          } else {
+            cur = false;
+          }
+        }
+        if (!pushed) unwind(path, lo, hi, dimcnt, sp, cur, levels);
+      }
+      if (!((cur || sp > 0) && qchecks < max_steps &&
+            (round_limit < 0 || rounds < round_limit))) {
+        // the query ends: done, out of rounds, or stopped by the guard
+        unsigned char unfin = 0;
+        if ((cur || sp > 0) && round_limit >= 0) {
+          unfin = 1;  // out of rounds: left to the caller's re-solve
+        } else if (cur || sp > 0) {
+          // runaway guard: accept the earliest unexplored time conservatively
+          const T left = cur ? tmin(lo[0], pend_min) : pend_min;
+          if (PER_QUERY) {
+            tpq = tmin(tpq, left);
+          } else {
+            atomic_min_nonneg(toi, left);
+          }
+          ovf = 1;
+        }
+        if (PER_QUERY) {
+          pq_out[q] = tpq;
+          if (tpq < inf) atomic_min_nonneg(toi, tpq);
+        }
+        if (unfin_out != nullptr) unfin_out[q] = unfin;
+        if (qchecks_out != nullptr) qchecks_out[q] = qchecks;
+        busy = false;
+      }
+    }
+  }
+
+  // one atomic per warp
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    checks += __shfl_down_sync(kFullMask, checks, off);
+    ovf |= __shfl_down_sync(kFullMask, ovf, off);
+  }
+  if (lane == 0) {
+    if (checks) atomicAdd(checks_out, checks);
+    if (ovf) atomicOr(ovf_out, 1);
   }
 }
 
-template <typename T, typename... Args>
-void launch_mode(int is_vf, Args... a) {
+// The arguments of one launch, as the C entry point takes them.
+struct Args {
+  cudaStream_t stream;
+  const void* cols;
+  long long ld;
+  const void* skip_seed;
+  const void* valid;
+  int Q;
+  double co_tol, uv_limit;
+  int dim_cap, allow_zero;
+  long long max_iterations, round_limit, max_steps;
+  void *toi, *pq, *unfin, *checks, *ovf, *qchecks;
+};
+
+template <typename T, bool IS_VF, bool PER_QUERY>
+int launch_shared(const Args& a) {
+  solve_kernel<T, IS_VF, PER_QUERY>
+      <<<(a.Q + kGroups - 1) / kGroups, kShareThreads, 0, a.stream>>>(
+          (const T*)a.cols, a.ld, (const T*)a.skip_seed, (const unsigned char*)a.valid, a.Q,
+          (T)a.co_tol, (T)a.uv_limit, (unsigned)a.dim_cap, a.allow_zero != 0, a.max_steps,
+          (T*)a.toi, (T*)a.pq, (unsigned long long*)a.checks, (int*)a.ovf,
+          (long long*)a.qchecks);
+  return (int)cudaGetLastError();
+}
+
+// form 1's blocks for Q queries: as many as stay resident on the device, and
+// no more than give every warp 32 queries; 0 if none fits
+template <typename T, bool IS_VF, bool PER_QUERY>
+int lane_grid(int Q, int* per_sm_out) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, solve_lane_kernel<T, IS_VF, PER_QUERY>, kLaneThreads, 0);
+  if (per_sm_out != nullptr) *per_sm_out = per_sm;
+  const long long full = (long long)sms * per_sm;
+  const long long need = ((long long)Q + kLaneThreads - 1) / kLaneThreads;
+  return (int)(need < full ? need : full);
+}
+
+template <typename T, bool IS_VF, bool PER_QUERY>
+int launch_lanes(const Args& a) {
+  const int blocks = lane_grid<T, IS_VF, PER_QUERY>(a.Q, nullptr);
+  if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
+  void* cursor = nullptr;
+  cudaError_t err = cudaGetSymbolAddress(&cursor, g_cursor);
+  if (err == cudaSuccess) err = cudaMemsetAsync(cursor, 0, sizeof(g_cursor), a.stream);
+  if (err != cudaSuccess) return (int)err;
+  solve_lane_kernel<T, IS_VF, PER_QUERY><<<blocks, kLaneThreads, 0, a.stream>>>(
+      (const T*)a.cols, a.ld, (const T*)a.skip_seed, (const unsigned char*)a.valid, a.Q,
+      (T)a.co_tol, (T)a.uv_limit, (unsigned)a.dim_cap, a.allow_zero != 0, a.max_iterations,
+      a.round_limit, a.max_steps, (T*)a.toi, (T*)a.pq, (unsigned char*)a.unfin,
+      (unsigned long long*)a.checks, (int*)a.ovf, (long long*)a.qchecks,
+      (unsigned long long*)cursor);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool IS_VF, bool PER_QUERY>
+int launch_form(int share, const Args& a) {
+  return share ? launch_shared<T, IS_VF, PER_QUERY>(a) : launch_lanes<T, IS_VF, PER_QUERY>(a);
+}
+
+template <typename T>
+int launch_mode(int is_vf, int per_query, int share, const Args& a) {
   if (is_vf)
-    launch_share<T, true>(a...);
-  else
-    launch_share<T, false>(a...);
+    return per_query ? launch_form<T, true, true>(share, a) : launch_form<T, true, false>(share, a);
+  return per_query ? launch_form<T, false, true>(share, a) : launch_form<T, false, false>(share, a);
 }
 
 }  // namespace
@@ -774,7 +1068,10 @@ void launch_mode(int is_vf, Args... a) {
 // no cap) writes `unfin` (Q bytes).  query_checks, null on every call of the main path,
 // receives each query's evaluation count (Q long longs, 0 for invalid rows).
 // The unbounded modes share domains inside a block (form 2 above); the
-// bounded and round-limited ones keep each query's order (form 1).
+// bounded and round-limited ones keep each query's order (form 1), whose
+// launch is preceded by a reset of its query cursor on `stream`: one cursor
+// per device, so launches of form 1 run one at a time per device (the port
+// launches on PyTorch's current stream).
 extern "C" int sccd_solve_packed(const void* cols, long long ld,
                                  const void* skip_seed, const void* valid, int Q,
                                  int is_vf, int allow_zero_toi, int per_query,
@@ -788,24 +1085,34 @@ extern "C" int sccd_solve_packed(const void* cols, long long ld,
   if (round_limit >= 0 && (per_query || max_iterations >= 0 || !unfin))
     return (int)cudaErrorInvalidValue;
   if (dim_cap < 1 || dim_cap > 255 || ld < Q) return (int)cudaErrorInvalidValue;
-  const int blocks = (Q + kGroups - 1) / kGroups;
   const int share = max_iterations < 0 && round_limit < 0;
   long long max_steps = kMaxSteps;
   if (max_iterations >= 0 && max_iterations + 2 * kMaxDepth + 2 > max_steps)
     max_steps = max_iterations + 2 * kMaxDepth + 2;
   if (round_limit >= 0 && round_limit + 1 > max_steps)
     max_steps = round_limit + 1;
-  auto s = (cudaStream_t)stream;
-  if (is_f64)
-    launch_mode<double>(is_vf, per_query, share, blocks, s, cols, ld,
-                        skip_seed, valid, Q, co_tol, uv_limit, dim_cap, allow_zero_toi,
-                        max_iterations, round_limit, max_steps, toi,
-                        per_query_toi, unfin, checks, overflow, query_checks);
-  else
-    launch_mode<float>(is_vf, per_query, share, blocks, s, cols, ld,
-                       skip_seed, valid, Q, co_tol, uv_limit, dim_cap, allow_zero_toi,
-                       max_iterations, round_limit, max_steps, toi,
-                       per_query_toi, unfin, checks, overflow, query_checks);
+  const Args a{(cudaStream_t)stream, cols, ld, skip_seed, valid, Q, co_tol, uv_limit,
+               dim_cap, allow_zero_toi, max_iterations, round_limit, max_steps, toi,
+               per_query_toi, unfin, checks, overflow, query_checks};
+  return is_f64 ? launch_mode<double>(is_vf, per_query, share, a)
+                : launch_mode<float>(is_vf, per_query, share, a);
+}
+
+// The grid form 1 takes for Q queries (for reports): its 128-thread blocks,
+// and the blocks the occupancy calculator keeps resident per SM.
+extern "C" int sccd_solver_lane_grid(int is_vf, int per_query, int is_f64, int Q,
+                                     int* blocks, int* per_sm) {
+  if (is_f64) {
+    *blocks = is_vf ? (per_query ? lane_grid<double, true, true>(Q, per_sm)
+                                 : lane_grid<double, true, false>(Q, per_sm))
+                    : (per_query ? lane_grid<double, false, true>(Q, per_sm)
+                                 : lane_grid<double, false, false>(Q, per_sm));
+  } else {
+    *blocks = is_vf ? (per_query ? lane_grid<float, true, true>(Q, per_sm)
+                                 : lane_grid<float, true, false>(Q, per_sm))
+                    : (per_query ? lane_grid<float, false, true>(Q, per_sm)
+                                 : lane_grid<float, false, false>(Q, per_sm));
+  }
   return (int)cudaGetLastError();
 }
 

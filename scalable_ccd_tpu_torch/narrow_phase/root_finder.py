@@ -135,7 +135,8 @@ def bisect_step(q: CCDQueries, lo, hi, tol, err, ms, co_tol, bound,
 
 def dfs_lockstep(q: CCDQueries, tol, err, ms, valid, co_tol, toi_init,
                  is_vf: bool, allow_zero_toi: bool, max_iterations: int = -1,
-                 round_limit: int = -1, caps: SearchCaps | None = None):
+                 round_limit: int = -1, caps: SearchCaps | None = None,
+                 query_checks: bool = False):
     """Depth-first bisection of every query, all queries in lockstep.
 
     Every round each query with work left pops its stack top, evaluates it
@@ -161,6 +162,9 @@ def dfs_lockstep(q: CCDQueries, tol, err, ms, valid, co_tol, toi_init,
     ``ceil((U - 2) / 2)`` rounds without evaluating.  The search stops after
     ``round_limit`` rounds; returns ``(toi, overflow, checks, unfin)``,
     ``unfin`` marking the queries still mid-search.
+
+    ``query_checks`` appends each query's evaluation count (``(Q,)`` int64,
+    kernel B's per-query checks plane).
     """
     dev, dt = tol.device, tol.dtype
     caps = caps if caps is not None else search_caps(dt)
@@ -237,8 +241,9 @@ def dfs_lockstep(q: CCDQueries, tol, err, ms, valid, co_tol, toi_init,
             d = depth.to(torch.int64)
             unwind = torch.where(left > 0, d - nxt + 1, d)
             delay[act] = torch.where(st.do_split, 0, (unwind - 1).clamp(min=0) // 2)
+    plane = (checks,) if query_checks else ()
     if rounds_mode:
-        return toi, ovf, checks.sum(), (size > 0) | (delay > 0)
+        return (toi, ovf, checks.sum(), (size > 0) | (delay > 0)) + plane
     if n:
         toi = torch.minimum(toi, tpq.amin())
-    return toi, ovf, checks.sum(), tpq
+    return (toi, ovf, checks.sum(), tpq) + plane

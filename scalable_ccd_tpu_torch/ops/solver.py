@@ -22,8 +22,9 @@ acceptance, cull and cap rules of
 ``pallas_solver.py:724-811``): one bounded pass, then the unfinished rows,
 pooled in their original order, solved again from scratch and pruned by the
 first pass's TOI, stage by stage of a ladder of limits, the last stage
-unbounded.  Its TOI is the unbounded TOI bitwise unless a conservative
-accept fired (``overflow``).
+unbounded (:func:`solve_unfinished_cols`, which the narrow loop also runs
+per batch after one first pass over a whole chunk).  Its TOI is the
+unbounded TOI bitwise unless a conservative accept fired (``overflow``).
 
 Rows are f32 or f64, and the TOI comes back in their dtype (the kernel is
 instantiated for both; :func:`scalable_ccd_tpu_torch.narrow_phase.
@@ -67,6 +68,7 @@ __all__ = [
     "solve_packed_reference",
     "solve_escalated",
     "solve_escalated_cols",
+    "solve_unfinished_cols",
     "normalize_round_limits",
     "LAUNCHES",
     "LAUNCHES_BY_MODE",
@@ -140,6 +142,26 @@ def _bind(lib):
     lib.sccd_solver_error_string.argtypes = [ctypes.c_int]
     lib.sccd_solver_error_string.restype = ctypes.c_char_p
     return fn
+
+
+def _lane_grid(Q: int, is_vf: bool, per_query: bool, f64: bool):
+    """``(blocks, blocks per SM)``: the persistent grid of kernel B's
+    one-thread form (bounded and round-limited modes) for ``Q`` queries on
+    the current CUDA device, in 128-thread blocks, and the blocks the
+    occupancy calculator keeps resident on one SM.  For reports only
+    (``chip_smoke.py``)."""
+    lib = load_library("solver")
+    _bind(lib)  # the error strings' types
+    fn = lib.sccd_solver_lane_grid
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    blocks, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    rc = fn(int(is_vf), int(per_query), int(f64), int(Q), ctypes.byref(blocks),
+            ctypes.byref(per_sm))
+    if rc != 0:
+        raise RuntimeError(f"solver grid query failed: "
+                           f"{lib.sccd_solver_error_string(rc).decode()}")
+    return blocks.value, per_sm.value
 
 
 def _check_round_limit(round_limit, per_query, max_iterations):
@@ -337,13 +359,34 @@ def _solve_query_checks(qrows, valid, is_vf, toi_init, tolerance, allow_zero_toi
     return out + (plane,)
 
 
+def _reference_query_checks(qrows, valid, is_vf, toi_init, tolerance, allow_zero_toi=True,
+                            per_query=False, max_iterations=-1, round_limit=-1,
+                            widened=False):
+    """The plain twin of :func:`_solve_query_checks` in the modes whose
+    per-query evaluation counts each query's order fixes, the per-query
+    bounded and round-limited ones: :func:`solve_packed_reference`'s
+    outputs (the lockstep DFS's) and its ``(Q,)`` int64 plane of each
+    query's evaluations.  For measurements and tests only."""
+    _check_round_limit(round_limit, per_query, max_iterations)
+    if not ((per_query and max_iterations >= 0) or round_limit >= 0):
+        raise ValueError("_reference_query_checks: a per-query bounded or round-limited mode")
+    _check_rows(qrows, widened)
+    dt = qrows.dtype
+    co_tol = torch.tensor(_co_tolerance(tolerance, dt, widened), dtype=dt, device=qrows.device)
+    q, tol, err, ms = _unpack(qrows)
+    return dfs_lockstep(q, tol, err, ms, valid.to(torch.bool), co_tol, toi_init, is_vf,
+                        allow_zero_toi, max_iterations, round_limit, search_caps(dt, widened),
+                        query_checks=True)
+
+
 def _checks_spread(plane) -> dict:
     """The spread of per-query evaluation counts (:func:`_solve_query_checks`):
     mean, median, 99th percentile and maximum, and the lane efficiency of
     running them in groups of consecutive rows, each group as long as its
-    longest member, for groups of 32 queries (one query per thread, a warp)
-    and of 4 (eight lanes per query, a warp): ``sum(checks) / sum over
-    groups of (size * the group's max)``."""
+    longest member, for groups of 32 queries (one query per thread, a warp
+    that takes no new query until all 32 end) and of 4 (eight lanes per
+    query, a warp): ``sum(checks) / sum over groups of (size * the group's
+    max)``."""
     c = plane.to(torch.float64)
     if c.numel() == 0:
         return {"queries": 0}
@@ -530,23 +573,13 @@ def solve_escalated_cols(cols, valid, is_vf: bool, toi_init, tolerance,
                          widened: bool = False, skip_if_done: bool = False):
     """Global solve of ``(31, Q)`` columns with staged escalation; returns
     ``(toi, overflow, checks)`` as :func:`solve_packed` does, ``checks``
-    counting every pass.  ``skip_if_done`` applies to the first pass.
+    counting every pass.  ``skip_if_done`` applies to every pass.
 
     ``round_limit`` is an int or a ladder (:func:`normalize_round_limits`);
     without a limit this is one unbounded :func:`solve_cols` call.  With
-    one, the first pass stops at ``limits[0]`` rounds, and the unfinished
-    rows go one of three ways (JAX ``_escalate_ladder``): none, and the
-    pass is the answer; up to ``K = min(4 * POOL_BLOCK, Q rounded up to
-    whole pool blocks)`` of them, and they are pooled in their original
-    order (cumsum and searchsorted) and solved by the rest of the ladder;
-    more, and they are solved in one unbounded pass.  Every later pass
-    starts from the first pass's TOI and solves its rows from scratch.
-
-    The device picks the branch: the pool pass runs the rest of the ladder
-    over ``K`` gathered columns, valid where ``count <= K``, and the
-    unbounded pass runs over the batch, valid where ``count > K``; the one
-    not taken has no valid row and evaluates nothing.  No host read, at
-    any length of the ladder."""
+    one, the first pass stops at ``limits[0]`` rounds, and
+    :func:`solve_unfinished_cols` solves the rows it left unfinished with
+    the rest of the ladder, from the first pass's TOI."""
     limits = normalize_round_limits(round_limit)
     if not limits:
         return solve_cols(cols, valid, is_vf, toi_init, tolerance, allow_zero_toi,
@@ -555,9 +588,37 @@ def solve_escalated_cols(cols, valid, is_vf: bool, toi_init, tolerance,
         cols, valid, is_vf, toi_init, tolerance, allow_zero_toi,
         round_limit=limits[0], widened=widened, skip_if_done=skip_if_done,
     )
-    Q = cols.shape[1]
-    if Q == 0:
+    if cols.shape[1] == 0:
         return toi1, ovf1, checks1
+    toi, ovf, checks = solve_unfinished_cols(cols, unfin, is_vf, toi1, tolerance,
+                                             allow_zero_toi, limits[1:], widened,
+                                             skip_if_done)
+    return toi, ovf1 | ovf, checks1 + checks
+
+
+def solve_unfinished_cols(cols, unfin, is_vf: bool, toi_init, tolerance,
+                          allow_zero_toi: bool = True, round_limit=-1,
+                          widened: bool = False, skip_if_done: bool = False):
+    """The escalation after a first pass over the ``Q >= 1`` columns
+    ``cols``: the rows the bool plane ``unfin`` marks are solved again from
+    scratch, pruned by ``toi_init`` (the TOI after that pass, or any lower
+    TOI that a query accepted), by the rest of the ladder ``round_limit``
+    (its later stages; none: unbounded).  Returns ``(toi, overflow,
+    checks)`` of these passes.  ``skip_if_done`` applies to every pass: one
+    seeded with a TOI of 0 would prune every domain it evaluates, so
+    skipping it changes the checks alone.
+
+    The rows go one of three ways (JAX ``_escalate_ladder``): none, and
+    nothing is solved; up to ``K = min(4 * POOL_BLOCK, Q rounded up to whole
+    pool blocks)`` of them, and they are pooled in their original order
+    (cumsum and searchsorted) and solved by the rest of the ladder
+    (:func:`solve_escalated_cols`); more, and they are solved in one
+    unbounded pass.  The device picks the branch: the pool pass runs over
+    ``K`` gathered columns, valid where ``count <= K``, and the unbounded
+    pass over the batch, valid where ``count > K``; the one not taken has
+    no valid row and evaluates nothing.  No host read, at any length of the
+    ladder."""
+    Q = cols.shape[1]
     dev = cols.device
     pool_cap = min(4 * POOL_BLOCK, -(-Q // POOL_BLOCK) * POOL_BLOCK)
     cum = torch.cumsum(unfin, 0)
@@ -565,8 +626,10 @@ def solve_escalated_cols(cols, valid, is_vf: bool, toi_init, tolerance,
     lane = torch.arange(pool_cap, device=dev)
     idx = torch.searchsorted(cum, lane + 1).clamp_(max=Q - 1)
     small = (lane < count) & (count <= pool_cap)
-    toi_s, ovf_s, ck_s = solve_escalated_cols(cols.index_select(1, idx), small, is_vf, toi1,
-                                              tolerance, allow_zero_toi, limits[1:], widened)
-    toi_f, ovf_f, ck_f = solve_cols(cols, unfin & (count > pool_cap), is_vf, toi1, tolerance,
-                                    allow_zero_toi, widened=widened)
-    return torch.minimum(toi_s, toi_f), ovf1 | ovf_s | ovf_f, checks1 + ck_s + ck_f
+    toi_s, ovf_s, ck_s = solve_escalated_cols(cols.index_select(1, idx), small, is_vf, toi_init,
+                                              tolerance, allow_zero_toi, round_limit, widened,
+                                              skip_if_done)
+    toi_f, ovf_f, ck_f = solve_cols(cols, unfin & (count > pool_cap), is_vf, toi_init,
+                                    tolerance, allow_zero_toi, widened=widened,
+                                    skip_if_done=skip_if_done)
+    return torch.minimum(toi_s, toi_f), ovf_s | ovf_f, ck_s + ck_f

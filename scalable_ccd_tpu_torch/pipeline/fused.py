@@ -23,11 +23,13 @@ Counterpart of ``scalable_ccd_tpu/pipeline/fused.py:fused_ccd``.  In order:
    batch spread over its candidates, and it stops early once the TOI
    reaches 0;
 5. staged escalation (``escalate_rounds``, 128 rounds on the global path):
-   below 2^20 VF boxes the frame straggler pool (every batch runs one
-   bounded pass and appends its unfinished rows to a phase-wide pool,
-   solved densely at the end of the phase), above it the per-batch ladder
-   (:func:`scalable_ccd_tpu_torch.ops.solver.solve_escalated`).  Both give
-   the unbounded TOI bitwise unless a conservative accept fires;
+   below 2^20 VF boxes the frame straggler pool (every batch's unfinished
+   rows after one bounded pass join a phase-wide pool, solved densely at
+   the end of the phase), above it the per-batch ladder
+   (:func:`scalable_ccd_tpu_torch.ops.solver.solve_escalated`).  In both the
+   bounded first pass runs once per chunk, over all its batches, and each
+   batch then decides on its segment of the chunk's unfinished rows.  Both
+   give the unbounded TOI bitwise unless a conservative accept fires;
 6. size the pair budgets automatically: a scene-proportional power-of-two
    guess, one retry from the exact totals, and a sticky memo of grown
    budgets per scene-size class.
@@ -68,8 +70,10 @@ the narrow loop's decisions on the device as the JAX package keeps them:
 a phase's candidates are packed in a few kernel C launches (gather and pack,
 :mod:`scalable_ccd_tpu_torch.ops.gather_pack`, one per chunk of at most
 2^20 rows, sized from the pair count the host already holds), every batch
-is kernel B launches on its slice of its chunk; the ``toi > 0`` exit is
-kernel B's ``skip_if_done`` (a batch after the TOI reached 0 does nothing);
+is kernel B launches on its slice of its chunk, and the escalation's
+round-limited first pass one launch over the whole chunk; the ``toi > 0``
+exit is kernel B's ``skip_if_done`` (a batch after the TOI reached 0 does
+nothing);
 the frame pool's pool/solve-now choice and the batch ladder's skip/small/
 full choice are predicates on device scalars.  At the defaults the host
 reads a fixed number of scalars per phase, whatever the number of batches:
@@ -117,6 +121,7 @@ from scalable_ccd_tpu_torch.ops.solver import (
     ROW_WIDTH,
     solve_cols,
     solve_escalated_cols,
+    solve_unfinished_cols,
 )
 from scalable_ccd_tpu_torch.ops.sweep_ap import partner_planes, sweep_pairs
 from scalable_ccd_tpu_torch.ops.sweep_records import (
@@ -420,6 +425,41 @@ class NarrowSolver(NamedTuple):
             cols, valid, self.is_vf, toi, self.tolerance, zero_ok, self.round_limit,
             self.compensated, skip_if_done))
 
+    def solve_chunk(self, cols, toi, batch: int):
+        """Solve a chunk's packed columns ``cols`` in narrow batches of
+        ``batch`` columns from the running TOI ``toi``, as the plain loop
+        does (once the TOI is 0, every later pass skips); returns ``(toi,
+        overflow, checks)``.  With escalation (global solves, no cap) the
+        first, round-limited pass runs once over the whole chunk, seeded
+        with ``toi``, and each batch then solves its rows left unfinished
+        (:func:`scalable_ccd_tpu_torch.ops.solver.solve_unfinished_cols`:
+        the batch's segment of the chunk's ``unfin`` plane, pooled or solved
+        at once, and the ladder's later stages), pruned by the running TOI;
+        the TOI, totals and flags are those of a first pass per batch, since
+        a pass may prune against any TOI a query accepted.  Otherwise every
+        batch is one :meth:`solve_batch`."""
+        limits = normalize_round_limits(self.round_limit)
+        escalate = self.max_iterations < 0 and bool(limits)
+        dev, q = cols.device, cols.shape[1]
+        ovf = torch.zeros((), dtype=torch.bool, device=dev)
+        checks = torch.zeros((), dtype=torch.int64, device=dev)
+        if escalate:
+            valid = torch.ones((q,), dtype=torch.bool, device=dev)
+            toi1, ovf, checks, unfin = self.solve_rows(cols, valid, toi, round_limit=limits[0],
+                                                       skip_if_done=True)
+            toi = torch.minimum(toi, toi1)
+        for s in range(0, q, batch):
+            if escalate:
+                toi_b, ovf_b, ck_b = self._narrowed(solve_unfinished_cols(
+                    cols[:, s:s + batch], unfin[s:s + batch], self.is_vf, toi, self.tolerance,
+                    self.allow_zero_toi, limits[1:], self.compensated, skip_if_done=True))
+            else:
+                toi_b, ovf_b, ck_b = self.solve_batch(cols[:, s:s + batch], toi,
+                                                      skip_if_done=True)
+            toi = torch.minimum(toi, toi_b)
+            ovf, checks = ovf | ovf_b, checks + ck_b
+        return toi, ovf, checks
+
 
 def _key_order(pairs: torch.Tensor) -> torch.Tensor:
     """The permutation that sorts ``(P, 2)`` non-negative id pairs by
@@ -575,11 +615,18 @@ def _sweep_phase(sorted_boxes, is_vf, budget, auto, knobs: Knobs, nar, narrow_ba
 
 def _frame_pool_loop(stream, budget, nar: NarrowSolver, toi, checks, capped):
     """Escalation through the frame straggler pool (JAX ``fused.py:1257-1376``):
-    every batch runs one bounded pass; a batch's unfinished rows join the
-    pool, unless there are more than one pool block of them or the pool is
-    full, and then they are solved at once, unbounded; the pool is solved
+    every candidate runs one bounded pass; a batch's unfinished rows join
+    the pool, unless there are more than one pool block of them or the pool
+    is full, and then they are solved at once, unbounded; the pool is solved
     densely after the loop, one block per call.  Returns (toi, checks,
     capped).
+
+    The bounded pass runs once per chunk of the stream (up to 2^20 rows,
+    seeded with the running TOI at the chunk's start) rather than once per
+    batch; the pool / solve-now decision is then made batch by batch on
+    each batch's segment of the chunk's ``unfin`` plane.  The TOI, totals
+    and flags are those of a pass per batch: a pass may prune against any
+    TOI a query accepted (``ops/solver.py:solve_unfinished_cols``).
 
     The loop's decisions stay on the device, as the JAX ``lax.cond`` keeps
     them: the pool cursor ``cur`` is a device scalar; a batch's unfinished
@@ -597,27 +644,30 @@ def _frame_pool_loop(stream, budget, nar: NarrowSolver, toi, checks, capped):
     pool = torch.empty((ROW_WIDTH, cap + 2 * POOL_BLOCK), dtype=nar.row_dtype, device=dev)
     cur = torch.zeros((), dtype=torch.int64, device=dev)
     lane = torch.arange(POOL_BLOCK, device=dev)
-    ones = torch.ones((max(batch, POOL_BLOCK),), dtype=torch.bool, device=dev)
-    for start in range(0, stream.n, batch):
-        cols = stream.cols(start, min(start + batch, stream.n))
-        q = cols.shape[1]
-        toi_b, ovf, ck, unfin = nar.solve_rows(cols, ones[:q], toi,
-                                               round_limit=int(nar.round_limit),
-                                               skip_if_done=True)
-        toi = torch.minimum(toi, toi_b)
+    ones = torch.ones((max(min(stream.chunk, stream.n), POOL_BLOCK),), dtype=torch.bool,
+                      device=dev)
+    for c0 in range(0, stream.n, stream.chunk):
+        chunk = stream.cols(c0, min(c0 + stream.chunk, stream.n))
+        toi_c, ovf, ck, unfin_c = nar.solve_rows(chunk, ones[:chunk.shape[1]], toi,
+                                                 round_limit=int(nar.round_limit),
+                                                 skip_if_done=True)
+        toi = torch.minimum(toi, toi_c)
         checks, capped = checks + ck, capped | ovf
-        cum = torch.cumsum(unfin, 0)
-        cnt = cum[-1]
-        pooled = (cnt > 0) & (cnt <= POOL_BLOCK) & (cur <= cap)
-        idx = torch.searchsorted(cum, lane + 1).clamp_(max=q - 1)
-        # rows past cnt duplicate real rows and land past cur + cnt: the
-        # next append overwrites them and the pool's pass stops at cur
-        dest = torch.where(pooled, cur, cap + POOL_BLOCK) + lane
-        pool.index_copy_(1, dest, cols.index_select(1, idx))
-        cur = cur + torch.where(pooled, cnt, 0)
-        toi2, ovf2, ck2 = nar.solve_rows(cols, unfin & ~pooled, toi)
-        toi = torch.minimum(toi, toi2)
-        checks, capped = checks + ck2, capped | ovf2
+        for s in range(0, chunk.shape[1], batch):
+            cols, unfin = chunk[:, s:s + batch], unfin_c[s:s + batch]
+            q = cols.shape[1]
+            cum = torch.cumsum(unfin, 0)
+            cnt = cum[-1]
+            pooled = (cnt > 0) & (cnt <= POOL_BLOCK) & (cur <= cap)
+            idx = torch.searchsorted(cum, lane + 1).clamp_(max=q - 1)
+            # rows past cnt duplicate real rows and land past cur + cnt: the
+            # next append overwrites them and the pool's pass stops at cur
+            dest = torch.where(pooled, cur, cap + POOL_BLOCK) + lane
+            pool.index_copy_(1, dest, cols.index_select(1, idx))
+            cur = cur + torch.where(pooled, cnt, 0)
+            toi2, ovf2, ck2 = nar.solve_rows(cols, unfin & ~pooled, toi)
+            toi = torch.minimum(toi, toi2)
+            checks, capped = checks + ck2, capped | ovf2
     n_pool = int(cur)  # the loop's one host read
     for s in range(0, n_pool, POOL_BLOCK):
         block = pool[:, s:min(s + POOL_BLOCK, n_pool)]
@@ -659,20 +709,26 @@ def _narrow_phase(stream, budget, presample, nar: NarrowSolver, toi, collisions,
     if frame_pool:
         toi, checks, capped = _frame_pool_loop(stream, budget, nar, toi, checks, capped)
         return toi, checks, capped, refinements
-    if ipc_refine:
-        pairs = stream.all()
-        stream = PairStream(pairs[_key_order(pairs)], n_pairs, nar, batch)
+    if not ipc_refine:
+        # the reference chunk loop's `remaining_queries && toi > 0`: each
+        # batch's first launch skips on the device once the TOI is 0
+        # (skip_if_done); with escalation one first pass covers a chunk
+        for c0 in range(0, n_pairs, stream.chunk):
+            toi, cap, ck = nar.solve_chunk(stream.cols(c0, min(c0 + stream.chunk, n_pairs)),
+                                           toi, batch)
+            checks, capped = checks + ck, capped | cap
+        return toi, checks, capped, refinements
+    pairs = stream.all()
+    stream = PairStream(pairs[_key_order(pairs)], n_pairs, nar, batch)
     start = 0
-    # the reference chunk loop's `remaining_queries && toi > 0`: each batch's
-    # first launch skips on the device once the TOI is 0 (skip_if_done);
     # the IPC rule reads the TOI on the host anyway, and stops there
-    while start < n_pairs and (not ipc_refine or float(toi) > 0):
+    while start < n_pairs and float(toi) > 0:
         stop = min(start + batch, n_pairs)
         toi_b, cap, ck = nar.solve_batch(stream.cols(start, stop), toi, skip_if_done=True)
         toi_after = torch.minimum(toi, toi_b)
         # compared in the working dtype, as the JAX package's in-dispatch
         # rule does
-        if ipc_refine and bool(toi_after < IPC_MIN_TOI):
+        if bool(toi_after < IPC_MIN_TOI):
             # packs its own rows, with no minimum separation
             toi_r, cap_r, ck_r = nar.solve(stream.ids(start, stop), toi, exact=True)
             toi_after = torch.minimum(toi, toi_r) * IPC_BACKOFF

@@ -57,6 +57,11 @@ alone, so the tool can time another tree's package, the one found first on
 ``PYTHONPATH``::
 
     PYTHONPATH=build/parent python scalable_ccd_tpu_torch/tools/stages.py --frames
+
+``--escalation`` times the staged escalation against one unbounded pass per
+batch on the bench scene (the frame pool) and grid-600 (the batch ladder),
+with each frame's device time split by kernel and kernel B form
+(:func:`run_escalation`); it too uses the entry points alone.
 """
 
 from __future__ import annotations
@@ -66,6 +71,7 @@ import contextlib
 import inspect
 import json
 import os
+import re
 import statistics
 import time
 
@@ -95,7 +101,7 @@ from scalable_ccd_tpu_torch.pipeline.fused import (
 )
 
 __all__ = ["run_stages", "kernel_b_sets", "run_kernel_b", "run_kernel_a", "run_frames",
-           "count_syncs", "idle_share", "main"]
+           "run_escalation", "count_syncs", "idle_share", "main"]
 
 
 def _timed(fn, reps: int, device: torch.device):
@@ -228,9 +234,10 @@ def run_stages(grid: int = 128, subdiv: int = 4, drop: float = 0.25,
 def _recorded_launches(calls, keep=lambda kw: True):
     """Append the inputs of every kernel B launch made inside the block to
     ``calls`` (copies, as :func:`scalable_ccd_tpu_torch.ops.solver.
-    solve_packed`'s keywords plus ``qrows`` as rows and ``valid``), those
-    that ``keep`` accepts; launches with no valid row, and launches that
-    ``skip_if_done`` stops, do no work and are left out."""
+    solve_cols`'s keywords plus ``cols``, contiguous ``(31, Q)`` columns,
+    and ``valid``), those that ``keep`` accepts; launches with no valid
+    row, and launches that ``skip_if_done`` stops, do no work and are left
+    out."""
     launch = solver._launch
 
     def record(cols, valid, is_vf, toi_init, tolerance, allow_zero_toi, per_query,
@@ -241,7 +248,7 @@ def _recorded_launches(calls, keep=lambda kw: True):
               "widened": bool(widened)}
         idle = not bool(valid.any()) or (skip_if_done and float(toi_init) <= 0)
         if keep(kw) and not idle:
-            calls.append({"qrows": cols.t().clone(memory_format=torch.contiguous_format),
+            calls.append({"cols": cols.contiguous().clone(),
                           "valid": valid.clone(),
                           "toi_init": torch.as_tensor(toi_init).clone(), **kw})
         return launch(cols, valid, is_vf, toi_init, tolerance, allow_zero_toi, per_query,
@@ -267,13 +274,15 @@ def kernel_b_sets(device=None) -> list:
     recorded from the frames that make them, grouped by phase and mode:
 
     - ``bench``: ``fused_ccd`` of the bench scene at its defaults (the
-      presample and the frame straggler pool: 16,384-row ``round_limit``
-      passes, then the pool's blocks of at most 2,048 rows, ``global``);
+      presample and the frame straggler pool: one ``round_limit`` pass per
+      chunk, here each phase's candidates, then the pool's blocks of at
+      most 2,048 rows, ``global``);
     - ``bench_unbounded``: the same frame with ``escalate_rounds=-1`` (every
       batch one ``global`` pass);
     - ``grid600``: ``fused_ccd`` of ``cloth_on_sphere(600, 4)`` at its
-      defaults (the batch ladder), the launches of each phase's first four
-      batches;
+      defaults (the batch ladder): each phase's first ``round_limit`` pass,
+      over its first chunk of up to 2^20 rows, and the ladder's passes of
+      its first four batches;
     - ``grid64_collisions``: ``fused_ccd(collisions=[])`` of
       ``cloth_on_sphere(64, 3)`` (``per_query``), and the same rows with
       ``max_iterations`` 10 and 100 (``bounded``, the IPC path's mode).
@@ -302,12 +311,14 @@ def kernel_b_sets(device=None) -> list:
 
     frame("bench", (128, 4, 0.25))
     frame("bench_unbounded", (128, 4, 0.25), escalate_rounds=-1)
-    passes = {True: 0, False: 0}
+    passes = {}
 
     def first_batches(kw):
-        # a batch is one round-limited pass and the ladder's solves after it
-        passes[kw["is_vf"]] += kw["round_limit"] >= 0
-        return passes[kw["is_vf"]] <= 4
+        # a phase's first round-limited pass (over its first chunk), and the
+        # ladder's two passes after it for each of the first four batches
+        key = (kw["is_vf"], kw["round_limit"] >= 0)
+        passes[key] = passes.get(key, 0) + 1
+        return passes[key] <= (1 if kw["round_limit"] >= 0 else 8)
 
     frame("grid600", (600, 4, 0.25), first_batches)
     frame("grid64_collisions", (64, 3, 0.25), collisions=[])
@@ -341,12 +352,21 @@ def _events_ms(fn, reps):
     return total / reps
 
 
-def _solve_calls(fn, calls):
-    """``fn`` (a :func:`solver.solve_packed`-like call) on each recorded
-    launch's inputs; the list of their outputs."""
-    return [fn(c["qrows"], c["valid"], c["is_vf"], c["toi_init"], c["tolerance"],
-               c["allow_zero_toi"], c["per_query"], c["max_iterations"], c["round_limit"],
-               c["widened"]) for c in calls]
+def _solve_calls(fn, calls, rows=False):
+    """``fn`` (a :func:`solver.solve_cols`-like call, or with ``rows`` a
+    :func:`solver.solve_packed`-like one, given ``(Q, 31)`` views) on each
+    recorded launch's inputs; the list of their outputs.  The kernel reads
+    the recorded columns in place, so its times hold no copy."""
+    return [fn(c["cols"].t() if rows else c["cols"], c["valid"], c["is_vf"], c["toi_init"],
+               c["tolerance"], c["allow_zero_toi"], c["per_query"], c["max_iterations"],
+               c["round_limit"], c["widened"]) for c in calls]
+
+
+def _batched(calls, batch=_NARROW_BATCH):
+    """The recorded launches cut into launches of at most ``batch`` rows
+    (column slices, read in place)."""
+    return [{**c, "cols": c["cols"][:, s:s + batch], "valid": c["valid"][s:s + batch]}
+            for c in calls for s in range(0, c["cols"].shape[1], batch)]
 
 
 def run_kernel_b(device=None, reps=3, plain=False, emit=print) -> list:
@@ -355,24 +375,28 @@ def run_kernel_b(device=None, reps=3, plain=False, emit=print) -> list:
     checks (``ops/solver.py:_checks_spread``: mean, p50, p99, max, and the
     lane efficiency of warps of 32 queries and of 4) and ``ms``, the
     device time of one pass over the set (the mean of ``reps``, each pass
-    behind a GPU sleep).  With ``plain`` the plain version runs once on the
-    same inputs (``plain_ms``, ``plain_checks``), and the line says whether
-    they agree (``equal``): every TOI bitwise, and where the order fixes
-    them (``round_limit`` seeded, bounded per-query) the checks and the
-    unfinished rows; ``least_checks`` (``ops/solver.py:_least_checks``) is
+    behind a GPU sleep, the kernel reading the recorded columns in place);
+    a ``round_limit`` set, recorded one launch per chunk, is also timed in
+    launches of 16,384 rows (``ms_batches``).  With ``plain`` the plain
+    version runs once on the same inputs (``plain_ms``, ``plain_checks``),
+    and the line says whether they agree (``equal``): every TOI bitwise,
+    and where the order fixes them (``round_limit`` seeded, bounded
+    per-query) the checks and the unfinished rows; ``least_checks`` (``ops/solver.py:_least_checks``) is
     the work of an unbounded set that any order must do."""
     lines = []
     for name, ph, mode, calls in kernel_b_sets(device):
-        outs = _solve_calls(solver._solve_query_checks, calls)
+        outs = _solve_calls(solver._solve_query_checks, calls, rows=True)
         plane = torch.cat([o[-1] for o in outs])
         line = {"set": name, "phase": ph, "mode": mode, "launches": len(calls),
                 "queries": int(plane.numel()), "checks": sum(int(o[2]) for o in outs),
                 "spread": solver._checks_spread(plane),
-                "ms": _events_ms(lambda: _solve_calls(solver.solve_packed, calls), reps),
+                "ms": _events_ms(lambda: _solve_calls(solver.solve_cols, calls), reps),
                 "toi": min(float(o[0]) for o in outs),
                 "overflow": any(bool(o[1]) for o in outs)}
         if mode == "round_limit":
             line["unfinished"] = sum(int(o[3].sum()) for o in outs)
+            line["ms_batches"] = _events_ms(
+                lambda: _solve_calls(solver.solve_cols, _batched(calls)), reps)
         if plain:
             line.update(_against_plain(calls, mode, outs))
         lines.append(line)
@@ -385,7 +409,7 @@ def _against_plain(calls, mode, outs):
     the equalities the kernel must meet (:func:`run_kernel_b`)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ref = _solve_calls(solver.solve_packed_reference, calls)
+    ref = _solve_calls(solver.solve_packed_reference, calls, rows=True)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     equal = all(float(k[0]) == float(p[0]) for k, p in zip(outs, ref))
@@ -397,7 +421,7 @@ def _against_plain(calls, mode, outs):
            "equal": bool(equal)}
     if mode in ("global", "per_query"):
         out["least_checks"] = sum(
-            solver._least_checks(c["qrows"], c["valid"], c["is_vf"], p[0], c["tolerance"],
+            solver._least_checks(c["cols"].t(), c["valid"], c["is_vf"], p[0], c["tolerance"],
                                  p[3] if mode == "per_query" else None,
                                  c["allow_zero_toi"], c["widened"])
             for c, p in zip(calls, ref))
@@ -620,11 +644,16 @@ def idle_share(fn, label="sccd_frame"):
             torch.cuda.synchronize()
     events = prof.events()
     span = [e.time_range for e in events if e.name == label and e.device_type == DeviceType.CPU]
-    busy = sorted((e.time_range.start, e.time_range.end) for e in events
-                  if e.device_type == DeviceType.CUDA and e.name != label)
+    device = [e for e in events if e.device_type == DeviceType.CUDA and e.name != label]
+    busy = sorted((e.time_range.start, e.time_range.end) for e in device)
+    by_kernel = {}
+    for e in device:
+        group = by_kernel.setdefault(_kernel_group(e.name), {"ms": 0.0, "events": 0})
+        group["ms"] += (e.time_range.end - e.time_range.start) / 1e3
+        group["events"] += 1
     if not span or not busy:
         return out, {"span_ms": None, "device_busy_ms": None, "idle_share": None,
-                     "device_events": len(busy)}
+                     "device_events": len(busy), "by_kernel": by_kernel}
     t0, t1 = span[0].start, span[0].end
     total, end = 0.0, t0
     for a, b in busy:
@@ -633,7 +662,28 @@ def idle_share(fn, label="sccd_frame"):
             total += b - a
             end = b
     return out, {"span_ms": (t1 - t0) / 1e3, "device_busy_ms": total / 1e3,
-                 "idle_share": 1.0 - total / (t1 - t0), "device_events": len(busy)}
+                 "idle_share": 1.0 - total / (t1 - t0), "device_events": len(busy),
+                 "by_kernel": by_kernel}
+
+
+def _kernel_group(name: str) -> str:
+    """The port kernel, or kernel B form, that a traced device event belongs
+    to: ``kernel_b_one_thread`` (the bounded and round-limited passes),
+    ``kernel_b_shared`` (the unbounded modes), ``kernel_c``, ``kernel_a``
+    (kernels A and A'), else ``torch`` (PyTorch's own kernels, copies and
+    fills).  Reads both the current kernel names and the older
+    ``solve_kernel<T, IS_VF, PER_QUERY, SHARE>`` instantiation."""
+    if "solve_lane_kernel" in name:
+        return "kernel_b_one_thread"
+    m = re.search(r"solve_kernel<([^>]*)>", name)
+    if m:
+        args = [a.strip() for a in m.group(1).split(",")]
+        return "kernel_b_one_thread" if args[3:4] == ["false"] else "kernel_b_shared"
+    if "gather_pack_kernel" in name:
+        return "kernel_c"
+    if "sweep" in name or "units_kernel" in name:
+        return "kernel_a"
+    return "torch"
 
 
 def run_frames(device=None, reps=5, emit=print) -> list:
@@ -721,6 +771,59 @@ def run_frames(device=None, reps=5, emit=print) -> list:
     return lines
 
 
+#: run_escalation's scenes: the frame pool's (bench) and the batch ladder's
+#: (grid-600, the congestion ordering)
+_ESCALATION_SCENES = {"bench": (128, 4, 0.25), "grid600": (600, 4, 0.25)}
+
+
+def run_escalation(device=None, reps=5, emit=print) -> list:
+    """The staged escalation against one unbounded pass per batch, on a
+    CUDA device, one JSON line per scene of ``_ESCALATION_SCENES`` and
+    variant: ``fused_ccd`` at its defaults (the bench scene's frame pool,
+    grid-600's batch ladder) and with ``escalate_rounds=-1``, timed in turns
+    (defaults, unbounded, unbounded, defaults; each turn the median host ms
+    of ``reps`` frames after a warm-up), with the TOI's ``float.hex``, the
+    totals, kernel B's launches per frame by mode and one traced frame
+    (:func:`idle_share`), whose ``by_kernel`` splits the device time between
+    kernel B's one-thread form (the round-limited passes), its shared form
+    (the solve-now, pool and ladder passes), kernels C and A and PyTorch.
+    It uses the entry points and kernel B's launch counters alone, so it
+    can time another tree's package (``PYTHONPATH``)."""
+    device = resolve_device(device)
+    if device.type != "cuda":
+        raise RuntimeError("run_escalation times CUDA frames: it needs a CUDA device")
+    lines = []
+    variants = {"defaults": {}, "unbounded": {"escalate_rounds": -1}}
+    for name, args in _ESCALATION_SCENES.items():
+        s = cloth_on_sphere(*args)
+        v0, v1, e, f = mesh_tensors(s.vertices_t0, s.vertices_t1, s.edges, s.faces, device,
+                                    pca=False)
+
+        def frame(kw):
+            return fused_ccd(v0, v1, e, f, device=device, validate=False, **kw)
+
+        ms = {label: [] for label in variants}
+        launches = {}
+        for label in ("defaults", "unbounded", "unbounded", "defaults"):
+            before = dict(solver.LAUNCHES_BY_MODE)
+            res, wall, _ = _timed(lambda: frame(variants[label]), reps, device)
+            ms[label].append(wall)
+            launches[label] = {k: (v - before[k]) // (reps + 1)
+                               for k, v in solver.LAUNCHES_BY_MODE.items() if v > before[k]}
+        for label, kw in variants.items():
+            frame(kw)
+            res, stats = idle_share(lambda: frame(kw))
+            line = {"frame": "escalation", "scene": name, "variant": label, "ms": ms[label],
+                    "kernel_b_launches": launches[label], "toi": float(res.toi),
+                    "toi_hex": float(res.toi).hex(), "vf_total": int(res.vf_total),
+                    "ee_total": int(res.ee_total), "total_checks": int(res.total_checks),
+                    "overflowed": bool(res.overflowed),
+                    "solver_capped": bool(res.solver_capped), **stats}
+            lines.append(line)
+            emit(json.dumps(line))
+    return lines
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("grid", nargs="?", type=int, default=128)
@@ -736,10 +839,16 @@ def main(argv=None) -> int:
     ap.add_argument("--kernel-a", action="store_true",
                     help="kernels A and A' alone in every mode and dtype, and their frames "
                          "(CUDA only)")
+    ap.add_argument("--escalation", action="store_true",
+                    help="the staged escalation against unbounded frames, with device ms "
+                         "by kernel (CUDA only)")
     ap.add_argument("--frames", action="store_true",
                     help="whole frames: TOIs, host ms, syncs per frame and the idle share "
                          "(CUDA only)")
     a = ap.parse_args(argv)
+    if a.escalation:
+        lines = run_escalation(a.device, a.reps)
+        return 0 if not any(o["overflowed"] for o in lines) else 1
     if a.frames:
         lines = run_frames(a.device, a.reps)
         return 0 if not any(o.get("overflowed") for o in lines) else 1

@@ -631,6 +631,136 @@ def test_solver_kernel_deep_query_among_shallow(cuda, is_vf, kind):
         assert int(plane.max()) > float(plane[valid].double().median())
 
 
+# ---- kernel B's one-thread form: a persistent grid with per-lane refill ----------
+
+def _bench_rows(device, kind, is_vf=False):
+    """The bench scene's candidates (``cloth_on_sphere(128, 4)``: 41,480 VF
+    and 136,473 EE, three and nine batches of 16,384) in ``kind``'s type,
+    every seventh row invalid."""
+    return _rows_kind(device, is_vf, kind, scenes.cloth_on_sphere(128, 4, drop=0.25))
+
+
+def _dense_cluster_rows(device, is_vf, kind):
+    import os
+
+    from scalable_ccd_tpu_torch.geometry import read_ply
+    from scalable_ccd_tpu_torch.geometry.scenes import Scene
+
+    gdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
+                        "dense-cluster", "frames")
+    v0, faces = read_ply(os.path.join(gdir, "f0.ply"))
+    v1, _ = read_ply(os.path.join(gdir, "f1.ply"))
+    return _rows_kind(device, is_vf, kind, Scene(v0, v1, faces))
+
+
+def _round_limited_equals_plain(rows, valid, is_vf, seed, limit, widened):
+    """The round-limited pass (one launch over all rows) seeded with
+    ``seed`` against the plain lockstep DFS: the same unfinished rows,
+    checks and per-query checks, the TOI unmoved.  Returns the kernel's
+    outputs."""
+    k = solver._solve_query_checks(rows, valid, is_vf, seed, TOL, round_limit=limit,
+                                   widened=widened)
+    torch.cuda.synchronize()
+    p = solver._reference_query_checks(rows, valid, is_vf, seed, TOL, round_limit=limit,
+                                       widened=widened)
+    assert torch.equal(k[3], p[3]) and int(k[2]) == int(p[2]) and torch.equal(k[4], p[4])
+    assert float(k[0]) == float(p[0]) == float(seed) and not bool(k[1])
+    assert not k[3][~valid].any() and int(k[4][~valid].abs().sum()) == 0
+    return k
+
+
+@pytest.mark.parametrize("kind", ["f32", "f64", "widened"])
+@pytest.mark.parametrize("is_vf", [True, False])
+def test_solver_lane_form_chunk_in_one_launch_equals_plain(cuda, is_vf, kind):
+    """A chunk of the bench scene's candidates, several 16,384-row batches,
+    in one round-limited launch seeded with the final TOI: the unfinished
+    rows, checks and per-query checks of the plain lockstep DFS, and the
+    same as one launch per batch; with ``skip_if_done`` and a seed of 0 the
+    launch evaluates nothing.  The grid is persistent: no more blocks than
+    stay resident."""
+    rows, valid = _bench_rows(cuda, kind, is_vf)
+    widened = kind == "widened"
+    assert rows.shape[0] > 2 * 16384
+    final = solver.solve_packed(rows, valid, is_vf, 1.0, TOL, widened=widened)[0]
+    before = dict(solver.LAUNCHES_BY_MODE)
+    k = _round_limited_equals_plain(rows, valid, is_vf, final, 128, widened)
+    assert solver.LAUNCHES_BY_MODE["round_limit"] == before["round_limit"] + 1
+    assert k[3].any() and int(k[2]) > 0
+    parts = [solver._solve_query_checks(rows[s:s + 16384], valid[s:s + 16384], is_vf, final,
+                                        TOL, round_limit=128, widened=widened)
+             for s in range(0, rows.shape[0], 16384)]
+    assert torch.equal(torch.cat([o[3] for o in parts]), k[3])
+    assert torch.equal(torch.cat([o[4] for o in parts]), k[4])
+    assert sum(int(o[2]) for o in parts) == int(k[2])
+    z = solver.solve_cols(rows.t().contiguous(), valid, is_vf, 0.0, TOL, round_limit=128,
+                          widened=widened, skip_if_done=True)
+    assert int(z[2]) == 0 and not z[3].any()
+    blocks, per_sm = solver._lane_grid(rows.shape[0], is_vf, False, kind != "f32")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert per_sm >= 1 and blocks == min(per_sm * sms, -(-rows.shape[0] // 128))
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 4097])
+def test_solver_lane_form_ragged_row_counts(cuda, n):
+    """Row counts that fill no whole warp (or leave a warp one query), and
+    4,097 rows, more warps of staged queries than one fetch each: every mode
+    equals the plain version, and the round-limited pass keeps its
+    per-query checks."""
+    rows, valid = _bench_rows(cuda, "f32")
+    sub, sub_valid = rows[:n].contiguous(), valid[:n].contiguous()
+    sub_valid[0] = True
+    final = _every_mode_equals_plain(sub, sub_valid, False)
+    _round_limited_equals_plain(sub, sub_valid, False, final, 30, False)
+
+
+def test_solver_lane_form_no_rows_and_no_valid_rows(cuda):
+    """``Q = 0`` launches nothing; all rows invalid evaluate nothing in the
+    bounded and round-limited modes and write each row's outputs."""
+    rows, _ = _bench_rows(cuda, "f32")
+    rows = rows[:4097].contiguous()
+    for q in (0, rows.shape[0]):
+        none = torch.zeros((q,), dtype=torch.bool, device=cuda)
+        for kw in (dict(round_limit=5), dict(max_iterations=10),
+                   dict(per_query=True, max_iterations=10)):
+            out = solver._solve_query_checks(rows[:q], none, False, 0.5, TOL, **kw)
+            assert float(out[0]) == 0.5 and not bool(out[1]) and int(out[2]) == 0, kw
+            assert out[-1].shape == (q,) and int(out[-1].abs().sum()) == 0
+            if "round_limit" in kw:
+                assert out[3].shape == (q,) and not out[3].any()
+            elif "per_query" in kw:
+                assert torch.isinf(out[3]).all()
+
+
+@pytest.mark.parametrize("kind", ["f32", "f64", "widened"])
+def test_solver_lane_form_deep_queries_among_thousands(cuda, kind):
+    """The dense-cluster scene's EE rows (a few deep searches) inside 32,768
+    of the bench scene's shallow ones, across many warps, so that lanes
+    refill while the deep queries run: the round-limited pass seeded with
+    the final TOI, the per-query bounded pass (caps 10 and 100: per-query
+    TOIs bitwise, checks and per-query checks) equal the plain version, and
+    a global cap of 10^6 gives the unbounded TOI."""
+    widened = kind == "widened"
+    shallow, s_valid = _bench_rows(cuda, kind)
+    deep, d_valid = _dense_cluster_rows(cuda, False, kind)
+    rows = torch.cat([shallow[:16384], deep, shallow[16384:32768]]).contiguous()
+    valid = torch.cat([s_valid[:16384], d_valid, s_valid[16384:32768]]).contiguous()
+    final = solver.solve_packed(rows, valid, False, 1.0, TOL, widened=widened)[0]
+    _round_limited_equals_plain(rows, valid, False, final, 128, widened)
+    in_deep = slice(16384, 16384 + deep.shape[0])
+    for cap in (10, 100):
+        kq = solver._solve_query_checks(rows, valid, False, 1.0, TOL, per_query=True,
+                                        max_iterations=cap, widened=widened)
+        pq = solver._reference_query_checks(rows, valid, False, 1.0, TOL, per_query=True,
+                                            max_iterations=cap, widened=widened)
+        assert torch.equal(kq[3], pq[3]) and float(kq[0]) == float(pq[0]), cap
+        assert int(kq[2]) == int(pq[2]) and torch.equal(kq[4], pq[4]), cap
+        # the deep queries run into the cap while the shallow ones end
+        assert (kq[4][in_deep] > cap).any() and float(kq[4][valid].double().median()) < 100
+    big = solver.solve_packed(rows, valid, False, 1.0, TOL, max_iterations=10**6,
+                              widened=widened)
+    assert float(big[0]) == float(final) and not bool(big[1])
+
+
 # ---- kernel A's work units (tiles of 32 boxes against rows of 128 partners) -------
 
 def _unit_case(name, device, dtype):

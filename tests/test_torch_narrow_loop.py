@@ -127,16 +127,20 @@ def test_batch_ladder_branches_match_jax(scene, reference, launches, branch):
                     presample=False, **CPU)
     _same_as_jax(res, reference)
     assert sum(c["checks"] for c in launches) == int(res.total_checks)
+    # one first pass per phase (its one chunk), then (small, full) per batch
     firsts = [i for i, c in enumerate(launches) if c["round_limit"] >= 0]
-    assert firsts and all(launches[i]["skip"] for i in firsts)
+    assert len(firsts) == 2 and all(launches[i]["skip"] for i in firsts)
     for i in firsts:
-        first, small, full = launches[i:i + 3]
-        assert small["round_limit"] < 0 and full["round_limit"] < 0
-        assert small["q"] == min(4 * PB, -(-first["q"] // PB) * PB) and full["q"] == first["q"]
-        if branch == "skip":
-            assert small["valid"] == full["valid"] == 0
-        elif branch == "small":
-            assert small["valid"] == first["valid"] and full["valid"] == 0
+        first = launches[i]
+        sizes = [min(batch, first["q"] - s) for s in range(0, first["q"], batch)]
+        rest = launches[i + 1:i + 1 + 2 * len(sizes)]
+        for q, small, full in zip(sizes, rest[0::2], rest[1::2]):
+            assert small["round_limit"] < 0 and full["round_limit"] < 0
+            assert small["q"] == min(4 * PB, -(-q // PB) * PB) and full["q"] == q
+            if branch == "skip":
+                assert small["valid"] == full["valid"] == 0
+            elif branch == "small":
+                assert small["valid"] == q and full["valid"] == 0
     if branch == "full":
         ee = [launches[i:i + 3] for i in firsts if not launches[i]["is_vf"]]
         assert len(ee) == 1 and ee[0][0]["q"] == int(res.ee_total) > 4 * PB
@@ -165,32 +169,38 @@ def test_exit_on_device_after_toi_reaches_zero(launches, kw):
 
 @pytest.mark.parametrize("branch", ["small", "full"])
 def test_batch_ladder_of_two_stages_matches_jax(scene, reference, launches, branch):
-    """A ladder ``(0, 2)`` makes every stage's choice on the device: each
-    batch's first pass, then the rest of the ladder over the ``K``-row pool
-    (a pass of 2 rounds and its own pool and unbounded passes), then the
-    unbounded pass over the batch.  ``small``: batches of 1,024 are pooled
-    and the ladder's second stage solves them; ``full``: the EE batch of
-    10,392 unfinished rows overflows the pool, is solved over the batch,
-    and the second stage has no valid row."""
+    """A ladder ``(0, 2)`` makes every stage's choice on the device: the
+    first pass over the phase's chunk, then per batch the rest of the
+    ladder over the ``K``-row pool (a pass of 2 rounds and its own pool and
+    unbounded passes), then the unbounded pass over the batch, each of them
+    skipping once the TOI is 0.  ``small``:
+    batches of 1,024 are pooled and the ladder's second stage solves them;
+    ``full``: the EE batch of 10,392 unfinished rows overflows the pool, is
+    solved over the batch, and the second stage has no valid row."""
     batch = {"small": 1024, "full": 1 << 14}[branch]
     res = fused_ccd(*scene, escalate_rounds=(0, 2), escalate_pool="batch", narrow_batch=batch,
                     presample=False, **CPU)
     _same_as_jax(res, reference)
     assert sum(c["checks"] for c in launches) == int(res.total_checks)
     firsts = [i for i, c in enumerate(launches) if c["round_limit"] == 0]
-    assert firsts and len(launches) == 5 * len(firsts)
+    sizes = {i: [min(batch, launches[i]["q"] - s) for s in range(0, launches[i]["q"], batch)]
+             for i in firsts}
+    assert len(firsts) == 2 and len(launches) == sum(1 + 4 * len(n) for n in sizes.values())
     for i in firsts:
-        first, inner, inner_small, inner_full, full = launches[i:i + 5]
-        pool = min(4 * PB, -(-first["q"] // PB) * PB)
-        assert first["skip"] and not any(c["skip"] for c in (inner, inner_small, inner_full, full))
-        assert inner["round_limit"] == 2
-        assert all(c["round_limit"] < 0 for c in (inner_small, inner_full, full))
-        assert inner["q"] == inner_small["q"] == inner_full["q"] == pool
-        assert full["q"] == first["q"]
-        overflows = first["valid"] > pool
-        assert inner["valid"] == (0 if overflows else first["valid"])
-        assert full["valid"] == (first["valid"] if overflows else 0)
-        assert overflows == (branch == "full" and not first["is_vf"])
+        first = launches[i]
+        assert first["skip"]
+        for k, q in enumerate(sizes[i]):
+            inner, inner_small, inner_full, full = launches[i + 1 + 4 * k:i + 5 + 4 * k]
+            pool = min(4 * PB, -(-q // PB) * PB)
+            assert all(c["skip"] for c in (inner, inner_small, inner_full, full))
+            assert inner["round_limit"] == 2
+            assert all(c["round_limit"] < 0 for c in (inner_small, inner_full, full))
+            assert inner["q"] == inner_small["q"] == inner_full["q"] == pool
+            assert full["q"] == q
+            overflows = q > pool  # round 0 leaves every valid row unfinished
+            assert inner["valid"] == (0 if overflows else q)
+            assert full["valid"] == (q if overflows else 0)
+            assert overflows == (branch == "full" and not first["is_vf"])
 
 
 @pytest.fixture
@@ -225,18 +235,29 @@ def test_chunked_loop_matches_jax(scene, reference, launches, packs, sweep_impl,
     the frame pool, the batch ladder and the unbounded loop give JAX's
     frame on both ``sweep_impl``s, kernel C packs each phase in
     ``ceil(candidates / 3,072)`` calls of the sweep's mode (chunks of 3,072
-    rows and a shorter last one), and kernel B sees every batch of 1,024."""
+    rows and a shorter last one), the escalation's first pass reads each
+    chunk in one call, and kernel B sees every batch of 1,024: the
+    unbounded loop's passes, the frame pool's solve-now passes and the
+    ladder's unbounded passes over the batch."""
     res = fused_ccd(*scene, narrow_batch=1024, presample=False, sweep_impl=sweep_impl, **kw,
                     **CPU)
     _same_as_jax(res, reference)
     assert sum(c["checks"] for c in launches) == int(res.total_checks)
+    escalated = kw["escalate_rounds"] >= 0
     for is_vf, total in ((True, int(res.vf_total)), (False, int(res.ee_total))):
         rows = [q for mode, vf, q in packs if vf == is_vf]
+        chunks = [min(3072, total - c) for c in range(0, total, 3072)]
+        batches = [min(1024, total - s) for s in range(0, total, 1024)]
         assert {mode for mode, vf, _ in packs if vf == is_vf} == {sweep_impl}
-        assert rows == [min(3072, total - c) for c in range(0, total, 3072)]
+        assert rows == chunks
         firsts = [c["q"] for c in launches if c["is_vf"] == is_vf and c["skip"]
                   and c["round_limit"] == kw["escalate_rounds"]]
-        assert firsts == [min(1024, total - s) for s in range(0, total, 1024)]
+        assert firsts == (chunks if escalated else batches)
+        free = [c for c in launches if c["is_vf"] == is_vf and c["round_limit"] < 0]
+        if kw.get("escalate_pool") == "frame":  # the solve-now passes
+            assert [c["q"] for c in free if not c["skip"]] == batches
+        elif kw.get("escalate_pool") == "batch":  # (pool, batch) per batch
+            assert [c["q"] for c in free[1::2]] == batches
 
 
 @pytest.mark.parametrize("mode", ["collisions", "ipc_refine"])

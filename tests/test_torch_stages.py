@@ -159,6 +159,38 @@ def test_kernel_b_rows_need_cuda():
     assert modes == ["round_limit", "global", "per_query", "bounded", "bounded"]
 
 
+def test_escalation_frames_need_cuda_and_split_device_time_by_kernel():
+    """``--escalation`` times CUDA frames only; its traced device time is
+    split by kernel, kernel B by form, from the kernels' names (this tree's
+    and the one-thread form's older name, ``solve_kernel<..., SHARE>``);
+    ``--kernel-b`` replays a round-limited set in 16,384-row launches."""
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        stages.run_escalation(device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        stages.main(["--escalation", "--device", "cpu"])
+    ns = "void (anonymous namespace)::"
+    names = {
+        ns + "solve_lane_kernel<float, false, false>(float const*, long long)":
+            "kernel_b_one_thread",
+        ns + "solve_kernel<double, true, true>(double const*, long long)": "kernel_b_shared",
+        ns + "solve_kernel<float, true, false, false>(float const*)": "kernel_b_one_thread",
+        ns + "solve_kernel<float, true, false, true>(float const*)": "kernel_b_shared",
+        ns + "gather_pack_kernel<float, float, true, Pairs>(Pairs, long long)": "kernel_c",
+        ns + "sweep_units_kernel<float, true, false>(Planes)": "kernel_a",
+        ns + "record_units_kernel<double, false>(Planes)": "kernel_a",
+        "void at::native::vectorized_elementwise_kernel<4, FillFunctor<bool>>(int)": "torch",
+        "Memset (Device)": "torch",
+    }
+    assert {n: stages._kernel_group(n) for n in names} == names
+    call = {"cols": torch.arange(40000 * 31.0).reshape(31, 40000),
+            "valid": torch.ones(40000, dtype=torch.bool), "round_limit": 128}
+    parts = stages._batched([call, dict(call, cols=call["cols"][:, :5], valid=call["valid"][:5])])
+    assert [p["cols"].shape[1] for p in parts] == [16384, 16384, 7232, 5]
+    assert torch.equal(torch.cat([p["cols"] for p in parts[:3]], dim=1), call["cols"])
+    assert all(p["round_limit"] == 128 and p["valid"].shape[0] == p["cols"].shape[1]
+               and p["cols"].stride() == (40000, 1) for p in parts)
+
+
 def test_kernel_a_pass_needs_cuda_and_digests_records_order_free():
     """``--kernel-a`` times CUDA kernels only; its record digest is that of
     the multiset, so a permuted record buffer gives the same digest and a
