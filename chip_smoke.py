@@ -585,8 +585,9 @@ def main():
     zero_counts(sweep_ap, solver)
     res = fused_ccd(*bargs, device="cuda", validate=False)
     torch.cuda.synchronize()
-    launches = {"sweep_pairs": sweep_ap.LAUNCHES, "solve_packed": solver.LAUNCHES,
-                "gather_pack": gp.LAUNCHES}
+    launches = {"sweep_pairs": sweep_ap.LAUNCHES_BY_MODE.total,
+                "solve_packed": solver.LAUNCHES_BY_MODE.total,
+                "gather_pack": gp.LAUNCHES_BY_MODE.total}
     main_modes = read_counts(sweep_ap, solver)
     check(all(n > 0 for n in launches.values()), f"main path skipped a kernel: {launches}")
     # the bench scene's defaults: the major sort and the frame straggler pool
@@ -752,7 +753,6 @@ def _counted_modules():
 def zero_counts(*_):
     """Set every kernel's launch counts to 0."""
     for mod in _counted_modules().values():
-        mod.LAUNCHES = 0
         for k in mod.LAUNCHES_BY_MODE:
             mod.LAUNCHES_BY_MODE[k] = 0
 
@@ -1783,7 +1783,7 @@ def phase_narrow_loop(torch, dev, bench_scene, grid600_scene):
             zero_counts()
             res, n, sites = stages.count_syncs(run)
             torch.cuda.synchronize()
-            packs = gp.LAUNCHES
+            packs = gp.LAUNCHES_BY_MODE.total
             chunk = gp.chunk_rows(batch)
             need = -(-int(res.vf_total) // chunk) - (-int(res.ee_total) // chunk)
             check(need <= packs <= need + 2, f"{name} narrow_batch={batch}: {packs} kernel C "

@@ -21,8 +21,10 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "load_library", "build_library", "BUILD_DIR", "launch_counts",
-           "count_launch"]
+from scalable_ccd_tpu_torch.utils.profiler import profiler
+
+__all__ = ["NVCC_FLAGS", "load_library", "build_library", "BUILD_DIR", "LaunchCounts",
+           "launch_counts", "count_launch"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -100,19 +102,40 @@ def load_library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def launch_counts(*modes: str) -> dict:
-    """A zeroed launch-count table of a kernel wrapper: one entry per mode,
-    counting launches of either scalar type, one per ``"<mode>_f64"``,
-    counting the double instantiation alone, and ``"f32"`` / ``"f64"``,
-    every launch by scalar type."""
+class LaunchCounts(dict):
+    """A kernel wrapper's launch-count table (:func:`launch_counts`)."""
+
+    def __init__(self, kernel: str, keys):
+        super().__init__(dict.fromkeys(keys, 0))
+        #: the kernel's name, its ``csrc/<kernel>.cu``
+        self.kernel = kernel
+
+    @property
+    def total(self) -> int:
+        """Every launch of the kernel in this process."""
+        return self["f32"] + self["f64"]
+
+
+def launch_counts(kernel: str, *modes: str) -> LaunchCounts:
+    """A zeroed launch-count table of the kernel ``kernel``: one entry per
+    mode, counting launches of either scalar type, one per
+    ``"<mode>_f64"``, counting the double instantiation alone, and
+    ``"f32"`` / ``"f64"``, every launch by scalar type."""
     keys = list(modes) + [m + "_f64" for m in modes] + ["f32", "f64"]
-    return dict.fromkeys(keys, 0)
+    return LaunchCounts(kernel, keys)
 
 
-def count_launch(counts: dict, modes, f64: bool) -> None:
-    """Add one launch in each of ``modes`` to a :func:`launch_counts` table."""
+def count_launch(counts: LaunchCounts, modes, f64: bool) -> None:
+    """Add one launch in each of ``modes`` to a :func:`launch_counts` table,
+    and, while the profiler counts (:mod:`scalable_ccd_tpu_torch.utils.
+    profiler`: a call recorded or ``SCALABLE_CCD_PROFILE=1``), one to its
+    counter ``launch.<kernel>.<modes joined by +>`` (``_f64`` appended for
+    the double instantiation)."""
     for m in modes:
         counts[m] += 1
         if f64:
             counts[m + "_f64"] += 1
     counts["f64" if f64 else "f32"] += 1
+    prof = profiler()
+    if prof.counting:
+        prof.count(f"launch.{counts.kernel}.{'+'.join(modes)}" + ("_f64" if f64 else ""))

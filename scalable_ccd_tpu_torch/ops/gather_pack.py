@@ -59,17 +59,14 @@ from scalable_ccd_tpu_torch.ops.sweep_records import REC_WORDS, decode_records_r
 
 __all__ = ["gather_pack", "gather_pack_reference", "gather_pack_records",
            "gather_pack_records_reference", "row_dtype", "chunk_rows", "CHUNK_ROWS",
-           "LAUNCHES", "LAUNCHES_BY_MODE"]
+           "LAUNCHES_BY_MODE"]
 
 #: kernel launches made by :func:`gather_pack` and :func:`gather_pack_records`
-#: in this process
-LAUNCHES = 0
-
-#: the same launches by mode: "vf" or "ee", "compensated" for the
+#: in this process, by mode: "vf" or "ee", "compensated" for the
 #: compensated rows (counted as f64, their rows' type) and "records" for the
 #: records mode; by scalar type as
 #: :func:`scalable_ccd_tpu_torch.ops._build.launch_counts` lays out
-LAUNCHES_BY_MODE = launch_counts("vf", "ee", "compensated", "records")
+LAUNCHES_BY_MODE = launch_counts("gather_pack", "vf", "ee", "compensated", "records")
 
 #: most rows of one chunk, the columns of one phase's packed-row buffer in
 #: the narrow loop: 2^20 rows are 130 MB of f32 rows and 260 MB of f64 or
@@ -245,8 +242,6 @@ def _scalars(dt, is_vf, ms, tolerance, compensated):
 
 
 def _counted(is_vf, compensated, f64, records=False):
-    global LAUNCHES
-    LAUNCHES += 1
     modes = ["vf" if is_vf else "ee"] + (["compensated"] if compensated else [])
     count_launch(LAUNCHES_BY_MODE, modes + (["records"] if records else []), f64)
 

@@ -70,21 +70,18 @@ __all__ = [
     "solve_escalated_cols",
     "solve_unfinished_cols",
     "normalize_round_limits",
-    "LAUNCHES",
     "LAUNCHES_BY_MODE",
     "MAX_STEPS",
     "POOL_BLOCK",
     "ROW_WIDTH",
 ]
 
-#: kernel launches made by :func:`solve_packed` in this process
-LAUNCHES = 0
-
-#: the same launches by mode: "global" (neither per-query, bounded nor
-#: round-limited), "per_query", "bounded" and "round_limit"; a per-query
-#: bounded launch counts in both; by scalar type as
+#: kernel launches made by :func:`solve_packed` in this process, by mode:
+#: "global" (neither per-query, bounded nor round-limited), "per_query",
+#: "bounded" and "round_limit"; a per-query bounded launch counts in both;
+#: by scalar type as
 #: :func:`scalable_ccd_tpu_torch.ops._build.launch_counts` lays out
-LAUNCHES_BY_MODE = launch_counts("global", "per_query", "bounded", "round_limit")
+LAUNCHES_BY_MODE = launch_counts("solver", "global", "per_query", "bounded", "round_limit")
 
 #: rows per pool block of the escalation glue (the JAX package's solver
 #: block, ``SOLVER_BLOCK_SUB * 128``)
@@ -285,7 +282,6 @@ def _launch(cols, valid, is_vf, toi_init, tolerance, allow_zero_toi, per_query,
     """Kernel B on CUDA columns: ``(outputs of solve_cols, plane)``, the
     plane each query's evaluation count (``(Q,)`` int64) where
     ``query_checks`` asks for it, else ``None``."""
-    global LAUNCHES
     dev = cols.device
     if dev.type != "cuda":
         raise ValueError(f"solve_cols: unsupported device {dev}")
@@ -333,7 +329,6 @@ def _launch(cols, valid, is_vf, toi_init, tolerance, allow_zero_toi, per_query,
         if rc != 0:
             msg = lib.sccd_solver_error_string(rc).decode()
             raise RuntimeError(f"solver kernel launch failed: {msg}")
-        LAUNCHES += 1
         modes = ["per_query"] if per_query else []
         modes += ["bounded"] if max_iterations >= 0 else []
         modes += ["round_limit"] if round_limit >= 0 else []

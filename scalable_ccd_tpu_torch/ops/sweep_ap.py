@@ -63,20 +63,16 @@ __all__ = [
     "sweep_pairs_reference",
     "sweep_positions",
     "sweep_tiles",
-    "LAUNCHES",
     "LAUNCHES_BY_MODE",
     "ROW",
     "TILE",
 ]
 
-#: kernel launches made by :func:`sweep_pairs` in this process
-LAUNCHES = 0
-
-#: the same launches by mode: "whole" (every box starts a run) or "range"
+#: kernel launches made by :func:`sweep_pairs` in this process, by mode: "whole" (every box starts a run) or "range"
 #: (a ``box_range`` was given), also "any_order" and "count_only" when those
 #: were on; by scalar type as :func:`scalable_ccd_tpu_torch.ops._build.
 #: launch_counts` lays out
-LAUNCHES_BY_MODE = launch_counts("whole", "range", "any_order", "count_only")
+LAUNCHES_BY_MODE = launch_counts("sweep_ap", "whole", "range", "any_order", "count_only")
 
 #: partners per row of the row-skip planes (the JAX kernel's 128-lane row)
 ROW = 128
@@ -212,7 +208,6 @@ def sweep_pairs(sorted_boxes: SortedBoxes, is_two_lists: bool, budget=None,
     an atomic counter); the pair set, and every TOI computed from it, is
     order-free.  On the CPU the plain version emits rows in sweep order.
     """
-    global LAUNCHES
     dev = sorted_boxes.major_min.device
     budget = _check_budget(budget, count_only)
     if any_order and planes is None:
@@ -231,7 +226,6 @@ def sweep_pairs(sorted_boxes: SortedBoxes, is_two_lists: bool, budget=None,
     if b1 > b0:
         _launch(sorted_boxes, is_two_lists, (b0, b1), any_order, planes, pairs, budget,
                 n_true)
-        LAUNCHES += 1
         modes = ["whole" if box_range is None else "range"]
         modes += ["any_order"] if any_order else []
         modes += ["count_only"] if count_only else []

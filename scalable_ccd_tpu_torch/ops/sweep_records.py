@@ -66,18 +66,14 @@ __all__ = [
     "decode_records_range",
     "decode_record_bits",
     "sample_first_pairs",
-    "LAUNCHES",
     "LAUNCHES_BY_MODE",
     "REC_WORDS",
 ]
 
-#: kernel launches made by :func:`sweep_records` in this process
-LAUNCHES = 0
-
-#: the same launches by ordering: "sorted" (the major sort) or "any_order",
+#: kernel launches made by :func:`sweep_records` in this process, by ordering: "sorted" (the major sort) or "any_order",
 #: also "range" when a ``row_range`` was given; by scalar type as
 #: :func:`scalable_ccd_tpu_torch.ops._build.launch_counts` lays out
-LAUNCHES_BY_MODE = launch_counts("sorted", "any_order", "range")
+LAUNCHES_BY_MODE = launch_counts("sweep_records", "sorted", "any_order", "range")
 
 #: int32 words per record
 REC_WORDS = 8
@@ -142,7 +138,6 @@ def sweep_records(sorted_boxes: SortedBoxes, is_two_lists: bool, pair_budget: in
     docstring), and the totals count those alone.  On CUDA the record order
     is nondeterministic; on the CPU records come in (row, partner) order.
     """
-    global LAUNCHES
     dev = sorted_boxes.major_min.device
     if any_order and planes is None:
         planes = partner_planes(sorted_boxes)
@@ -160,7 +155,6 @@ def sweep_records(sorted_boxes: SortedBoxes, is_two_lists: bool, pair_budget: in
     if rows[1] > rows[0]:
         _launch(sorted_boxes, is_two_lists, any_order, planes, records, n_records, n_pairs,
                 rows)
-        LAUNCHES += 1
         modes = ["any_order" if any_order else "sorted"]
         modes += [] if row_range is None else ["range"]
         count_launch(LAUNCHES_BY_MODE, modes, sorted_boxes.major_min.dtype == torch.float64)

@@ -251,24 +251,24 @@ def ccd(
         validate_mesh_inputs(vertices_t0, vertices_t1, edges, faces)
     v0, v1, e, f = mesh_tensors(vertices_t0, vertices_t1, edges, faces, device, pca)
 
-    with profiler().scope("ccd", device):
+    with profiler().span("ccd", device, entry="ccd"):
         t0 = time.perf_counter()
-        with profiler().scope("build_boxes", device):
+        with profiler().span("build_boxes", device):
             vb = build_vertex_boxes(v0, v1, inflation_radius=min_distance,
                                     dtype=config.torch_dtype)
             eb = build_edge_boxes(vb, e)
             fb = build_face_boxes(vb, f)
-        with profiler().scope("sort_boxes", device):
+        with profiler().span("sort_boxes", device):
             vf_sorted = sort_boxes(merge_two_lists(vb, fb))
             ee_sorted = sort_boxes(eb)
         stats.broad_time_s += time.perf_counter() - t0
 
         common = (min_distance, max_iterations, tolerance, allow_zero_toi, config)
         toi = 1.0
-        with profiler().scope("vf_pipeline", device):
+        with profiler().span("vf_pipeline", device):
             toi = _partial_ccd(True, v0, v1, e, f, vf_sorted, *common, toi,
                                stats, collisions, ipc_refine)
-        with profiler().scope("ee_pipeline", device):
+        with profiler().span("ee_pipeline", device):
             if collisions is not None or toi > 0:
                 toi = _partial_ccd(False, v0, v1, e, f, ee_sorted, *common, toi,
                                    stats, collisions, ipc_refine)

@@ -713,10 +713,10 @@ def run_frames(device=None, reps=5, emit=print) -> list:
         (all of them, and those of its records mode where the tree has
         one)."""
         counts = gather_pack.LAUNCHES_BY_MODE
-        before = (gather_pack.LAUNCHES, counts.get("records", 0))
+        before = (counts.total, counts.get("records", 0))
         res, wall, _ = _timed(lambda: frame(**kw), reps, device)
         n = reps + 1
-        return res, wall, {"kernel_c_launches": (gather_pack.LAUNCHES - before[0]) // n,
+        return res, wall, {"kernel_c_launches": (counts.total - before[0]) // n,
                            "kernel_c_records_launches": (counts.get("records", 0)
                                                          - before[1]) // n}
 

@@ -147,10 +147,10 @@ def test_sweep_empty_scenes():
 
 def test_sweep_wrapper_on_cpu_is_the_plain_version():
     _, ps = _sorted_pair(_scene("cloth"), True)
-    before = sweep_ap.LAUNCHES
+    before = sweep_ap.LAUNCHES_BY_MODE.total
     got = sweep_ap.sweep_pairs(ps, True, 1 << 14)
     ref = sweep_ap.sweep_pairs_reference(ps, True, 1 << 14)
-    assert sweep_ap.LAUNCHES == before
+    assert sweep_ap.LAUNCHES_BY_MODE.total == before
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
 

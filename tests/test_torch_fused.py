@@ -180,11 +180,10 @@ def test_port_never_imports_jax():
                 assert top not in ("jax", "jaxlib", "scalable_ccd_tpu"), (path, n)
 
 
-def test_cpu_calls_launch_no_kernel(monkeypatch):
-    monkeypatch.setattr(sweep_ap, "LAUNCHES", 0)
-    monkeypatch.setattr(solver, "LAUNCHES", 0)
+def test_cpu_calls_launch_no_kernel():
+    before = (sweep_ap.LAUNCHES_BY_MODE.total, solver.LAUNCHES_BY_MODE.total)
     fused_ccd(*_args(SCENES["cloth12"]()), **CPU)
-    assert (sweep_ap.LAUNCHES, solver.LAUNCHES) == (0, 0)
+    assert (sweep_ap.LAUNCHES_BY_MODE.total, solver.LAUNCHES_BY_MODE.total) == before
 
 
 def test_cuda_device_without_cuda_raises():

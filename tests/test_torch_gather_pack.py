@@ -155,11 +155,11 @@ def test_out_of_range_ids_are_clamped(mesh, is_vf):
     assert gp.gather_pack(bad, 2, 2, vcat, table, is_vf, 0.0, TOL).shape == (31, 0)
 
 
-def test_wrapper_on_cpu_is_the_plain_version(mesh, monkeypatch):
+def test_wrapper_on_cpu_is_the_plain_version(mesh):
     """CPU tensors take the plain version and launch nothing, also through
     ``NarrowSolver.pack`` (the narrow loop's call site); other devices
     raise."""
-    monkeypatch.setattr(gp, "LAUNCHES", 0)
+    before = gp.LAUNCHES_BY_MODE.total
     v0, v1, faces, edges, vf, _ = mesh
     pairs, vcat, table = _port(mesh, True, torch.float32)
     nar = NarrowSolver.for_phase(True, torch.from_numpy(v0), torch.from_numpy(v1),
@@ -167,7 +167,7 @@ def test_wrapper_on_cpu_is_the_plain_version(mesh, monkeypatch):
                                  True, -1)
     got = nar.pack(pairs)
     want = gp.gather_pack_reference(pairs, 0, N_PAIRS, vcat, table, True, 1e-3, TOL)
-    assert torch.equal(got, want) and gp.LAUNCHES == 0
+    assert torch.equal(got, want) and gp.LAUNCHES_BY_MODE.total == before
     assert torch.equal(nar.pack(pairs, exact=True)[30], torch.zeros(N_PAIRS))
     with pytest.raises(ValueError, match="unsupported device"):
         gp.gather_pack(pairs.to("meta"), 0, 4, vcat.to("meta"), table.to("meta"), True,

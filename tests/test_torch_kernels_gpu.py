@@ -51,10 +51,10 @@ def _set(pairs, n):
 @pytest.mark.parametrize("two_lists", [True, False])
 def test_sweep_kernel_equals_plain(cuda, two_lists):
     sb = _sorted(cuda, two_lists)
-    before = sweep_ap.LAUNCHES
+    before = sweep_ap.LAUNCHES_BY_MODE.total
     k = sweep_ap.sweep_pairs(sb, two_lists, 1 << 16)
     torch.cuda.synchronize()
-    assert sweep_ap.LAUNCHES == before + 1
+    assert sweep_ap.LAUNCHES_BY_MODE.total == before + 1
     p = sweep_ap.sweep_pairs_reference(sb, two_lists, 1 << 16)
     assert int(k[2]) == int(p[2]) > 0 and not bool(k[3])
     assert _set(k[0], k[1]) == _set(p[0], p[1])
@@ -163,9 +163,9 @@ def test_sweep_kernel_box_range_union_is_whole(cuda, two_lists):
         chunks += 1
     assert sweep_ap.LAUNCHES_BY_MODE["range"] == before + chunks
     assert got == _set(whole[0], whole[1]) and total == int(whole[2]) > 0
-    launches = sweep_ap.LAUNCHES
+    launches = sweep_ap.LAUNCHES_BY_MODE.total
     empty = sweep_ap.sweep_pairs(sb, two_lists, 16, box_range=(5, 5))
-    assert int(empty[2]) == 0 and sweep_ap.LAUNCHES == launches
+    assert int(empty[2]) == 0 and sweep_ap.LAUNCHES_BY_MODE.total == launches
 
 
 def test_ccd_and_ipc_cuda_equal_cpu(cuda):
@@ -243,10 +243,10 @@ def _records(rec, n):
 @pytest.mark.parametrize("two_lists", [True, False])
 def test_records_kernel_equals_plain(cuda, two_lists, any_order):
     sb = _bucket_sorted(cuda, two_lists) if any_order else _sorted(cuda, two_lists)
-    before = sweep_records.LAUNCHES
+    before = sweep_records.LAUNCHES_BY_MODE.total
     k = sweep_records.sweep_records(sb, two_lists, 1 << 16, any_order=any_order)
     torch.cuda.synchronize()
-    assert sweep_records.LAUNCHES == before + 1
+    assert sweep_records.LAUNCHES_BY_MODE.total == before + 1
     p = sweep_records.sweep_records_reference(sb, two_lists, 1 << 16, any_order=any_order)
     assert (int(k[1]), int(k[2])) == (int(p[1]), int(p[2])) and int(k[1]) > 0
     assert not bool(k[3])
@@ -855,11 +855,11 @@ def test_records_kernel_units_equal_plain(cuda, name, dtype):
         n_rec, n_pairs = int(p[1]), int(p[2])
         want = _record_rows(p[0], n_rec)
         for pair_budget, rec_budget in ((0, 0), (64, 64), (n_pairs, n_rec)):
-            before = sweep_records.LAUNCHES
+            before = sweep_records.LAUNCHES_BY_MODE.total
             k = sweep_records.sweep_records(sb, two, pair_budget, rec_budget, **kw)
             torch.cuda.synchronize()
             label = (name, any_order, pair_budget, rec_budget)
-            assert sweep_records.LAUNCHES == before + (sb.n > 0), label
+            assert sweep_records.LAUNCHES_BY_MODE.total == before + (sb.n > 0), label
             rb = sweep_records._budgets(pair_budget, rec_budget)[1]
             assert (int(k[1]), int(k[2])) == (n_rec, n_pairs), label
             assert bool(k[3]) == (n_pairs > pair_budget or n_rec > rb), label
@@ -1135,7 +1135,7 @@ def test_gather_pack_chunks_equal_plain_bitwise(cuda, monkeypatch, is_vf, kind, 
     else:
         want_ids = sweep_records.decode_records_range(stream.sb, stream.records, stream.cum,
                                                       0, n, 0, is_vf)[0]
-    before = gp.LAUNCHES
+    before = gp.LAUNCHES_BY_MODE.total
     chunks = set()
     for start in reversed(range(0, n, 4096)):
         stop = min(start + 4096, n)
@@ -1147,7 +1147,7 @@ def test_gather_pack_chunks_equal_plain_bitwise(cuda, monkeypatch, is_vf, kind, 
         assert _same_bits(cols.contiguous(), want), (start, stop)
         assert torch.equal(stream.ids(start, stop), want_ids[start:stop])
         chunks.add(start // stream.chunk)
-    assert gp.LAUNCHES - before == len(chunks) == -(-n // stream.chunk)
+    assert gp.LAUNCHES_BY_MODE.total - before == len(chunks) == -(-n // stream.chunk)
 
 
 @pytest.mark.parametrize("is_vf", [True, False])

@@ -183,10 +183,10 @@ def test_solver_wrapper_on_cpu_is_the_plain_version():
     _, pq = _queries(_scene(), False)
     rows = solver.pack_query_rows(pq, False, 0.0, TOL)
     valid = torch.ones((pq.n,), dtype=torch.bool)
-    before = solver.LAUNCHES
+    before = solver.LAUNCHES_BY_MODE.total
     got = solver.solve_packed(rows, valid, False, 1.0, TOL)
     ref = solver.solve_packed_reference(rows, valid, False, 1.0, TOL)
-    assert solver.LAUNCHES == before
+    assert solver.LAUNCHES_BY_MODE.total == before
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match="unsupported device"):
