@@ -13,8 +13,11 @@ when it fails:
    sorted VF and EE boxes: equal pair sets and totals, and a budget of 64
    that overflows with the exact total;
 3. kernel B (solver) against its plain version on the bench scene's VF and
-   EE candidates, in the main path's batches of 16,384: global TOI within
-   1e-7;
+   EE candidates: each phase's rows in one unbounded global launch, the main
+   path's launch over a chunk (VF from 1, EE seeded with VF's TOI, as the
+   loop seeds a chunk with the TOI before it), and in batches of 16,384
+   from 1 (the per-batch paths); global TOI within 1e-7 in both shapes, the
+   one launch timed and bounded for the kernels row;
 4. the main path ``fused_ccd(..., device="cuda")``: equal to the CPU run on
    ``cloth_on_sphere(64, 3)``, the golden ``cloth-sphere-16`` bar, and the
    bench scene ``cloth_on_sphere(128, 4, drop=0.25)`` run once with zeroed
@@ -57,18 +60,23 @@ when it fails:
     sweep's row order): the cold global TOI within 1e-7, the capped
     per-query TOIs and checks equal, the global cap's TOI the unbounded one,
     and seeded with the global TOI the unfinished rows and checks equal;
-    and the round-limited pass over each phase's first chunk of up to 2^20
-    rows in one launch against the plain version on every batch, timed
-    against the same rows in per-batch launches;
+    and over each phase's first chunk of up to 2^20 rows in one launch,
+    the unbounded global mode (the main path's launch, VF from 1, EE seeded
+    with VF's chunk TOI) against the plain version on the same rows within
+    1e-7, timed and bounded, and the round-limited pass against the plain
+    version on every batch, timed against the same rows in per-batch
+    launches;
 11. the congested main path: ``fused_ccd(..., device="cuda")`` at its
-    defaults on grid-600 (auto must resolve to the congestion ordering, the
-    batch ladder and no presample) with zeroed launch counters, against
-    ``bucket_minor=False, escalate_rounds=-1``, then timed in turns with
-    that run and with the ordering alone (``escalate_rounds=-1``); the same with
-    ``sweep_impl="records"``; the bench scene at the new defaults (frame
-    pool) against ``escalate_rounds=-1``, both timed; the round-limited
-    launches of a default frame, which must be one per chunk (grid-600 4;
-    the bench 2, and one more per phase for its presample batch);
+    defaults on grid-600 (auto must resolve to the congestion ordering, no
+    escalation, the batch path and no presample: one unbounded kernel B
+    launch per chunk) with zeroed launch counters, against
+    ``bucket_minor=False, escalate_rounds=-1`` and against the batch ladder
+    at 128 rounds (one round-limited launch per chunk), then timed in turns
+    with both; the same with ``sweep_impl="records"``; the bench scene at
+    its defaults against the frame pool at 128 rounds, both timed; kernel
+    B's launches of a default frame, which must be one per chunk, none
+    round-limited (grid-600 4; the bench 2, and one more per phase for its
+    presample batch);
 12. the f64 kernels against their plain versions on the bench scene built
     in f64: kernel A whole, ranged and ``any_order`` (equal pair sets and
     totals, a subset of the f32 set), kernel A' (equal record multisets,
@@ -136,9 +144,10 @@ when it fails:
     chunks with its bound; a CUDA records frame of the bench scene and of
     grid-600 with every PyTorch record decode counted (there must be none);
     the synchronizing calls of one frame
-    (``torch.cuda.set_sync_debug_mode("warn")``) of the bench scene (the
-    frame pool) and grid-600 (the batch ladder) at ``narrow_batch`` 16,384
-    and 4,096, which must be equal, with kernel C launched once per chunk of
+    (``torch.cuda.set_sync_debug_mode("warn")``) of the bench scene and
+    grid-600 at their defaults (one kernel B launch per chunk) at
+    ``narrow_batch`` 16,384 and 4,096, which must be equal, with kernel C
+    launched once per chunk of
     whole batches and for the presample; the device idle share of one bench
     frame from a ``torch.profiler`` trace;
 last, grid-1000 in f32 timed once.
@@ -411,6 +420,36 @@ def least_checks(solver, batches, is_vf, toi, per_query_toi=None):
     return solver._least_checks(rows, valid, is_vf, toi, TOL, per_query_toi)
 
 
+def whole_chunk_global(solver, rows, is_vf, seed, label):
+    """Kernel B's unbounded global mode over ``rows`` in one launch, the main
+    path's launch over a chunk (``solve_cols`` with ``skip_if_done``), seeded
+    with ``seed``, against the plain version on the same rows: TOI within
+    1e-7.  Returns the JSON fields: TOIs, checks, the least checks, device ms
+    (behind a GPU sleep, mean of 5), host ms of the plain version, the bound
+    and the queries per block the launch takes."""
+    import torch
+
+    valid = torch.ones((rows.shape[0],), dtype=torch.bool, device=rows.device)
+    cols = rows.t().contiguous()
+
+    def launch():
+        return solver.solve_cols(cols, valid, is_vf, seed, TOL, skip_if_done=True)
+
+    k = launch()
+    torch.cuda.synchronize()
+    p, plain_ms = timed_once(lambda: solver.solve_packed_reference(rows, valid, is_vf, seed, TOL))
+    err = abs(float(k[0]) - float(p[0]))
+    check(err <= 1e-7, f"{label}: toi {float(k[0])} vs plain {float(p[0])}")
+    check(not bool(k[1]) and not bool(p[1]), f"{label}: overflow")
+    least = solver._least_checks(rows, valid, is_vf, p[0], TOL)
+    return {"queries": rows.shape[0], "seed": float(seed), "toi": float(k[0]),
+            "plain_toi": float(p[0]), "abs_err": err, "checks": int(k[2]),
+            "plain_checks": int(p[2]), "least_checks": least,
+            "ms": device_ms(launch, 5), "plain_ms": plain_ms,
+            **solve_bound(rows.shape[0], least),
+            "block_queries": solver._share_grid(rows.shape[0], is_vf, False, False)[0]}
+
+
 def max_abs(a, b):
     """Largest |a - b| over two tensors of one shape (0.0 when empty)."""
     return float((a - b).abs().max()) if a.numel() else 0.0
@@ -517,6 +556,7 @@ def main():
     b_err = 0.0
     b_bound = bound(0, 0)
     bench_rows = {}
+    b_seed = torch.ones((), dtype=torch.float32, device=dev)
     for ph, (is_vf, _) in phases.items():
         pairs = cand[ph]
         if is_vf:
@@ -544,14 +584,19 @@ def main():
         check(0.0 <= float(tk) <= 1.0, f"kernel B {ph}: toi {float(tk)} outside [0, 1]")
         kms, pms = alternate(lambda: run(solver.solve_packed_reference),
                              lambda: run(solver.solve_packed), 2)
-        b_ms, b_plain_ms, b_err = b_ms + kms, b_plain_ms + pms, max(b_err, err)
-        least = least_checks(solver, batches, is_vf, tp)
-        b_bound = add_bounds(b_bound, solve_bound(rows.shape[0], least))
+        # the main path's shape: the phase's rows in one launch
+        whole = whole_chunk_global(solver, rows, is_vf, b_seed, f"kernel B {ph} one launch")
+        b_seed = torch.minimum(b_seed, torch.tensor(whole["toi"], device=dev))
+        b_ms, b_plain_ms = b_ms + whole["ms"], b_plain_ms + whole["plain_ms"]
+        b_err = max(b_err, err, whole["abs_err"])
+        b_bound = add_bounds(b_bound, {k: whole[k] for k in ("bound_ms", "bound_by")})
         bench_rows[is_vf] = (batches, valids, float(tk))
         emit(phase="kernel_b", which=ph, queries=rows.shape[0], batches=len(batches),
              toi=float(tk), plain_toi=float(tp), abs_err=err, checks=int(ck),
-             plain_checks=int(cp), least_checks=least, overflow=bool(ok_),
-             plain_overflow=bool(op_), ms=kms, plain_ms=pms)
+             plain_checks=int(cp), overflow=bool(ok_), plain_overflow=bool(op_),
+             batches_ms=kms, batches_plain_ms=pms,
+             batches_block_queries=solver._share_grid(BATCH, is_vf, False, False)[0],
+             one_launch=whole)
 
     # ---- 4. the main path ---------------------------------------------------
     mid = cloth_on_sphere(grid_n=64, sphere_subdiv=3)
@@ -590,9 +635,11 @@ def main():
                 "gather_pack": gp.LAUNCHES_BY_MODE.total}
     main_modes = read_counts(sweep_ap, solver)
     check(all(n > 0 for n in launches.values()), f"main path skipped a kernel: {launches}")
-    # the bench scene's defaults: the major sort and the frame straggler pool
-    check(main_modes["sweep_whole"] > 0 and main_modes["solve_round_limit"] > 0
-          and main_modes["solve_global"] > 0, f"main path skipped a kernel mode: {main_modes}")
+    # the bench scene's defaults: the major sort and one unbounded kernel B
+    # launch per chunk (no escalation on CUDA)
+    check(main_modes["sweep_whole"] > 0 and main_modes["solve_round_limit"] == 0
+          and main_modes["solve_global"] > 0, f"main path took an unexpected kernel mode: "
+          f"{main_modes}")
     check(not bool(res.overflowed), "bench: overflowed")
     toi = float(res.toi)
     check(0.0 <= toi <= 1.0, f"bench: toi {toi} outside [0, 1]")
@@ -671,14 +718,20 @@ def main():
          "launches": congested["records_bench_counts"]["records_sorted"], **records["sorted"]},
         {"name": "sweep_records[any_order]", **recs,
          "launches": congested["records_counts"]["records_any_order"], **records["any_order"]},
+        # global: each bench phase in one launch (phase 3); ``grid600``: each
+        # phase's first chunk of grid-600 in one launch (phase 10)
         {"name": "solve_packed[global]", **solve, "launches": main_modes["solve_global"],
-         "max_abs_err": b_err, "ms": b_ms, "plain_ms": b_plain_ms, **b_bound},
+         "max_abs_err": b_err, "ms": b_ms, "plain_ms": b_plain_ms, **b_bound,
+         "grid600": grid_b["global"]},
         {"name": "solve_packed[per_query]", **solve, "launches": ipc["solve_per_query"],
          **exact["per_query"]},
         {"name": "solve_packed[bounded]", **solve, "launches": ipc["solve_bounded"],
          **exact["bounded"]},
+        # round_limit: the default path launches none; ``escalated_launches``
+        # are grid-600's with escalate_rounds=128 (phase 11)
         {"name": "solve_packed[round_limit]", **solve,
-         "launches": congested["counts"]["solve_round_limit"], **escalation},
+         "launches": main_modes["solve_round_limit"],
+         "escalated_launches": congested["ladder_counts"]["solve_round_limit"], **escalation},
         # the f64 instantiations and count_only: launches per frame of the
         # path that uses each (phase 14's runs with zeroed counters)
         {"name": "sweep_pairs[whole,f64]", **sweep,
@@ -1359,7 +1412,9 @@ def phase_grid_solver(torch, dev, args, samples, chunks, types, solver):
         return [rows[s:s + BATCH].contiguous() for s in range(0, rows.shape[0], BATCH)]
 
     out = {"bounded": {"ms": 0.0, "plain_ms": 0.0, **bound(0, 0)},
-           "round_limit": {"ms": 0.0, "plain_ms": 0.0, **bound(0, 0)}}
+           "round_limit": {"ms": 0.0, "plain_ms": 0.0, **bound(0, 0)},
+           "global": {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0, **bound(0, 0)}}
+    chunk_seed = torch.ones((), dtype=torch.float32, device=dev)
     for ph, pairs in samples.items():
         is_vf = ph == "vf"
         batches = packed(pairs, is_vf)
@@ -1421,11 +1476,18 @@ def phase_grid_solver(torch, dev, args, samples, chunks, types, solver):
         least = least_checks(solver, batches, is_vf, tp)
         gb, rb = solve_bound(n_q, least), solve_bound(n_q, checks, n_q)
 
-        # the first chunk in one launch, seeded with its own unbounded TOI
+        # the first chunk in one launch: the unbounded global mode as the main
+        # path launches it, then the round-limited pass seeded with its TOI
         cb = packed(chunks[ph], is_vf)
         n_c = sum(b.shape[0] for b in cb)
-        cvalid = torch.ones((n_c,), dtype=torch.bool, device=dev)
-        c_toi = solver.solve_packed(torch.cat(cb), cvalid, is_vf, 1.0, TOL)[0]
+        whole = whole_chunk_global(solver, torch.cat(cb), is_vf, chunk_seed,
+                                   f"grid-600 kernel B chunk {ph}")
+        c_toi = torch.tensor(whole["toi"], dtype=torch.float32, device=dev)
+        chunk_seed = torch.minimum(chunk_seed, c_toi)
+        g = out["global"]
+        g.update(ms=g["ms"] + whole["ms"], plain_ms=g["plain_ms"] + whole["plain_ms"],
+                 max_abs_err=max(g["max_abs_err"], whole["abs_err"]),
+                 **add_bounds({k: g[k] for k in ("bound_ms", "bound_by")}, whole))
         c_unfin, c_checks, c_ms, c_batches_ms, c_plain_ms = round_limited_chunk(
             torch, solver, cb, is_vf, c_toi, limit, f"grid-600 round_limit chunk {ph}")
         cbnd = solve_bound(n_c, c_checks, n_c)
@@ -1439,7 +1501,8 @@ def phase_grid_solver(torch, dev, args, samples, chunks, types, solver):
              bounded=bounded, unfinished=unfin, seeded_checks=checks,
              round_limit_ms=r_ms, round_limit_plain_ms=r_plain_ms,
              round_limit_bound_ms=rb["bound_ms"], round_limit_bound_by=rb["bound_by"],
-             chunk_queries=n_c, chunk_batches=len(cb), chunk_toi=float(c_toi),
+             chunk_queries=n_c, chunk_batches=len(cb), chunk_global=whole,
+             chunk_toi=float(c_toi),
              chunk_unfinished=c_unfin, chunk_checks=c_checks, chunk_round_limit_ms=c_ms,
              chunk_round_limit_batches_ms=c_batches_ms, chunk_plain_ms=c_plain_ms,
              chunk_bound_ms=cbnd["bound_ms"], chunk_bound_by=cbnd["bound_by"],
@@ -1466,8 +1529,8 @@ def wall_ms(fn, reps):
 
 def phase_congested_main(torch, dev, grid600, bench_args, cloth_on_sphere, bench_res):
     """``fused_ccd`` at its defaults on grid-600 and on the bench scene,
-    against the plain ordering without escalation, with the launch
-    counters; records on both."""
+    against the plain ordering without escalation and against escalation
+    at 128 rounds, with the launch counters; records on both."""
     from scalable_ccd_tpu_torch import fused_ccd
     from scalable_ccd_tpu_torch.pipeline.fused import Knobs, resolve_knobs
 
@@ -1482,15 +1545,16 @@ def phase_congested_main(torch, dev, grid600, bench_args, cloth_on_sphere, bench
     from scalable_ccd_tpu_torch.ops.gather_pack import chunk_rows
 
     def chunks(res):
-        """The chunks of a frame's candidates: one round-limited pass each."""
+        """The chunks of a frame's candidates: one kernel B launch each at
+        the defaults, one round-limited pass each under escalation."""
         return sum(-(-int(n) // chunk_rows(BATCH)) for n in (res.vf_total, res.ee_total))
 
     n_vf = grid600[0].shape[0] + grid600[3].shape[0]
     n_ee = grid600[2].shape[0]
-    knobs = resolve_knobs(n_vf, n_ee)
+    knobs = resolve_knobs(n_vf, n_ee, cuda=True)
     emit(phase="congested_knobs", scene="cloth_on_sphere(600, 4)", vf_boxes=n_vf,
          ee_boxes=n_ee, **knobs._asdict())
-    check(knobs == Knobs(True, 128, "batch", False, False, "pairs"),
+    check(knobs == Knobs(True, -1, "batch", False, False, "pairs"),
           f"grid-600: auto resolved to {knobs}")
     run = lambda args, **kw: fused_ccd(*args, device=dev, validate=False, **kw)  # noqa: E731
 
@@ -1498,18 +1562,25 @@ def phase_congested_main(torch, dev, grid600, bench_args, cloth_on_sphere, bench
     res = run(grid600)
     torch.cuda.synchronize()
     counts = read_counts()
-    check(counts["sweep_any_order"] > 0 and counts["solve_round_limit"] > 0
-          and counts["solve_global"] > 0, f"grid-600 main path skipped a kernel mode: {counts}")
-    check(counts["solve_round_limit"] == chunks(res),
-          f"grid-600: {counts['solve_round_limit']} round-limited launches, "
-          f"{chunks(res)} chunks")
+    check(counts["sweep_any_order"] > 0 and counts["solve_round_limit"] == 0
+          and counts["solve_global"] == chunks(res),
+          f"grid-600: {counts} launches, {chunks(res)} chunks: one global launch each")
     ref = run(grid600, bucket_minor=False, escalate_rounds=-1)
     err = same(res, ref, "grid-600 defaults vs plain ordering unbounded")
-    # in turns: defaults, plain ordering unbounded, congestion ordering
-    # unbounded (the ordering alone), defaults
+    zero_counts()
+    ladder = run(grid600, escalate_rounds=128)
+    torch.cuda.synchronize()
+    ladder_counts = read_counts()
+    check(ladder_counts["solve_round_limit"] == chunks(ladder),
+          f"grid-600 ladder: {ladder_counts['solve_round_limit']} round-limited launches, "
+          f"{chunks(ladder)} chunks")
+    same(ladder, res, "grid-600 ladder vs defaults")
+    check(float(ladder.toi) == float(res.toi), "grid-600: ladder and defaults differ in bits")
+    # in turns: defaults, plain ordering unbounded, the batch ladder at 128
+    # rounds, defaults
     ms, times = wall_ms(lambda: run(grid600), 3)
     ref_ms, ref_times = wall_ms(lambda: run(grid600, bucket_minor=False, escalate_rounds=-1), 3)
-    ord_ms, ord_times = wall_ms(lambda: run(grid600, escalate_rounds=-1), 3)
+    ord_ms, ord_times = wall_ms(lambda: run(grid600, escalate_rounds=128), 3)
     ms2, times2 = wall_ms(lambda: run(grid600), 3)
     emit(phase="main_grid600", toi=float(res.toi), plain_toi=float(ref.toi), abs_err=err,
          bitwise=float(res.toi) == float(ref.toi), vf_total=int(res.vf_total),
@@ -1517,45 +1588,55 @@ def phase_congested_main(torch, dev, grid600, bench_args, cloth_on_sphere, bench
          plain_checks=int(ref.total_checks), solver_capped=bool(res.solver_capped),
          launches=counts, ms_per_frame_median=[ms, ms2], ms_per_frame=times + times2,
          plain_ordering_unbounded_ms_median=ref_ms, plain_ordering_unbounded_ms=ref_times,
-         congestion_ordering_unbounded_ms_median=ord_ms,
-         congestion_ordering_unbounded_ms=ord_times)
+         ladder_ms_median=ord_ms, ladder_ms=ord_times, ladder_launches=ladder_counts)
 
     zero_counts()
     rec = run(grid600, sweep_impl="records")
     torch.cuda.synchronize()
     records_counts = read_counts()
-    check(records_counts["records_any_order"] > 0 and records_counts["solve_round_limit"] > 0,
+    check(records_counts["records_any_order"] > 0 and records_counts["solve_global"] > 0,
           f"grid-600 records path skipped a kernel mode: {records_counts}")
     same(rec, res, "grid-600 records vs pairs")
     rms, rtimes = wall_ms(lambda: run(grid600, sweep_impl="records"), 3)
     emit(phase="main_grid600_records", toi=float(rec.toi), launches=records_counts,
          ms_per_frame_median=rms, ms_per_frame=rtimes)
 
-    # the bench scene at the new defaults (frame pool) against one unbounded pass
-    # one round-limited pass per chunk, and one more per phase for the
-    # presample's batch, which is escalated on its own as in the JAX package
-    kb = resolve_knobs(bench_args[0].shape[0] + bench_args[3].shape[0], bench_args[2].shape[0])
+    # the bench scene at its defaults against the frame pool at 128 rounds:
+    # one kernel B launch per chunk, and one more per phase for the
+    # presample's batch; escalated, one round-limited pass per chunk and
+    # one more per phase for the presample's batch, which is escalated on
+    # its own as in the JAX package
+    kb = resolve_knobs(bench_args[0].shape[0] + bench_args[3].shape[0], bench_args[2].shape[0],
+                       cuda=True)
     bench_counts = {}
-    for label, kw in (("defaults", {}), ("presample_off", {"presample": False})):
+    for label, kw in (("defaults", {}), ("presample_off", {"presample": False}),
+                      ("frame_pool", {"escalate_rounds": 128}),
+                      ("frame_pool_presample_off", {"escalate_rounds": 128, "presample": False})):
         zero_counts()
         run(bench_args, **kw)
         torch.cuda.synchronize()
         bench_counts[label] = read_counts()
     presampled = int(kb.presample_vf) + int(kb.presample_ee)
-    for label, want in (("defaults", chunks(bench_res) + presampled),
-                        ("presample_off", chunks(bench_res))):
-        got = bench_counts[label]["solve_round_limit"]
-        check(got == want, f"bench {label}: {got} round-limited launches, expected {want} "
+    for label, mode, want in (("defaults", "solve_f32", chunks(bench_res) + presampled),
+                              ("presample_off", "solve_f32", chunks(bench_res)),
+                              ("defaults", "solve_round_limit", 0),
+                              ("frame_pool", "solve_round_limit", chunks(bench_res) + presampled),
+                              ("frame_pool_presample_off", "solve_round_limit",
+                               chunks(bench_res))):
+        got = bench_counts[label][mode]
+        check(got == want, f"bench {label}: {got} {mode} launches, expected {want} "
               f"({chunks(bench_res)} chunks)")
     emit(phase="round_limited_launches_per_frame",
-         bench=bench_counts["defaults"]["solve_round_limit"],
-         bench_presample_off=bench_counts["presample_off"]["solve_round_limit"],
+         bench=bench_counts["frame_pool"]["solve_round_limit"],
+         bench_presample_off=bench_counts["frame_pool_presample_off"]["solve_round_limit"],
          bench_chunks=chunks(bench_res), bench_presample_batches=presampled,
-         grid600=counts["solve_round_limit"], grid600_chunks=chunks(res),
+         grid600=ladder_counts["solve_round_limit"], grid600_chunks=chunks(res),
          bench_kernel_b=bench_counts["defaults"]["solve_f32"],
-         grid600_kernel_b=counts["solve_f32"])
-    bref = run(bench_args, escalate_rounds=-1)
-    berr = same(bench_res, bref, "bench defaults vs escalate_rounds=-1")
+         bench_frame_pool_kernel_b=bench_counts["frame_pool"]["solve_f32"],
+         grid600_kernel_b=counts["solve_f32"], grid600_ladder_kernel_b=ladder_counts["solve_f32"])
+    bref = run(bench_args, escalate_rounds=128)
+    berr = same(bench_res, bref, "bench defaults vs the frame pool at 128 rounds")
+    check(float(bref.toi) == float(bench_res.toi), "bench: frame pool and defaults differ in bits")
     zero_counts()
     brec = run(bench_args, sweep_impl="records")
     torch.cuda.synchronize()
@@ -1563,14 +1644,14 @@ def phase_congested_main(torch, dev, grid600, bench_args, cloth_on_sphere, bench
     check(records_bench_counts["records_sorted"] > 0,
           f"bench records path skipped kernel A': {records_bench_counts}")
     same(brec, bench_res, "bench records vs pairs")
-    b_ms, b_times = wall_ms(lambda: run(bench_args), 5)
-    o_ms, o_times = wall_ms(lambda: run(bench_args, escalate_rounds=-1), 5)
-    b2_ms, b2_times = wall_ms(lambda: run(bench_args), 5)
-    emit(phase="main_bench_escalation", toi=float(bench_res.toi), unbounded_toi=float(bref.toi),
+    b_ms, b_times = wall_ms(lambda: run(bench_args, escalate_rounds=128), 5)
+    o_ms, o_times = wall_ms(lambda: run(bench_args), 5)
+    b2_ms, b2_times = wall_ms(lambda: run(bench_args, escalate_rounds=128), 5)
+    emit(phase="main_bench_escalation", toi=float(bench_res.toi), frame_pool_toi=float(bref.toi),
          abs_err=berr, frame_pool_ms_median=[b_ms, b2_ms], frame_pool_ms=b_times + b2_times,
-         unbounded_ms_median=o_ms, unbounded_ms=o_times)
+         defaults_ms_median=o_ms, defaults_ms=o_times)
 
-    return {"counts": counts, "records_counts": records_counts,
+    return {"counts": counts, "ladder_counts": ladder_counts, "records_counts": records_counts,
             "records_bench_counts": records_bench_counts}
 
 
@@ -1771,9 +1852,9 @@ def phase_narrow_loop(torch, dev, bench_scene, grid600_scene):
         for m in holders:
             m.decode_records_range = real_decode
 
-    # host syncs per frame: the frame pool (bench) and the batch ladder
-    # (grid-600) at two batch sizes; kernel C launched once per chunk of
-    # whole batches (and for the presample)
+    # host syncs per frame at the defaults (one kernel B launch per chunk)
+    # on the bench scene and grid-600 at two batch sizes; kernel C launched
+    # once per chunk of whole batches (and for the presample)
     syncs = {}
     for name, args in (("bench", bench), ("grid600", grid600)):
         for batch in (BATCH, BATCH >> 2):

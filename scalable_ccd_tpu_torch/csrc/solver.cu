@@ -52,11 +52,21 @@
 //    modes (the lanes split only the corners, and an evaluation's chain is
 //    its decisions, stack and unwind).
 // 2. Unbounded global and per-query modes (solve_kernel): domains shared
-//    inside a block, eight lanes per query, a block of 32 queries with
-//    their rows staged in shared memory.  Their TOIs do not depend on the
-//    order (accept, reject and the caps are decisions of the domain alone,
-//    and pruning drops only domains at or after an accepted time), and
-//    their time is that of the deepest query.
+//    inside a block, eight lanes per query, 32 lane groups per block, and
+//    32 to 128 queries per block with their rows staged in shared memory.
+//    Their TOIs do not depend on the order (accept, reject and the caps are
+//    decisions of the domain alone, and pruning drops only domains at or
+//    after an accepted time), and their time is that of the deepest query.
+//    - Queries: a group takes the block's next valid query (a shared
+//      cursor) whenever its search ends, so a block of mostly shallow
+//      queries keeps its groups busy until all its queries are taken.
+//    - Queries per block (shared_grid): the most of 128, 64 and 32 whose
+//      blocks still fill every SM's resident slots
+//      (cudaOccupancyMaxActiveBlocksPerMultiprocessor times the SMs), else
+//      32: a large launch (a whole chunk of up to 2^20 rows, the narrow
+//      loop's default on CUDA, pipeline/fused.py) packs its many shallow
+//      queries densely, and a small one (a batch of 16,384 rows or fewer)
+//      keeps one query per group and its blocks on every SM.
 //    - Eight lanes per query: lane (it, iu, iv) computes F at one corner of
 //      the domain with the expression and association of domain_corners
 //      (narrow_phase/types.py), and the per-dimension min and max are
@@ -73,14 +83,15 @@
 //    - Sharing: each block keeps a queue of up to 32 domains in shared
 //      memory, each with its query's slot, its bounds (exact dyadics), its
 //      absolute depth and its split counters.  While a group of the block is
-//      idle, a group that splits hands it the shallowest pending sibling on
-//      its stack (the largest subtree it holds, at least kStealMin levels
-//      up; its bounds follow from the current domain and the split counts at
-//      its level, since every domain is an aligned dyadic box) and clears
-//      that level's pending bit.  An idle group takes a domain and runs a
-//      fresh search rooted there, whose stack holds kDepth - depth levels,
-//      so the depth and split caps stay absolute.  A block ends when the
-//      queue is empty and no group is busy (one counter holds both, so the
+//      idle (its block's queries all taken), a group that splits hands it
+//      the shallowest pending sibling on its stack (the largest subtree it
+//      holds, at least kStealMin levels up; its bounds follow from the
+//      current domain and the split counts at its level, since every domain
+//      is an aligned dyadic box) and clears that level's pending bit.  An
+//      idle group takes a domain and runs a fresh search rooted there, whose
+//      stack holds kDepth - depth levels, so the depth and split caps stay
+//      absolute.  A block ends when its queries are all taken, the queue is
+//      empty and no group is busy (one counter holds the last two, so the
 //      test is one read).  In per-query mode each query's running TOI lives
 //      in shared memory, lowered with a shared-memory atomicMin, since
 //      several groups may hold its domains.  Nothing in the search loop
@@ -184,10 +195,12 @@ constexpr unsigned kDimMask = 3u, kSideHi = 4u, kPending = 8u;
 constexpr unsigned kFullMask = 0xffffffffu;
 
 constexpr int kRowWidth = 31;  // scalars per packed query row
-// form 2: queries (lane groups) per block, lanes per query, threads
+// form 2: lane groups per block, lanes per query, threads, and the queries
+// of a block (its rows' slots), taken by its groups one after another
 constexpr int kGroups = 32;
 constexpr int kShareLanes = 8;
 constexpr int kShareThreads = kShareLanes * kGroups;
+constexpr int kBlockQueries = 128;  // the most; a launch's own is shared_grid's
 // form 1: threads per block (four warps, each staging its own queries)
 constexpr int kLaneThreads = 128;
 constexpr int kLaneWarps = kLaneThreads / 32;
@@ -257,15 +270,15 @@ __device__ __forceinline__ bool reciprocals(T t0, T t1, T t2, T (&rcp)[3]) {
   return exact;
 }
 
-// Form 2's block rows, staged in shared memory as (31, 32): field k of the
-// query in slot s at v[k][s], so the queries of a warp read neighbouring
-// words and the eight lanes of a group one (a broadcast).  rcp[d][s] = 1 /
-// tol_d and exact[s] are computed once per query (reciprocals).
+// Form 2's block rows, staged in shared memory as (31, kBlockQueries):
+// field k of the query in slot s at v[k][s], so the eight lanes of a group
+// read one word (a broadcast).  rcp[d][s] = 1 / tol_d and exact[s] are
+// computed once per query (reciprocals).
 template <typename T>
 struct Rows {
-  T v[kRowWidth][kGroups];
-  T rcp[3][kGroups];
-  int exact[kGroups];
+  T v[kRowWidth][kBlockQueries];
+  T rcp[3][kBlockQueries];
+  int exact[kBlockQueries];
 };
 
 // Form 1's staged queries of one warp, the same layout; flags[s]: bit 0 the
@@ -285,7 +298,7 @@ struct Stage {
 template <typename T>
 struct SharedPoints {
   const T* row;
-  __device__ __forceinline__ T operator[](int i) const { return row[i * kGroups]; }
+  __device__ __forceinline__ T operator[](int i) const { return row[i * kBlockQueries]; }
 };
 
 template <typename T>
@@ -464,11 +477,12 @@ struct Task {
 template <typename T>
 struct BlockQueue {
   Task<T> task[kGroups];
-  int state[kGroups];  // kEmpty, kHeld (being written or read) or kFull
-  T tpq[kGroups];      // per-query mode: each query's running TOI
-  int qcnt[kGroups];   // each query's evaluations, added as tasks end
-  int work;            // busy groups plus queued tasks; 0 ends the block
-  int hungry;          // idle groups less queued tasks: > 0 asks for work
+  int state[kGroups];       // kEmpty, kHeld (being written or read) or kFull
+  T tpq[kBlockQueries];     // per-query mode: each query's running TOI
+  int qcnt[kBlockQueries];  // each query's evaluations, added as tasks end
+  int next;                 // the block's next query slot to take
+  int work;    // busy groups, groups taking a query, queued tasks; 0 ends the block
+  int hungry;  // groups left without a query of their own, idle, less queued tasks
 };
 
 // Lane 0 of a group that holds a pending sibling: queue the domain [lo, hi]
@@ -520,7 +534,7 @@ template <typename T, bool IS_VF, bool PER_QUERY>
 __global__ void __launch_bounds__(kShareThreads)
     solve_kernel(const T* __restrict__ cols, long long ld,
                  const T* __restrict__ skip_seed,
-                 const unsigned char* __restrict__ valid, int Q, T co_tol,
+                 const unsigned char* __restrict__ valid, int Q, int bq, T co_tol,
                  T uv_limit, unsigned dim_cap, bool allow_zero, long long max_steps, T* toi,
                  T* __restrict__ pq_out, unsigned long long* __restrict__ checks_out,
                  int* __restrict__ ovf_out, long long* __restrict__ qchecks_out) {
@@ -531,35 +545,33 @@ __global__ void __launch_bounds__(kShareThreads)
   const int leader = (threadIdx.x & 31) & ~(kShareLanes - 1);  // lane 0's lane
   const unsigned gmask = 0xFFu << leader;
   const bool head = corner == 0;
-  const int group = threadIdx.x / kShareLanes;
-  const int q_own = blockIdx.x * kGroups + group;
+  // the block's queries: bq (at most kBlockQueries) from q0, nq of them
+  const long long q0 = (long long)blockIdx.x * bq;
+  const int nq = (int)((long long)Q - q0 < bq ? (long long)Q - q0 : bq);
   // the loop's exit on the card: a launch made where the caller's loop
   // would have stopped (its seed, the running TOI, already 0) does nothing
   if (skip_seed != nullptr && *skip_seed <= T(0)) return;
-  const bool own_valid = q_own < Q && valid[q_own];
 
   __shared__ Rows<T> rows;
   __shared__ BlockQueue<T> sh;
-  for (int i = threadIdx.x; i < kRowWidth * kGroups; i += kShareThreads) {
-    const int k = i / kGroups, s = i % kGroups;
-    const int q = blockIdx.x * kGroups + s;
-    rows.v[k][s] = q < Q ? cols[(size_t)k * ld + q] : T(0);
+  for (int i = threadIdx.x; i < kRowWidth * nq; i += kShareThreads) {
+    const int k = i / nq, s = i % nq;
+    rows.v[k][s] = cols[(size_t)k * ld + q0 + s];
   }
   __syncthreads();
-  if (threadIdx.x < kGroups) {
-    const int s = threadIdx.x;
+  for (int s = threadIdx.x; s < nq; s += kShareThreads) {
     T r[3];
     rows.exact[s] = reciprocals(rows.v[24][s], rows.v[25][s], rows.v[26][s], r);
 #pragma unroll
     for (int d = 0; d < 3; ++d) rows.rcp[d][s] = r[d];
-    sh.state[s] = kEmpty;
     sh.tpq[s] = inf;
     sh.qcnt[s] = 0;
   }
-  const int n_valid = __syncthreads_count(head && own_valid);
+  if (threadIdx.x < kGroups) sh.state[threadIdx.x] = kEmpty;
   if (threadIdx.x == 0) {
-    sh.work = n_valid;
-    sh.hungry = kGroups - n_valid;
+    sh.next = 0;
+    sh.work = 0;
+    sh.hungry = 0;
   }
   __syncthreads();
 
@@ -567,16 +579,46 @@ __global__ void __launch_bounds__(kShareThreads)
   int ovf = 0;
 
   // the current task: a domain of query `slot`, its absolute depth and
-  // split counters; first the own query's unit cube
-  int slot = group;
-  bool busy = own_valid;
-  T lo[3] = {T(0), T(0), T(0)};
-  T hi[3] = {T(1), T(1), T(1)};
+  // split counters; a query of the group's own starts at the unit cube
+  int slot = 0;
+  bool busy = false;
+  bool drained = false;  // the block's queries are all taken
+  T lo[3], hi[3];
   int base = 0;
   unsigned dimcnt = 0u;  // 8-bit split counters: dims 0/1/2 at bits 0/8/16
   long long idle_since = -1;
 
   while (true) {
+    if (!busy && !drained) {
+      // the block's next valid query; `work` counts the group first, so
+      // that no group sees 0 while a query is being taken
+      int got = -1;
+      if (head) {
+        atomicAdd(&sh.work, 1);
+        int s = atomicAdd(&sh.next, 1);
+        while (s < nq && !valid[q0 + s]) s = atomicAdd(&sh.next, 1);
+        if (s < nq) {
+          got = s;
+        } else {
+          atomicSub(&sh.work, 1);
+          atomicAdd(&sh.hungry, 1);  // from now on it waits for shared work
+        }
+      }
+      got = __shfl_sync(gmask, got, leader);
+      if (got >= 0) {
+        slot = got;
+        base = 0;
+        dimcnt = 0u;
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          lo[d] = T(0);
+          hi[d] = T(1);
+        }
+        busy = true;
+      } else {
+        drained = true;
+      }
+    }
     if (!busy) {
       int got = head ? take(sh) : -1;
       got = __shfl_sync(gmask, got, leader);
@@ -745,19 +787,19 @@ __global__ void __launch_bounds__(kShareThreads)
     if (head) {
       atomicAdd(&sh.qcnt[slot], task_checks);
       atomicSub(&sh.work, 1);
-      atomicAdd(&sh.hungry, 1);
+      if (drained) atomicAdd(&sh.hungry, 1);
     }
     busy = false;
   }
 
   __syncthreads();
-  if (head && q_own < Q) {
+  for (int s = threadIdx.x; s < nq; s += kShareThreads) {
     if (PER_QUERY) {
-      const T t = sh.tpq[group];
-      pq_out[q_own] = t;
+      const T t = sh.tpq[s];
+      pq_out[q0 + s] = t;
       if (t < inf) atomic_min_nonneg(toi, t);
     }
-    if (qchecks_out != nullptr) qchecks_out[q_own] = (long long)sh.qcnt[group];
+    if (qchecks_out != nullptr) qchecks_out[q0 + s] = (long long)sh.qcnt[s];
   }
   if (!head) checks = 0;  // every lane of a group counted the same
   // one atomic per warp
@@ -998,11 +1040,29 @@ struct Args {
   void *toi, *pq, *unfin, *checks, *ovf, *qchecks;
 };
 
+// form 2's queries per block for Q queries: the most of kBlockQueries, half
+// and a quarter of it whose blocks fill every SM's resident slots, else
+// kGroups (one query per lane group)
+template <typename T, bool IS_VF, bool PER_QUERY>
+int shared_grid(int Q, int* per_sm_out) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, solve_kernel<T, IS_VF, PER_QUERY>, kShareThreads, 0);
+  if (per_sm_out != nullptr) *per_sm_out = per_sm;
+  const long long full = (long long)sms * per_sm;
+  int bq = kBlockQueries;
+  while (bq > kGroups && ((long long)Q + bq - 1) / bq < full) bq /= 2;
+  return bq;
+}
+
 template <typename T, bool IS_VF, bool PER_QUERY>
 int launch_shared(const Args& a) {
+  const int bq = shared_grid<T, IS_VF, PER_QUERY>(a.Q, nullptr);
   solve_kernel<T, IS_VF, PER_QUERY>
-      <<<(a.Q + kGroups - 1) / kGroups, kShareThreads, 0, a.stream>>>(
-          (const T*)a.cols, a.ld, (const T*)a.skip_seed, (const unsigned char*)a.valid, a.Q,
+      <<<(a.Q + bq - 1) / bq, kShareThreads, 0, a.stream>>>(
+          (const T*)a.cols, a.ld, (const T*)a.skip_seed, (const unsigned char*)a.valid, a.Q, bq,
           (T)a.co_tol, (T)a.uv_limit, (unsigned)a.dim_cap, a.allow_zero != 0, a.max_steps,
           (T*)a.toi, (T*)a.pq, (unsigned long long*)a.checks, (int*)a.ovf,
           (long long*)a.qchecks);
@@ -1112,6 +1172,24 @@ extern "C" int sccd_solver_lane_grid(int is_vf, int per_query, int is_f64, int Q
                                  : lane_grid<float, true, false>(Q, per_sm))
                     : (per_query ? lane_grid<float, false, true>(Q, per_sm)
                                  : lane_grid<float, false, false>(Q, per_sm));
+  }
+  return (int)cudaGetLastError();
+}
+
+// The queries per block form 2 takes for Q queries (for reports and tests),
+// and the blocks the occupancy calculator keeps resident per SM.
+extern "C" int sccd_solver_share_grid(int is_vf, int per_query, int is_f64, int Q,
+                                      int* block_queries, int* per_sm) {
+  if (is_f64) {
+    *block_queries = is_vf ? (per_query ? shared_grid<double, true, true>(Q, per_sm)
+                                        : shared_grid<double, true, false>(Q, per_sm))
+                           : (per_query ? shared_grid<double, false, true>(Q, per_sm)
+                                        : shared_grid<double, false, false>(Q, per_sm));
+  } else {
+    *block_queries = is_vf ? (per_query ? shared_grid<float, true, true>(Q, per_sm)
+                                        : shared_grid<float, true, false>(Q, per_sm))
+                           : (per_query ? shared_grid<float, false, true>(Q, per_sm)
+                                        : shared_grid<float, false, false>(Q, per_sm));
   }
   return (int)cudaGetLastError();
 }

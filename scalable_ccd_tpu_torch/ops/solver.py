@@ -141,24 +141,37 @@ def _bind(lib):
     return fn
 
 
+def _grid(entry: str, Q: int, is_vf: bool, per_query: bool, f64: bool):
+    lib = load_library("solver")
+    _bind(lib)  # the error strings' types
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    out, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    rc = fn(int(is_vf), int(per_query), int(f64), int(Q), ctypes.byref(out),
+            ctypes.byref(per_sm))
+    if rc != 0:
+        raise RuntimeError(f"solver grid query failed: "
+                           f"{lib.sccd_solver_error_string(rc).decode()}")
+    return out.value, per_sm.value
+
+
 def _lane_grid(Q: int, is_vf: bool, per_query: bool, f64: bool):
     """``(blocks, blocks per SM)``: the persistent grid of kernel B's
     one-thread form (bounded and round-limited modes) for ``Q`` queries on
     the current CUDA device, in 128-thread blocks, and the blocks the
     occupancy calculator keeps resident on one SM.  For reports only
     (``chip_smoke.py``)."""
-    lib = load_library("solver")
-    _bind(lib)  # the error strings' types
-    fn = lib.sccd_solver_lane_grid
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
-    fn.restype = ctypes.c_int
-    blocks, per_sm = ctypes.c_int(0), ctypes.c_int(0)
-    rc = fn(int(is_vf), int(per_query), int(f64), int(Q), ctypes.byref(blocks),
-            ctypes.byref(per_sm))
-    if rc != 0:
-        raise RuntimeError(f"solver grid query failed: "
-                           f"{lib.sccd_solver_error_string(rc).decode()}")
-    return blocks.value, per_sm.value
+    return _grid("sccd_solver_lane_grid", Q, is_vf, per_query, f64)
+
+
+def _share_grid(Q: int, is_vf: bool, per_query: bool, f64: bool):
+    """``(queries per block, blocks per SM)`` of kernel B's shared form
+    (unbounded global and per-query modes) for ``Q`` queries on the current
+    CUDA device: 128, 64 or 32 queries a block (the most whose blocks fill
+    every SM's resident slots, else 32), and the blocks the occupancy
+    calculator keeps resident on one SM.  For reports and tests."""
+    return _grid("sccd_solver_share_grid", Q, is_vf, per_query, f64)
 
 
 def _check_round_limit(round_limit, per_query, max_iterations):

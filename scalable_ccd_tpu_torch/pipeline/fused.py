@@ -16,27 +16,35 @@ Counterpart of ``scalable_ccd_tpu/pipeline/fused.py:fused_ccd``.  In order:
    gathered and packed with tolerances, error filters and the minimum
    separation by kernel C (:mod:`scalable_ccd_tpu_torch.ops.gather_pack`)
    in chunks of whole batches, at most 2^20 rows each, one launch per chunk
-   (records are decoded inside it), and solve each batch, a column slice of
-   its chunk, with kernel B (:mod:`scalable_ccd_tpu_torch.ops.solver`).
-   VF runs before EE and one running TOI is threaded through both; below
-   2^20 boxes (or as ``presample`` says) a phase starts with one warm-start
+   (records are decoded inside it), and solve them with kernel B
+   (:mod:`scalable_ccd_tpu_torch.ops.solver`): a global solve with no cap
+   and no escalation is one unbounded launch per chunk, every other solve
+   one or more launches per batch, a column slice of its chunk.  VF runs
+   before EE and one running TOI is threaded through both; below 2^20
+   boxes (or as ``presample`` says) a phase starts with one warm-start
    batch spread over its candidates, and it stops early once the TOI
    reaches 0;
-5. staged escalation (``escalate_rounds``, 128 rounds on the global path):
-   below 2^20 VF boxes the frame straggler pool (every batch's unfinished
-   rows after one bounded pass join a phase-wide pool, solved densely at
-   the end of the phase), above it the per-batch ladder
-   (:func:`scalable_ccd_tpu_torch.ops.solver.solve_escalated`).  In both the
-   bounded first pass runs once per chunk, over all its batches, and each
-   batch then decides on its segment of the chunk's unfinished rows.  Both
-   give the unbounded TOI bitwise unless a conservative accept fires;
+5. staged escalation (``escalate_rounds``): off by default on CUDA, where
+   kernel B's unbounded form shares a deep query's domains between the lane
+   groups of its block (escalation splits shallow queries from deep ones
+   for the TPU kernel's lockstep lanes), so each chunk is one launch; 128
+   rounds on the global path elsewhere, as in the JAX package, and where
+   ``escalate_rounds`` or ``escalate_pool`` asks for it: below 2^20 VF
+   boxes the frame straggler pool (every batch's unfinished rows after one
+   bounded pass join a phase-wide pool, solved densely at the end of the
+   phase), above it the per-batch ladder
+   (:func:`scalable_ccd_tpu_torch.ops.solver.solve_escalated_cols`).  In both
+   the bounded first pass runs once per chunk, over all its batches, and
+   each batch then decides on its segment of the chunk's unfinished rows.
+   Both give the unbounded TOI bitwise unless a conservative accept fires;
 6. size the pair budgets automatically: a scene-proportional power-of-two
    guess, one retry from the exact totals, and a sticky memo of grown
    budgets per scene-size class.
 
 The defaults resolve as the JAX package's do at its congestion threshold
-(``fused.py:96,132-170,1880-1926``), with one exception: the port emits
-pairs unless records are asked for (kernel A is the measured path).
+(``fused.py:96,132-170,1880-1926``), with two exceptions: the port emits
+pairs unless records are asked for (kernel A is the measured path), and on
+CUDA auto escalation is off (step 5).
 
 Exact modes (the JAX package's ``_phase``, ``fused.py:632-645``):
 
@@ -69,18 +77,19 @@ The JAX package runs this as one XLA program; here it is eager PyTorch, with
 the narrow loop's decisions on the device as the JAX package keeps them:
 a phase's candidates are packed in a few kernel C launches (gather and pack,
 :mod:`scalable_ccd_tpu_torch.ops.gather_pack`, one per chunk of at most
-2^20 rows, sized from the pair count the host already holds), every batch
-is kernel B launches on its slice of its chunk, and the escalation's
-round-limited first pass one launch over the whole chunk; the ``toi > 0``
-exit is kernel B's ``skip_if_done`` (a batch after the TOI reached 0 does
-nothing);
+2^20 rows, sized from the pair count the host already holds).  At the
+defaults on CUDA each chunk is then one unbounded kernel B launch over its
+columns, so the host iterates no batch; with escalation the round-limited
+first pass is one launch over the chunk and every batch kernel B launches
+on its slice of the chunk.  The ``toi > 0`` exit is kernel B's
+``skip_if_done`` (a chunk or batch after the TOI reached 0 does nothing);
 the frame pool's pool/solve-now choice and the batch ladder's skip/small/
-full choice are predicates on device scalars.  At the defaults the host
-reads a fixed number of scalars per phase, whatever the number of batches:
+full choice are predicates on device scalars.  The host reads a fixed
+number of scalars per phase, whatever the number of batches:
 
 - each phase's sweep totals, and the overflow flag of an auto budget (the
   retry from the exact totals);
-- the frame pool's cursor, once per phase, to size the pool's pass;
+- under the frame pool, its cursor, once per phase, to size the pool's pass;
 - the result, which the caller reads.
 
 Paths that keep host reads per batch: the exact modes (``collisions=``
@@ -96,11 +105,12 @@ call), ``sccd.upload`` (checks, validation, upload, knobs and budgets),
 with ``sccd.tables``, ``sccd.sweep`` (step 3 with its totals read and
 retry) and ``sccd.narrow`` (steps 4-5), and inside it ``sccd.presample``,
 ``sccd.pack`` (a chunk's kernel C launch), ``sccd.first_pass`` (a chunk's
-round-limited pass), ``sccd.batches`` (a chunk's per-batch loop) and
-``sccd.pool`` (the frame pool's cursor read and dense pass); and the
-counters ``batches`` (narrow batches cut, the presample's included) and
-``budget_retries``, beside the kernels' ``launch.<kernel>.<mode>``.  None
-of them reads the device.
+round-limited pass), ``sccd.batches`` (a chunk's per-batch loop, or its one
+unbounded launch) and ``sccd.pool`` (the frame pool's cursor read and dense
+pass); and the counters ``batches`` (the narrow batches the host iterates:
+the presample's and those of the per-batch paths), ``chunk_solves`` (chunks
+solved with one unbounded launch) and ``budget_retries``, beside the
+kernels' ``launch.<kernel>.<mode>``.  None of them reads the device.
 """
 
 from __future__ import annotations
@@ -226,16 +236,20 @@ class Knobs(NamedTuple):
 
 
 def resolve_auto_escalation(escalate_rounds, max_iterations: int,
-                            plain_f32: bool = True):
+                            plain_f32: bool = True, cuda: bool = False):
     """``escalate_rounds`` with auto (``None`` or the config sentinel -2)
     resolved: :data:`AUTO_ESCALATE_ROUNDS` on the global path, off with a
     check cap (``_resolve_auto_escalation``, JAX ``fused.py:135-147``), and
     off unless the request is plain f32 (``plain_f32``): for f64 and for the
     compensated precision the JAX package solves with its queue solver,
-    which does not escalate (``fused.py:1869-1883``)."""
+    which does not escalate (``fused.py:1869-1883``).  ``cuda`` (a call of
+    ``fused_ccd`` on a CUDA device) turns it off too: escalation splits
+    shallow queries from deep ones because the TPU kernel's lanes run in
+    lockstep, and kernel B's unbounded form shares a deep query's domains
+    between the lane groups of its block instead."""
     if escalate_rounds is not None and escalate_rounds != -2:
         return escalate_rounds
-    return AUTO_ESCALATE_ROUNDS if max_iterations < 0 and plain_f32 else -1
+    return AUTO_ESCALATE_ROUNDS if max_iterations < 0 and plain_f32 and not cuda else -1
 
 
 def resolve_dtype(dtype):
@@ -252,7 +266,7 @@ def resolve_knobs(n_vf: int, n_ee: int, *, bucket_minor="auto", escalate_rounds=
                   escalate_pool="auto", sweep_impl: str = "pairs",
                   max_iterations: int = -1, collisions: bool = False,
                   ipc_refine: bool = False, plain_f32: bool = True,
-                  presample="auto") -> Knobs:
+                  presample="auto", cuda: bool = False) -> Knobs:
     """The auto policies as functions of the phases' box counts ``n_vf``
     (vertices + faces) and ``n_ee`` (edges), as JAX ``fused_ccd`` resolves
     them (``fused.py:1880-1947``): congestion ordering from
@@ -261,6 +275,10 @@ def resolve_knobs(n_vf: int, n_ee: int, *, bucket_minor="auto", escalate_rounds=
     hold (global mode, one limit), the batch ladder otherwise; presample per
     phase below the threshold.  Unless ``plain_f32`` (an f64 or compensated
     request) auto escalation is off and the auto pool is the batch ladder.
+    With ``cuda`` (``fused_ccd`` on a CUDA device) auto escalation is off
+    too, and so the auto pool is the batch path, unless ``escalate_pool``
+    is given: an explicit pool asks for escalation, and its auto rounds
+    resolve as without ``cuda``.
     An explicit ``escalate_pool="frame"`` where the frame pool cannot run
     raises (the JAX package warns and takes the batch ladder).
     ``presample`` is ``"auto"`` (or ``None``), a bool for both phases, or a
@@ -276,7 +294,8 @@ def resolve_knobs(n_vf: int, n_ee: int, *, bucket_minor="auto", escalate_rounds=
     congested = n_vf >= CONGESTION_MIN_BOXES
     if bucket_minor == "auto":
         bucket_minor = congested
-    er = resolve_auto_escalation(escalate_rounds, max_iterations, plain_f32)
+    er = resolve_auto_escalation(escalate_rounds, max_iterations, plain_f32,
+                                 cuda and escalate_pool in ("auto", None))
     normalize_round_limits(er)  # a bad ladder raises here
     frame_ok = (not collisions and not ipc_refine and max_iterations < 0
                 and isinstance(er, int) and er >= 0)
@@ -440,24 +459,34 @@ class NarrowSolver(NamedTuple):
             self.compensated, skip_if_done))
 
     def solve_chunk(self, cols, toi, batch: int):
-        """Solve a chunk's packed columns ``cols`` in narrow batches of
-        ``batch`` columns from the running TOI ``toi``, as the plain loop
-        does (once the TOI is 0, every later pass skips); returns ``(toi,
-        overflow, checks)``.  With escalation (global solves, no cap) the
-        first, round-limited pass runs once over the whole chunk, seeded
-        with ``toi``, and each batch then solves its rows left unfinished
+        """Solve a chunk's packed columns ``cols`` from the running TOI
+        ``toi`` (once the TOI is 0, every later pass skips); returns ``(toi,
+        overflow, checks)``.  A global solve with neither a cap nor
+        escalation is one unbounded launch over the whole chunk, seeded with
+        ``toi``: the global TOI is a minimum over the queries, so how the
+        rows are split into launches changes only the checks.  With
+        escalation (global solves, no cap) the first, round-limited pass
+        runs once over the whole chunk, seeded with ``toi``, and each batch
+        of ``batch`` columns then solves its rows left unfinished
         (:func:`scalable_ccd_tpu_torch.ops.solver.solve_unfinished_cols`:
         the batch's segment of the chunk's ``unfin`` plane, pooled or solved
         at once, and the ladder's later stages), pruned by the running TOI;
         the TOI, totals and flags are those of a first pass per batch, since
-        a pass may prune against any TOI a query accepted.  Otherwise every
-        batch is one :meth:`solve_batch`."""
+        a pass may prune against any TOI a query accepted.  With a cap every
+        batch is one :meth:`solve_batch` (where the cap binds, the result
+        depends on the launches' order)."""
         limits = normalize_round_limits(self.round_limit)
         escalate = self.max_iterations < 0 and bool(limits)
         dev, q = cols.device, cols.shape[1]
+        prof = profiler()
+        if self.max_iterations < 0 and not limits:
+            prof.count("chunk_solves")
+            with prof.span("sccd.batches"):
+                valid = torch.ones((q,), dtype=torch.bool, device=dev)
+                toi_c, ovf, checks = self.solve_rows(cols, valid, toi, skip_if_done=True)
+                return torch.minimum(toi, toi_c), ovf, checks
         ovf = torch.zeros((), dtype=torch.bool, device=dev)
         checks = torch.zeros((), dtype=torch.int64, device=dev)
-        prof = profiler()
         if escalate:
             with prof.span("sccd.first_pass"):
                 valid = torch.ones((q,), dtype=torch.bool, device=dev)
@@ -743,9 +772,9 @@ def _narrow_phase(stream, budget, presample, nar: NarrowSolver, toi, collisions,
         toi, checks, capped = _frame_pool_loop(stream, budget, nar, toi, checks, capped)
         return toi, checks, capped, refinements
     if not ipc_refine:
-        # the reference chunk loop's `remaining_queries && toi > 0`: each
-        # batch's first launch skips on the device once the TOI is 0
-        # (skip_if_done); with escalation one first pass covers a chunk
+        # the reference chunk loop's `remaining_queries && toi > 0`: a
+        # chunk's launch, or each batch's first one, skips on the device
+        # once the TOI is 0 (skip_if_done)
         for c0 in range(0, n_pairs, stream.chunk):
             toi, cap, ck = nar.solve_chunk(stream.cols(c0, min(c0 + stream.chunk, n_pairs)),
                                            toi, batch)
@@ -821,11 +850,13 @@ def fused_ccd(
 
     ``bucket_minor`` (``"auto"``: from 2^20 VF boxes on) sorts in the
     congestion ordering and sweeps with ``any_order``; the pair set is the
-    same.  ``escalate_rounds`` (``None``: 128 rounds on the global path, -1
-    off; an int or an ascending ladder) and ``escalate_pool`` (``"auto"``:
-    ``"frame"`` below 2^20 VF boxes on the global path, ``"batch"``
-    otherwise) are the staged escalation; the TOI is the unbounded one
-    bitwise unless a conservative accept fires.  ``sweep_impl`` is
+    same.  ``escalate_rounds`` (``None``: off on CUDA, where each chunk of
+    up to 2^20 candidates is one unbounded solver launch, and 128 rounds on
+    the global path elsewhere or with an explicit ``escalate_pool``; -1 off;
+    an int or an ascending ladder) and ``escalate_pool`` (``"auto"``:
+    ``"frame"`` below 2^20 VF boxes on the global path with escalation on,
+    ``"batch"`` otherwise) are the staged escalation; the TOI is the
+    unbounded one bitwise unless a conservative accept fires.  ``sweep_impl`` is
     ``"pairs"`` (kernel A) or ``"records"`` (kernel A').  ``presample``
     (``"auto"``: per phase below 2^20 boxes; a bool, or a ``(vf, ee)``
     pair) runs one warm-start batch spread over a phase's candidates before
@@ -873,6 +904,7 @@ def fused_ccd(
                 max_iterations=max_iterations, collisions=collisions is not None,
                 ipc_refine=ipc_refine,
                 plain_f32=dtype == torch.float32 and not compensated, presample=presample,
+                cuda=device.type == "cuda",
             )
             vf_auto, ee_auto = vf_budget == "auto", ee_budget == "auto"
             memo_key = None
@@ -912,6 +944,9 @@ def fused_ccd(
                     toi, checks, capped, refined = _narrow_phase(
                         stream, budget, ps, nar, toi, collisions, ipc_refine, frame_pool,
                     )
+                # the phase's candidate and column buffers are freed before
+                # the next phase's sweep allocates its own
+                del stream, nar
             out.append((n_true, overflow, checks, capped, refined))
         if memo_key is not None and any(grown):
             old = _AUTO_BUDGET_MEMO.get(memo_key, (0, 0))

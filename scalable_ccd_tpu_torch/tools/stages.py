@@ -58,9 +58,10 @@ alone, so the tool can time another tree's package, the one found first on
 
     PYTHONPATH=build/parent python scalable_ccd_tpu_torch/tools/stages.py --frames
 
-``--escalation`` times the staged escalation against one unbounded pass per
-batch on the bench scene (the frame pool) and grid-600 (the batch ladder),
-with each frame's device time split by kernel and kernel B form
+``--escalation`` times the staged escalation at 128 rounds against none
+(one unbounded pass per chunk, the defaults on CUDA) on the bench scene
+(the frame pool) and grid-600 (the batch ladder), with each frame's device
+time split by kernel and kernel B form
 (:func:`run_escalation`); it too uses the entry points alone.
 """
 
@@ -273,16 +274,17 @@ def kernel_b_sets(device=None) -> list:
     """``[(set, phase, mode, calls)]``: kernel B's launches on the main path,
     recorded from the frames that make them, grouped by phase and mode:
 
-    - ``bench``: ``fused_ccd`` of the bench scene at its defaults (the
-      presample and the frame straggler pool: one ``round_limit`` pass per
-      chunk, here each phase's candidates, then the pool's blocks of at
-      most 2,048 rows, ``global``);
-    - ``bench_unbounded``: the same frame with ``escalate_rounds=-1`` (every
-      batch one ``global`` pass);
-    - ``grid600``: ``fused_ccd`` of ``cloth_on_sphere(600, 4)`` at its
-      defaults (the batch ladder): each phase's first ``round_limit`` pass,
-      over its first chunk of up to 2^20 rows, and the ladder's passes of
-      its first four batches;
+    - ``bench``: ``fused_ccd`` of the bench scene with escalation at 128
+      rounds (the presample and the frame straggler pool: one
+      ``round_limit`` pass per chunk, here each phase's candidates, then
+      the pool's blocks of at most 2,048 rows, ``global``);
+    - ``bench_unbounded``: the same frame with ``escalate_rounds=-1``, the
+      defaults on CUDA (the presample's batch and each chunk one ``global``
+      pass);
+    - ``grid600``: ``fused_ccd`` of ``cloth_on_sphere(600, 4)`` with
+      escalation at 128 rounds (the batch ladder): each phase's first
+      ``round_limit`` pass, over its first chunk of up to 2^20 rows, and the
+      ladder's passes of its first four batches;
     - ``grid64_collisions``: ``fused_ccd(collisions=[])`` of
       ``cloth_on_sphere(64, 3)`` (``per_query``), and the same rows with
       ``max_iterations`` 10 and 100 (``bounded``, the IPC path's mode).
@@ -309,7 +311,7 @@ def kernel_b_sets(device=None) -> list:
             groups.setdefault(("vf" if c["is_vf"] else "ee", _mode(c)), []).append(c)
         out.extend((name, ph, mode, cs) for (ph, mode), cs in groups.items())
 
-    frame("bench", (128, 4, 0.25))
+    frame("bench", (128, 4, 0.25), escalate_rounds=128)
     frame("bench_unbounded", (128, 4, 0.25), escalate_rounds=-1)
     passes = {}
 
@@ -320,7 +322,7 @@ def kernel_b_sets(device=None) -> list:
         passes[key] = passes.get(key, 0) + 1
         return passes[key] <= (1 if kw["round_limit"] >= 0 else 8)
 
-    frame("grid600", (600, 4, 0.25), first_batches)
+    frame("grid600", (600, 4, 0.25), first_batches, escalate_rounds=128)
     frame("grid64_collisions", (64, 3, 0.25), collisions=[])
     for cap in (10, 100):
         out.extend(("grid64_collisions", ph, f"bounded{cap}",
@@ -777,12 +779,13 @@ _ESCALATION_SCENES = {"bench": (128, 4, 0.25), "grid600": (600, 4, 0.25)}
 
 
 def run_escalation(device=None, reps=5, emit=print) -> list:
-    """The staged escalation against one unbounded pass per batch, on a
-    CUDA device, one JSON line per scene of ``_ESCALATION_SCENES`` and
-    variant: ``fused_ccd`` at its defaults (the bench scene's frame pool,
-    grid-600's batch ladder) and with ``escalate_rounds=-1``, timed in turns
-    (defaults, unbounded, unbounded, defaults; each turn the median host ms
-    of ``reps`` frames after a warm-up), with the TOI's ``float.hex``, the
+    """The staged escalation against no escalation, on a CUDA device, one
+    JSON line per scene of ``_ESCALATION_SCENES`` and variant: ``fused_ccd``
+    with ``escalate_rounds=128`` (the bench scene's frame pool, grid-600's
+    batch ladder) and with ``escalate_rounds=-1`` (the defaults on CUDA:
+    one launch per chunk), timed in turns (escalated, unbounded, unbounded,
+    escalated; each turn the median host ms of ``reps`` frames after a
+    warm-up), with the TOI's ``float.hex``, the
     totals, kernel B's launches per frame by mode and one traced frame
     (:func:`idle_share`), whose ``by_kernel`` splits the device time between
     kernel B's one-thread form (the round-limited passes), its shared form
@@ -793,7 +796,7 @@ def run_escalation(device=None, reps=5, emit=print) -> list:
     if device.type != "cuda":
         raise RuntimeError("run_escalation times CUDA frames: it needs a CUDA device")
     lines = []
-    variants = {"defaults": {}, "unbounded": {"escalate_rounds": -1}}
+    variants = {"escalated": {"escalate_rounds": 128}, "unbounded": {"escalate_rounds": -1}}
     for name, args in _ESCALATION_SCENES.items():
         s = cloth_on_sphere(*args)
         v0, v1, e, f = mesh_tensors(s.vertices_t0, s.vertices_t1, s.edges, s.faces, device,
@@ -804,7 +807,7 @@ def run_escalation(device=None, reps=5, emit=print) -> list:
 
         ms = {label: [] for label in variants}
         launches = {}
-        for label in ("defaults", "unbounded", "unbounded", "defaults"):
+        for label in ("escalated", "unbounded", "unbounded", "escalated"):
             before = dict(solver.LAUNCHES_BY_MODE)
             res, wall, _ = _timed(lambda: frame(variants[label]), reps, device)
             ms[label].append(wall)

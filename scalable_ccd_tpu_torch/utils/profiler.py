@@ -4,7 +4,7 @@ PyTorch counterpart of ``scalable_ccd_tpu/utils/profiler.py`` (the
 reference's ``utils/profiler.hpp:15-97``).  A span (:meth:`Profiler.span`)
 marks a stage of ``fused_ccd`` or ``ccd()``; a counter
 (:meth:`Profiler.count`) counts what the stage decided on the host
-(batches, kernel launches, budget retries).  Neither reads the device: a
+(batches, chunks solved in one launch, kernel launches, budget retries).  Neither reads the device: a
 span closes when the host has enqueued its stage, not when the card has run
 it, so tracing keeps the overlap of host and device that it measures.
 

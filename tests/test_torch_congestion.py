@@ -242,3 +242,50 @@ def test_auto_policies_follow_box_counts():
                dict(ipc_refine=True), dict(max_iterations=100)):
         with pytest.raises(ValueError, match="frame"):
             port_fused.resolve_knobs(10, 10, escalate_pool="frame", **kw)
+
+
+def test_auto_escalation_follows_the_device():
+    """On CUDA (``fused_ccd`` on a CUDA device passes ``cuda=True``) auto
+    escalation is off and the auto pool is the batch path, on the bench
+    scene's and grid-600's box counts alike; on the CPU it is 128 rounds,
+    as above.  Explicit values hold on both, and an explicit pool with auto
+    rounds runs at 128 rounds on CUDA too, where the frame pool does not
+    raise; where it cannot run it still raises."""
+    for n in ((56_324, 56_321), (1_085_284, 1_085_281)):
+        cpu = port_fused.resolve_knobs(*n)
+        cuda = port_fused.resolve_knobs(*n, cuda=True)
+        assert cpu.escalate_rounds == 128
+        assert (cuda.escalate_rounds, cuda.escalate_pool) == (-1, "batch")
+        assert cuda._replace(escalate_rounds=128, escalate_pool=cpu.escalate_pool) == cpu
+    for auto in (None, -2):
+        assert port_fused.resolve_auto_escalation(auto, -1, cuda=True) == -1
+        assert port_fused.resolve_auto_escalation(auto, -1, cuda=False) == 128
+        assert port_fused.resolve_auto_escalation(auto, 10, cuda=True) == -1
+    for rounds, pool, want in ((64, "auto", (64, "frame")), (-1, "auto", (-1, "batch")),
+                               ((4, 16), "auto", ((4, 16), "batch")),
+                               (8, "batch", (8, "batch")), (8, "frame", (8, "frame")),
+                               (None, "frame", (128, "frame")),
+                               (None, "batch", (128, "batch"))):
+        for dev in (False, True):
+            k = port_fused.resolve_knobs(1000, 1000, escalate_rounds=rounds,
+                                         escalate_pool=pool, cuda=dev)
+            assert (k.escalate_rounds, k.escalate_pool) == want, (rounds, pool, dev)
+    for kw in (dict(max_iterations=100), dict(collisions=True), dict(plain_f32=False)):
+        with pytest.raises(ValueError, match="frame"):
+            port_fused.resolve_knobs(10, 10, escalate_pool="frame", cuda=True, **kw)
+
+
+def test_fused_ccd_resolves_its_knobs_for_its_device(monkeypatch):
+    """``fused_ccd`` tells ``resolve_knobs`` whether it runs on CUDA: on the
+    CPU it does not, so the CPU default stays the JAX package's."""
+    seen = []
+    real = port_fused.resolve_knobs
+
+    def spy(*a, **kw):
+        seen.append(kw["cuda"])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(port_fused, "resolve_knobs", spy)
+    s = jscenes.cloth_on_sphere(grid_n=8, sphere_subdiv=1, drop=0.35)
+    port_fused.fused_ccd(s.vertices_t0, s.vertices_t1, s.edges, s.faces, device="cpu")
+    assert seen == [False]

@@ -564,16 +564,45 @@ def test_solver_kernel_every_mode_and_type_equals_plain(cuda, is_vf, kind):
         assert solver.LAUNCHES_BY_MODE[key] > before[key], mode
 
 
-@pytest.mark.parametrize("n", [1, 5, 31, 33, 100])
+@pytest.mark.parametrize("n", [1, 5, 31, 33, 100, 127, 129, 257])
 def test_solver_kernel_ragged_row_counts(cuda, n):
-    """Row counts that fill no whole group of eight lanes or block of 32
-    queries, the earliest contacts among them."""
+    """Row counts that fill no whole group of eight lanes, set of 32 groups
+    or block of 128 queries, the earliest contacts among them."""
     rows, valid = _rows_kind(cuda, False, "f32")
     pq = solver.solve_packed_reference(rows, valid, False, 1.0, TOL, per_query=True)[3]
     pick = torch.sort(torch.argsort(pq)[:n]).values
     sub, sub_valid = rows[pick].contiguous(), valid[pick].contiguous()
     sub_valid[0] = True
     _every_mode_equals_plain(sub, sub_valid, False)
+
+
+@pytest.mark.parametrize("block_queries", [32, 64, 128])
+@pytest.mark.parametrize("kind", ["f32", "f64"])
+def test_solver_shared_form_queries_per_block(cuda, kind, block_queries):
+    """The shared form takes the most of 128, 64 and 32 queries a block
+    whose blocks fill the card's resident slots, else 32; at seven rows past
+    ``block_queries`` times those slots (a ragged last block) it takes
+    ``block_queries``, and its global and per-query TOIs equal the plain
+    version's bitwise."""
+    f64 = kind != "f32"
+    _, per_sm = solver._share_grid(1, False, False, f64)
+    full = per_sm * torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert per_sm >= 1
+    for q in (1, 2048, 16384, 1 << 20):
+        want = next((b for b in (128, 64) if -(-q // b) >= full), 32)
+        assert solver._share_grid(q, False, False, f64)[0] == want, q
+    rows, valid = _bench_rows(cuda, kind)
+    n = block_queries * full + 7
+    assert n <= rows.shape[0]
+    sub, sub_valid = rows[:n].contiguous(), valid[:n].contiguous()
+    for per_query in (False, True):
+        assert solver._share_grid(n, False, per_query, f64)[0] == block_queries
+        k = solver.solve_packed(sub, sub_valid, False, 1.0, TOL, per_query=per_query)
+        torch.cuda.synchronize()
+        p = solver.solve_packed_reference(sub, sub_valid, False, 1.0, TOL, per_query=per_query)
+        assert float(k[0]) == float(p[0]) and not bool(k[1]), per_query
+        if per_query:
+            assert torch.equal(k[3], p[3])
 
 
 def test_solver_kernel_all_rows_invalid(cuda):
@@ -1096,6 +1125,63 @@ def test_fused_launches_gather_pack_every_batch(cuda, sweep_impl, monkeypatch):
     ref = fused_ccd(*args, device="cpu", narrow_batch=128, presample=False)
     assert float(res.toi) == pytest.approx(float(ref.toi), abs=1e-7)
     assert (int(res.vf_total), int(res.ee_total)) == (int(ref.vf_total), int(ref.ee_total))
+
+
+def _counted_call(fn):
+    """``(fn(), counters)``: one call of ``fused_ccd`` under a CPU profile,
+    with the counters of the program's record of it."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from scalable_ccd_tpu_torch.utils.profiler import profiler
+
+    profiler().clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with record_function("window"):
+            res = fn()
+            torch.cuda.synchronize()
+    (rec,) = profiler().records()
+    profiler().clear()
+    return res, rec.counters
+
+
+def _launches(counters, kernel):
+    return sum(n for k, n in counters.items() if k.startswith(f"launch.{kernel}."))
+
+
+def test_fused_defaults_solve_each_chunk_in_one_launch(cuda, monkeypatch):
+    """``fused_ccd`` at its defaults on CUDA, on the bench scene (41,480 VF
+    and 136,473 EE candidates) with the chunk cap at two batches of 16,384,
+    so each phase has more than one chunk: auto escalation is off, and
+    kernel B launches once per kernel C launch (the presample's batch and
+    each chunk), none of them round-limited; ``chunk_solves`` counts the
+    chunks and ``batches`` the presample's two.  The TOI is bit for bit that
+    of the frame pool at 128 rounds, asked for as ``escalate_rounds=128``
+    or as ``escalate_pool="frame"`` with auto rounds, and of the plain
+    versions on the CPU; totals and flags equal."""
+    monkeypatch.setattr(gp, "CHUNK_ROWS", 2 * 16384 + 5)
+    s = scenes.cloth_on_sphere(grid_n=128, sphere_subdiv=4, drop=0.25)
+    args = (s.vertices_t0, s.vertices_t1, s.edges, s.faces)
+    before = dict(solver.LAUNCHES_BY_MODE)
+    res, counters = _counted_call(lambda: fused_ccd(*args, device=cuda))
+    assert solver.LAUNCHES_BY_MODE["round_limit"] == before["round_limit"]
+    chunks = sum(-(-int(n) // 32768) for n in (res.vf_total, res.ee_total))
+    assert int(res.vf_total) > 32768 and int(res.ee_total) > 32768
+    assert _launches(counters, "solver") == _launches(counters, "gather_pack") == chunks + 2
+    assert counters["chunk_solves"] == chunks and counters["batches"] == 2
+    want = (float(res.toi).hex(), int(res.vf_total), int(res.ee_total), bool(res.overflowed),
+            bool(res.solver_capped))
+    escalated = {}
+    for label, kw in (("rounds", dict(escalate_rounds=128)), ("pool", dict(escalate_pool="frame"))):
+        before = solver.LAUNCHES_BY_MODE["round_limit"]
+        esc, escalated[label] = _counted_call(lambda: fused_ccd(*args, device=cuda, **kw))
+        assert solver.LAUNCHES_BY_MODE["round_limit"] > before, label
+        assert "chunk_solves" not in escalated[label]
+        assert (float(esc.toi).hex(), int(esc.vf_total), int(esc.ee_total),
+                bool(esc.overflowed), bool(esc.solver_capped)) == want, label
+    assert escalated["rounds"]["batches"] == escalated["pool"]["batches"] > 2
+    ref = fused_ccd(*args, device="cpu")
+    assert (float(ref.toi).hex(), int(ref.vf_total), int(ref.ee_total), bool(ref.overflowed),
+            bool(ref.solver_capped)) == want
 
 
 def _bench_stream(device, dtype, comp, is_vf, sweep_impl, batch, with_ids=False):

@@ -13,8 +13,9 @@ scene: TOI within ``abs=1e-7``, pair totals exact.  The JAX frame runs once
 Then the exit on the golden ``dense-cluster`` scene in f32, whose TOI is 0:
 the batches after the TOI reached 0 add no checks.  Last, the chunks kernel
 C packs (the chunk cap lowered to three batches): each branch on both
-``sweep_impl``s against JAX, one pack call per chunk, and the exact modes
-from records against pairs.
+``sweep_impl``s against JAX, one pack call per chunk, the exact modes
+from records against pairs, and the unbounded loop's one kernel B call per
+chunk against JAX and, bit for bit, against one call per batch.
 """
 
 import os
@@ -55,8 +56,8 @@ def reference(scene):
 @pytest.fixture
 def launches(monkeypatch):
     """Every kernel B call of the frames run in the test, in order: a dict
-    of its rows ``q``, valid rows, round limit, ``skip_if_done``, seed and
-    checks."""
+    of its rows ``q``, valid rows, round limit, ``skip_if_done``, seed, the
+    TOI it returned and checks."""
     calls = []
     real = solver.solve_cols
 
@@ -66,7 +67,8 @@ def launches(monkeypatch):
                    skip_if_done=skip_if_done, **kw)
         calls.append({"q": cols.shape[1], "valid": int(valid.sum()), "is_vf": is_vf,
                       "round_limit": round_limit, "skip": skip_if_done,
-                      "seed": float(toi_init), "checks": int(out[2])})
+                      "seed": float(toi_init), "toi": float(out[0]),
+                      "checks": int(out[2])})
         return out
 
     monkeypatch.setattr(solver, "solve_cols", recorded)
@@ -149,13 +151,16 @@ def test_batch_ladder_branches_match_jax(scene, reference, launches, branch):
 
 @pytest.mark.parametrize("kw", [dict(escalate_rounds=0, presample=False),
                                 dict(escalate_pool="batch"), dict(escalate_rounds=-1)])
-def test_exit_on_device_after_toi_reaches_zero(launches, kw):
+def test_exit_on_device_after_toi_reaches_zero(launches, monkeypatch, kw):
     """``dense-cluster`` in f32 collapses to a TOI of 0, in the sixth EE
     batch of 256; from then on every launch that the JAX loop's ``toi > 0``
     guards is skipped on the device and adds no checks: the first pass of
-    every later batch (the batch ladder, the plain loop), or the pool's
-    later block (the frame pool, where every row is pooled), and the
-    frame's checks are those of the launches before."""
+    every later batch (the batch ladder), the launch of every later chunk
+    (the plain loop, one launch per chunk, here with the chunk cap at one
+    batch), or the pool's later block (the frame pool, where every row is
+    pooled), and the frame's checks are those of the launches before."""
+    if kw.get("escalate_rounds") == -1:
+        monkeypatch.setattr(gp, "CHUNK_ROWS", 256 + 7)
     v0, f = read_ply(os.path.join(GOLDEN, "dense-cluster", "frames", "f0.ply"))
     v1, _ = read_ply(os.path.join(GOLDEN, "dense-cluster", "frames", "f1.ply"))
     res = fused_ccd(v0, v1, edges_from_faces(f), f, narrow_batch=256, **kw, **CPU)
@@ -235,15 +240,14 @@ def test_chunked_loop_matches_jax(scene, reference, launches, packs, sweep_impl,
     the frame pool, the batch ladder and the unbounded loop give JAX's
     frame on both ``sweep_impl``s, kernel C packs each phase in
     ``ceil(candidates / 3,072)`` calls of the sweep's mode (chunks of 3,072
-    rows and a shorter last one), the escalation's first pass reads each
-    chunk in one call, and kernel B sees every batch of 1,024: the
-    unbounded loop's passes, the frame pool's solve-now passes and the
-    ladder's unbounded passes over the batch."""
+    rows and a shorter last one), the escalation's first pass and the
+    unbounded loop's one pass read each chunk in one call, and under
+    escalation kernel B sees every batch of 1,024: the frame pool's
+    solve-now passes and the ladder's unbounded passes over the batch."""
     res = fused_ccd(*scene, narrow_batch=1024, presample=False, sweep_impl=sweep_impl, **kw,
                     **CPU)
     _same_as_jax(res, reference)
     assert sum(c["checks"] for c in launches) == int(res.total_checks)
-    escalated = kw["escalate_rounds"] >= 0
     for is_vf, total in ((True, int(res.vf_total)), (False, int(res.ee_total))):
         rows = [q for mode, vf, q in packs if vf == is_vf]
         chunks = [min(3072, total - c) for c in range(0, total, 3072)]
@@ -252,7 +256,7 @@ def test_chunked_loop_matches_jax(scene, reference, launches, packs, sweep_impl,
         assert rows == chunks
         firsts = [c["q"] for c in launches if c["is_vf"] == is_vf and c["skip"]
                   and c["round_limit"] == kw["escalate_rounds"]]
-        assert firsts == (chunks if escalated else batches)
+        assert firsts == chunks
         free = [c for c in launches if c["is_vf"] == is_vf and c["round_limit"] < 0]
         if kw.get("escalate_pool") == "frame":  # the solve-now passes
             assert [c["q"] for c in free if not c["skip"]] == batches
@@ -285,3 +289,82 @@ def test_chunked_exact_modes_records_equal_pairs(packs, monkeypatch, mode):
         hits = []
         fused_ccd(*scene, narrow_batch=256, collisions=hits, **CPU)
         assert hits == out["pairs"][4]
+
+
+def _solve_chunk_per_batch(self, cols, toi, batch):
+    """``NarrowSolver.solve_chunk`` of an unbounded chunk as the port ran it
+    before the chunk became one launch: one ``solve_batch`` per batch."""
+    ovf = torch.zeros((), dtype=torch.bool)
+    checks = torch.zeros((), dtype=torch.int64)
+    for s in range(0, cols.shape[1], batch):
+        toi_b, ovf_b, ck_b = self.solve_batch(cols[:, s:s + batch], toi, skip_if_done=True)
+        toi = torch.minimum(toi, toi_b)
+        ovf, checks = ovf | ovf_b, checks + ck_b
+    return toi, ovf, checks
+
+
+def _seeded_by_the_chunks_before(calls):
+    """Each call is seeded with the running TOI: the minimum of 1 and of
+    every TOI the calls before it returned."""
+    running = 1.0
+    for c in calls:
+        assert c["seed"] == running
+        running = min(running, c["toi"])
+
+
+@pytest.mark.parametrize("sweep_impl", ["pairs", "records"])
+def test_unbounded_chunk_is_one_launch(scene, reference, launches, packs, monkeypatch,
+                                       sweep_impl):
+    """With escalation off, each chunk of three batches of 1,024 is one
+    kernel B call over the chunk's columns, with ``skip_if_done``, seeded
+    with the TOI of the chunks before it: one call per kernel C pack.  The
+    frame is JAX's (TOI within ``abs=1e-7``, totals exact), its checks the
+    calls' sum, and its TOI, totals and flags those of one call per batch,
+    bit for bit."""
+    kw = dict(escalate_rounds=-1, narrow_batch=1024, presample=False, sweep_impl=sweep_impl,
+              **CPU)
+    res = fused_ccd(*scene, **kw)
+    calls = list(launches)
+    _same_as_jax(res, reference)
+    assert sum(c["checks"] for c in calls) == int(res.total_checks)
+    _seeded_by_the_chunks_before(calls)
+    for is_vf, total in ((True, int(res.vf_total)), (False, int(res.ee_total))):
+        chunks = [min(3072, total - c) for c in range(0, total, 3072)]
+        mine = [c for c in calls if c["is_vf"] == is_vf]
+        assert [c["q"] for c in mine] == chunks == [q for _, vf, q in packs if vf == is_vf]
+        assert all(c["skip"] and c["round_limit"] < 0 and c["valid"] == c["q"] for c in mine)
+    monkeypatch.setattr(port_fused.NarrowSolver, "solve_chunk", _solve_chunk_per_batch)
+    loop = fused_ccd(*scene, **kw)
+    assert [c["q"] for c in launches[len(calls):] if not c["is_vf"]] == [
+        min(1024, int(res.ee_total) - s) for s in range(0, int(res.ee_total), 1024)]
+    assert float(res.toi).hex() == float(loop.toi).hex()
+    for name in ("vf_total", "ee_total", "overflowed", "solver_capped"):
+        assert int(getattr(res, name)) == int(getattr(loop, name)), name
+
+
+def test_unbounded_chunks_after_toi_reaches_zero_add_no_checks(launches, monkeypatch):
+    """``dense-cluster`` in f32 (1,193 VF and 3,690 EE candidates) with
+    escalation off, batches of 256 and chunks of three batches: the TOI
+    reaches 0 in the second EE chunk, and each later chunk's one call is
+    seeded with 0, skipped on the device and adds no checks; the TOI is
+    the per-batch loop's."""
+    monkeypatch.setattr(gp, "CHUNK_ROWS", 3 * 256 + 7)
+    v0, f = read_ply(os.path.join(GOLDEN, "dense-cluster", "frames", "f0.ply"))
+    v1, _ = read_ply(os.path.join(GOLDEN, "dense-cluster", "frames", "f1.ply"))
+    args = (v0, v1, edges_from_faces(f), f)
+    kw = dict(escalate_rounds=-1, narrow_batch=256, presample=False, **CPU)
+    res = fused_ccd(*args, **kw)
+    calls = list(launches)
+    assert float(res.toi) == 0.0 and not bool(res.overflowed)
+    vf, ee = int(res.vf_total), int(res.ee_total)
+    assert [c["q"] for c in calls] == [min(768, n - c) for n in (vf, ee)
+                                        for c in range(0, n, 768)]
+    _seeded_by_the_chunks_before(calls)
+    zero = next(i for i, c in enumerate(calls) if c["toi"] <= 0)
+    later = calls[zero + 1:]
+    assert not calls[zero]["is_vf"] and len(later) >= 2
+    assert all(c["skip"] and c["seed"] == 0 and c["checks"] == 0 for c in later)
+    assert sum(c["checks"] for c in calls) == int(res.total_checks)
+    monkeypatch.setattr(port_fused.NarrowSolver, "solve_chunk", _solve_chunk_per_batch)
+    loop = fused_ccd(*args, **kw)
+    assert float(loop.toi) == 0.0 and (int(loop.vf_total), int(loop.ee_total)) == (vf, ee)
