@@ -221,13 +221,13 @@ def test_profiler_scopes_of_ccd(cloth):
     prof.enable()
     try:
         ccd(*_args(cloth), **CPU)
-        tree = prof.data()["ccd"]
+        tree = prof.data()["sccd.ccd"]
     finally:
         prof.disable()
         prof.clear()
-    for name in ("build_boxes", "sort_boxes", "vf_pipeline", "ee_pipeline"):
+    for name in ("sccd.upload", "sccd.boxes", "sccd.phase.vf", "sccd.phase.ee"):
         assert tree[name]["time_ms"] >= 0.0 and tree[name]["device"] is False
-    assert tree["time_ms"] >= tree["vf_pipeline"]["time_ms"]
+    assert tree["time_ms"] >= tree["sccd.phase.vf"]["time_ms"]
 
 
 # ---- configuration ------------------------------------------------------------

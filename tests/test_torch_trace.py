@@ -10,11 +10,13 @@ own arithmetic gives.
 
 import math
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from scalable_ccd_tpu_torch import ccd, fused_ccd
+from scalable_ccd_tpu_torch import CCDConfig, CCDStats, MemoryConfig, ccd, fused_ccd, \
+    ipc_ccd_strategy
 from scalable_ccd_tpu_torch.geometry.scenes import cloth_on_sphere
 from scalable_ccd_tpu_torch.ops._build import count_launch, launch_counts
 from scalable_ccd_tpu_torch.pipeline import fused as port_fused
@@ -158,10 +160,10 @@ def test_spans_match_the_profile_events(cloth):
 
 def test_ccd_spans_record_and_time_without_a_sync(cloth, monkeypatch):
     _, (rec,), _ = _traced(lambda: ccd(*cloth, **CPU))
-    assert rec.entry == "ccd" and rec.root.name == "ccd"
-    assert [s.name for s in rec.spans] == ["build_boxes", "sort_boxes", "vf_pipeline",
-                                           "ee_pipeline"]
-    assert {s.parent for s in rec.spans} == {"ccd"}
+    assert rec.entry == "ccd" and rec.root.name == "sccd.ccd"
+    top = [s.name for s in rec.spans if s.parent == "sccd.ccd"]
+    assert top == ["sccd.upload", "sccd.boxes", "sccd.phase.vf", "sccd.phase.ee"]
+    assert {s.parent for s in rec.spans} == {"sccd.ccd", "sccd.phase.vf", "sccd.phase.ee"}
 
     def refuse(*_a, **_k):
         raise AssertionError("a span synchronised the device")
@@ -176,6 +178,70 @@ def test_ccd_spans_record_and_time_without_a_sync(cloth, monkeypatch):
     assert node["device"] is True and node["inner"]["device"] is True
     assert node["time_ms"] >= node["inner"]["time_ms"] >= 0.0
     assert prof.records() == []
+
+
+#: every span of ccd() and the span it sits in
+CCD_PARENTS = {
+    "sccd.upload": "sccd.ccd", "sccd.boxes": "sccd.ccd",
+    "sccd.phase.vf": "sccd.ccd", "sccd.phase.ee": "sccd.ccd",
+    "sccd.sweep": ("sccd.phase.vf", "sccd.phase.ee"),
+    "sccd.narrow": ("sccd.phase.vf", "sccd.phase.ee"),
+    "sccd.presample": "sccd.narrow", "sccd.ipc_refine": "sccd.narrow",
+}
+
+
+def _touching_rig():
+    """``tests/test_pipeline.py:231-258``: a still unit triangle and a
+    vertex that starts inside a 0.05 separation of it and crosses its plane
+    at t = 1/3."""
+    tri = np.array([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0]])
+    v0 = np.concatenate([tri, [[0.25, 0.25, 0.01]]])
+    v1 = v0.copy()
+    v1[3, 2] -= 0.03
+    faces = np.arange(3, dtype=np.int32)[None]
+    edges = np.array([[0, 1], [0, 2], [1, 2]], dtype=np.int32)
+    return v0, v1, edges, faces
+
+
+@pytest.mark.parametrize("scene", ["rig", "cloth"])
+def test_ipc_ccd_strategy_leaves_one_ccd_record(cloth, monkeypatch, scene):
+    """A profiled ``ipc_ccd_strategy`` call (the chunked path) leaves one
+    record of ``ccd()``, whose root opens before the upload and every other
+    span; its ``batches`` counter is the batches solved and its
+    ``ipc_refinements`` the call's own count: on the touching rig, and on
+    the cloth in batches of 64 candidates, where chunks of more than 256
+    start with a warm-start batch."""
+    solved = []
+    real = port_fused.NarrowSolver.solve
+
+    def counted(self, pairs, *a, **kw):
+        solved.append(pairs.shape[0])
+        return real(self, pairs, *a, **kw)
+
+    monkeypatch.setattr(port_fused.NarrowSolver, "solve", counted)
+    stats = CCDStats()
+    if scene == "rig":
+        args, kw = _touching_rig(), dict(min_distance=0.05)
+    else:
+        args = cloth
+        kw = dict(min_distance=1e-3, config=CCDConfig(memory=MemoryConfig(
+            box_chunk_size=256, query_buckets=(64,))))
+    toi, (rec,), _ = _traced(lambda: ipc_ccd_strategy(*args, stats=stats, **kw, **CPU))
+    assert rec.entry == "ccd" and rec.root.name == "sccd.ccd" and rec.root.parent is None
+    assert all(rec.root.start_ns < s.start_ns <= s.end_ns <= rec.root.end_ns
+               for s in rec.spans)
+    names = [s.name for s in rec.spans]
+    assert names[:2] == ["sccd.upload", "sccd.boxes"] and set(names) <= set(CCD_PARENTS)
+    for s in rec.spans:
+        want = CCD_PARENTS[s.name]
+        assert s.parent in (want if isinstance(want, tuple) else (want,)), s
+    assert rec.counters["batches"] == len(solved) > 0
+    assert rec.counters.get("ipc_refinements", 0) == stats.ipc_refinements
+    assert names.count("sccd.ipc_refine") == stats.ipc_refinements
+    if scene == "rig":
+        assert stats.ipc_refinements == 1 and toi == pytest.approx(0.8 / 3.0, rel=1e-3)
+    else:
+        assert names.count("sccd.sweep") >= 4 and "sccd.presample" in names
 
 
 def test_profile_tree_of_fused_ccd(cloth):
