@@ -150,6 +150,20 @@ when it fails:
     launched once per chunk of
     whole batches and for the presample; the device idle share of one bench
     frame from a ``torch.profiler`` trace;
+18. kernel B's pairs source on the broad chunks of the IPC cell
+    (``clothball_ipc.ipc_sim``, frames 0 and 3 of one seed, 2^15-box chunks,
+    its separation and cap; where the benchmark lacks the cell, the port's
+    ``cloth_on_sphere(210, 4)`` at its size): per chunk and per row type
+    (f32, f64, compensated), one pairs-source launch against the per-batch
+    path it replaces (kernel C and the columns source per 2^17-row batch,
+    each seeded with the TOI before it), bit for bit in TOI and overflow
+    (and in checks where no query lowers the seed), with the device ms of
+    both, and on frame 0 their host ms with the per-batch path's read a
+    batch; the plain twin (kernel C's and B's plain versions) on frame 0's
+    last VF and EE chunks, bit for bit, for the ``solve_pairs`` rows; the
+    pairs source's ``ptxas`` lines.
+    ``python3 chip_smoke.py --chunk-solve`` runs the build and this phase
+    alone, and names them in its ok line;
 last, grid-1000 in f32 timed once.
 
 Each kernel row carries its bound: the least time the card could take,
@@ -181,7 +195,10 @@ and a face's 18 scalars, or an edge's 12: the many candidates that share a
 row repeat its reads, and a scene's tables fit in the card's L2), counted
 from this run's pairs, and does about 400 operations per row; it replaces
 the XLA-fused glue of ``pack_query_rows`` and of the record decode (no
-Pallas kernel), and no single PyTorch call computes it.
+Pallas kernel), and no single PyTorch call computes it.  Kernel B's pairs
+source computes those rows in its lanes: it reads 8 bytes of ids per row
+and the table rows kernel C reads, writes and reads no column, and does
+kernel C's operations per row and kernel B's per evaluation.
 
 The last lines are the kernels' JSON record (one row per kernel and mode),
 the ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -465,7 +482,7 @@ def pair_keys(pairs, n):
 T_START = time.perf_counter()
 
 
-def main():
+def main(chunk_solve_only=False):
     import torch
 
     if not torch.cuda.is_available():
@@ -510,6 +527,13 @@ def main():
         ptxas += [l.strip() for l in log.read_text().splitlines() if "registers" in l or "spill" in l]
     emit(phase="build", seconds=time.perf_counter() - t0,
          per_library=dict(_build.BUILD_SECONDS), ptxas=ptxas)
+    if chunk_solve_only:
+        phase_chunk_solve(torch, dev)
+        print(smi)
+        # a partial run: its ok line names the phases it ran
+        print(json.dumps({"ok": True, "phases": ["build", "chunk_solve"], "device": {
+            "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        return 0
 
     # ---- bench scene on the card ------------------------------------------
     scene = cloth_on_sphere(grid_n=128, sphere_subdiv=4, drop=0.25)
@@ -694,6 +718,7 @@ def main():
     phase_kernel_b_rows()
     multi = phase_multi_device(torch, dev, scene, grid600_scene, mid, smi)
     loop = phase_narrow_loop(torch, dev, scene, grid600_scene)
+    pairs_rows = phase_chunk_solve(torch, dev)
     phase_grid1000(torch, dev, cloth_on_sphere)
 
     launched = lambda run, key: precise[run].get(key, 0)  # noqa: E731
@@ -725,8 +750,12 @@ def main():
          "grid600": grid_b["global"]},
         {"name": "solve_packed[per_query]", **solve, "launches": ipc["solve_per_query"],
          **exact["per_query"]},
-        {"name": "solve_packed[bounded]", **solve, "launches": ipc["solve_bounded"],
-         **exact["bounded"]},
+        {"name": "solve_packed[bounded]", **solve,
+         "launches": ipc["solve_bounded"] - ipc["solve_pairs"], **exact["bounded"]},
+        # the pairs source, the IPC path's bounded solve (phase 7's launches);
+        # ms, plain ms and bound on the IPC cell's frame 0 chunks (phase 18)
+        {"name": "solve_pairs[bounded]", **solve, "launches": ipc["solve_pairs"],
+         **pairs_rows["float32"]},
         # round_limit: the default path launches none; ``escalated_launches``
         # are grid-600's with escalate_rounds=128 (phase 11)
         {"name": "solve_packed[round_limit]", **solve,
@@ -756,7 +785,13 @@ def main():
          "launches": launched("fused_f64_collisions", "solve_per_query_f64"),
          **f64_rows["per_query"]},
         {"name": "solve_packed[bounded,f64]", **solve,
-         "launches": launched("ipc_f64", "solve_bounded_f64"), **f64_rows["bounded"]},
+         "launches": launched("ipc_f64", "solve_bounded_f64")
+         - launched("ipc_f64", "solve_pairs_f64"), **f64_rows["bounded"]},
+        {"name": "solve_pairs[bounded,f64]", **solve,
+         "launches": launched("ipc_f64", "solve_pairs_f64"), **pairs_rows["float64"]},
+        {"name": "solve_pairs[bounded,compensated]", **solve,
+         "launches": launched("ipc_compensated", "solve_pairs_f64"),
+         **pairs_rows["compensated"]},
         {"name": "solve_packed[round_limit,f64]", **solve,
          "launches": launched("fused_f64_round_limit", "solve_round_limit_f64"),
          **f64_rows["round_limit"]},
@@ -1025,7 +1060,8 @@ def phase_ipc_path(torch, dev, cloth_on_sphere, sweep_ap, solver):
     frames = ipc_loop(bench, dev, ("chunked", "fused"))
     torch.cuda.synchronize()
     counts = read_counts(sweep_ap, solver)
-    for k in ("sweep_range", "solve_global", "solve_per_query", "solve_bounded"):
+    for k in ("sweep_range", "solve_global", "solve_per_query", "solve_bounded",
+              "solve_pairs"):
         check(counts[k] > 0, f"IPC path launched no {k}: {counts}")
 
     fused = fused_ccd(*bargs, device=dev)
@@ -2349,6 +2385,9 @@ def phase_precision_path(torch, dev, bench_scene, mid_scene, grid600_scene, f32_
                                                    dtype=f64, escalate_rounds=128),
         "ipc_f64": lambda: ipc_ccd_strategy(*bargs, device=dev, validate=False,
                                             min_distance=1e-3, config=cfg64),
+        "ipc_compensated": lambda: ipc_ccd_strategy(*bargs, device=dev, validate=False,
+                                                    min_distance=1e-3,
+                                                    config=configs["compensated"]),
     }
     counts, results = {}, {}
     for label, fn in runs.items():
@@ -2371,7 +2410,8 @@ def phase_precision_path(torch, dev, bench_scene, mid_scene, grid600_scene, f32_
                        ("fused_f64_collisions", "solve_per_query_f64"),
                        ("fused_f64_records", "records_sorted_f64"),
                        ("fused_f64_round_limit", "solve_round_limit_f64"),
-                       ("ipc_f64", "solve_bounded_f64")):
+                       ("ipc_f64", "solve_bounded_f64"), ("ipc_f64", "solve_pairs_f64"),
+                       ("ipc_compensated", "solve_pairs_f64")):
         check(counts[label].get(key, 0) > 0, f"{label} launched no {key}: {counts[label]}")
     r64, rcomp = results["fused_f64"], results["fused_compensated"]
     t32 = float(f32_res.toi)
@@ -2395,7 +2435,8 @@ def phase_precision_path(torch, dev, bench_scene, mid_scene, grid600_scene, f32_
     timings["fused_f32_again"] = wall_ms(lambda: fused_ccd(*b32, device=dev, validate=False), 5)
     emit(phase="precision_bench", scene="cloth_on_sphere(128, 4, drop=0.25)", f32_toi=t32,
          f64_toi=float(r64.toi), compensated_toi=float(rcomp.toi), ccd_f64_toi=results["ccd_f64"],
-         ipc_f64_toi=results["ipc_f64"], f64_vf_total=int(r64.vf_total),
+         ipc_f64_toi=results["ipc_f64"], ipc_compensated_toi=results["ipc_compensated"],
+         f64_vf_total=int(r64.vf_total),
          f64_ee_total=int(r64.ee_total), f64_checks=int(r64.total_checks),
          compensated_checks=int(rcomp.total_checks), f32_checks=int(f32_res.total_checks),
          launches=counts, **{k + "_ms_median": v[0] for k, v in timings.items()},
@@ -2461,6 +2502,12 @@ def ptxas_by_instantiation(log_text):
                 vf, pq = [f == "1" for f in re.findall(r"Lb([01])E", m.group(3))]
                 name = (f"{'f32' if m.group(2) == 'f' else 'f64'} {'vf' if vf else 'ee'}"
                         f"{' per_query' if pq else ''}{' one_thread' if m.group(1) else ' shared'}")
+                # the one-thread form's row source: columns, or pairs (widened
+                # where double rows are computed in float)
+                if "PairRowsIdf" in line:
+                    name += " pairs widened"
+                elif "PairRows" in line:
+                    name += " pairs"
             elif m := re.search(r"sweep_units_kernelI([fd])((?:Lb[01]E)+)", line):
                 any_order, count_only = flags(m)
                 name = (f"sweep {fp(m)} {'any_order' if any_order else 'whole'}"
@@ -2502,6 +2549,212 @@ def phase_kernel_b_rows():
          kernel_a_records_ptxas=ptxas_by_instantiation(records_log),
          kernel_a_records_blocks_smem=shape)
     return lines
+
+
+# ---- 18. kernel B's pairs source on the IPC cell's chunks ---------------------------
+
+#: the IPC cell's call (``ccd_bench/configs/clothball_ipc.json``, ``call``)
+IPC_CALL = {"min_distance": 1e-3, "max_iterations": 1_000_000, "tolerance": 1e-6}
+#: the row types of phase 18: (vertex dtype name, compensated)
+CHUNK_PRECISIONS = {"float32": ("float32", False), "float64": ("float64", False),
+                    "compensated": ("float32", True)}
+
+
+def ipc_cell_frames(seed):
+    """Frames 0 and 3 of the IPC cell's cycle, ``{frame: (v0, v1, edges,
+    faces)}`` on the host, and where they come from: the benchmark's
+    generator for the cell ``clothball_ipc.ipc_sim`` and ``seed``; where the
+    benchmark lacks that cell, the port's own ``cloth_on_sphere(210, 4,
+    drop=0.25)`` at the cell's size, frame 0 raised by 0.9 as the cell's
+    frame 0 is (other candidates: no slide, more noise)."""
+    try:
+        from ccd_bench import cells, generator
+
+        cell = cells.resolve("clothball_ipc.ipc_sim")
+        cyc = generator.make_cycle(cell.config, cell.traffic, seed)
+        return {k: (cyc.v0[k], cyc.v1[k], cyc.edges, cyc.faces) for k in (0, 3)}, cell.name
+    except (ImportError, KeyError, FileNotFoundError) as exc:
+        import numpy as np
+
+        from scalable_ccd_tpu_torch.geometry.scenes import cloth_on_sphere
+
+        sc = cloth_on_sphere(grid_n=210, sphere_subdiv=4, drop=0.25)
+        lift = np.zeros_like(sc.vertices_t0)
+        lift[: 210 * 210, 1] = 0.9  # the cloth's vertices come first
+        frames = {0: (sc.vertices_t0 + lift, sc.vertices_t1 + lift, sc.edges, sc.faces),
+                  3: (sc.vertices_t0, sc.vertices_t1, sc.edges, sc.faces)}
+        return frames, f"cloth_on_sphere(210, 4, drop=0.25), the cell unavailable: {exc}"
+
+
+def pairs_bound(torch, pairs, is_vf, checks, in_bytes, f64):
+    """The bound of kernel B's pairs source solving every row of ``pairs``
+    with ``checks`` domain evaluations: each row's two ids and each table
+    row the rows reference read once (as :func:`pack_bound` counts them), no
+    column written or read, OPS_PER_PACKED_ROW operations a row at the
+    tables' rate and OPS_PER_CHECK an evaluation at the rows' rate."""
+    if is_vf:
+        table_scalars = (6 * torch.unique(pairs[:, 0]).numel()
+                         + 18 * torch.unique(pairs[:, 1]).numel())
+    else:
+        table_scalars = 12 * torch.unique(pairs).numel()
+    rows = pairs.shape[0]
+    # operations in f32 units: the f64 rate is half the f32 rate
+    ops = rows * OPS_PER_PACKED_ROW * (in_bytes // 4) + checks * OPS_PER_CHECK * (2 if f64 else 1)
+    return bound(rows * PAIR_BYTES + table_scalars * in_bytes, ops)
+
+
+def phase_chunk_solve(torch, dev):
+    """Phase 18 (module docstring): each broad chunk of the IPC cell's
+    frames 0 and 3 as ``ccd()`` solves it, one pairs-source launch, against
+    the per-batch path it replaces, kernel C and the columns source per
+    batch, in f32, f64 and compensated rows, in device ms behind a GPU sleep
+    and, on frame 0, in host ms with the per-batch path's read a batch; the
+    plain twin on frame 0's last VF and EE chunks.  Returns the kernels rows'
+    fields of ``solve_pairs[bounded]`` per row type."""
+    from scalable_ccd_tpu_torch.broad_phase import merge_two_lists, sort_boxes
+    from scalable_ccd_tpu_torch.geometry import (
+        build_edge_boxes,
+        build_face_boxes,
+        build_vertex_boxes,
+    )
+    from scalable_ccd_tpu_torch.ops import _build, solver
+    from scalable_ccd_tpu_torch.ops.gather_pack import gather_pack_reference
+    from scalable_ccd_tpu_torch.pipeline.ccd import sweep_chunks
+    from scalable_ccd_tpu_torch.pipeline.fused import NarrowSolver, mesh_tensors
+
+    t_phase = time.perf_counter()
+    seed = 2718281828
+    frames, source = ipc_cell_frames(seed)
+    ms, cap, tol = (IPC_CALL[k] for k in ("min_distance", "max_iterations", "tolerance"))
+    batch = 1 << 17
+    rows = []
+    kernel_rows = {p: {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0, **bound(0, 0)}
+                   for p in CHUNK_PRECISIONS}
+    for frame, (hv0, hv1, he, hf) in frames.items():
+        v0, v1, e, f = mesh_tensors(hv0, hv1, he, hf, dev, False)
+        vb = build_vertex_boxes(v0, v1, inflation_radius=ms)
+        for is_vf, boxes in ((True, merge_two_lists(vb, build_face_boxes(vb, f))),
+                             (False, build_edge_boxes(vb, e))):
+            # every row type solves the f32 boxes' candidates
+            nars = {p: NarrowSolver.for_phase(is_vf, v0, v1, e, f, ms, tol, True, cap,
+                                              dtype=getattr(torch, dt), compensated=comp)
+                    for p, (dt, comp) in CHUNK_PRECISIONS.items()}
+            chunks = list(sweep_chunks(sort_boxes(boxes), is_vf, 1 << 15, 1 << 20))
+            for k, (pairs, count) in enumerate(chunks):
+                if count == 0:
+                    continue
+                last = k == len(chunks) - 1
+                for prec, nar in nars.items():
+                    one = torch.ones((), dtype=torch.float32, device=dev)
+
+                    def per_batch(seed_toi, nar=nar, pairs=pairs, count=count):
+                        toi, outs = seed_toi, []
+                        for s in range(0, count, batch):
+                            cols = nar.pack(pairs, s, min(s + batch, count))
+                            valid = torch.ones((cols.shape[1],), dtype=torch.bool, device=dev)
+                            outs.append(nar.solve_rows(cols, valid, toi, max_iterations=cap,
+                                                       skip_if_done=True))
+                            toi = outs[-1][0]
+                        return (toi, torch.stack([o[1] for o in outs]).any(),
+                                torch.stack([o[2] for o in outs]).sum())
+
+                    def per_batch_read(nar=nar, pairs=pairs, count=count):
+                        # the per-batch path with its host read a batch and
+                        # the seed uploaded from the host float
+                        toi = 1.0
+                        for s in range(0, count, batch):
+                            if toi <= 0:
+                                break
+                            cols = nar.pack(pairs, s, min(s + batch, count))
+                            valid = torch.ones((cols.shape[1],), dtype=torch.bool, device=dev)
+                            out = nar.solve_rows(cols, valid, toi, max_iterations=cap)
+                            toi = torch.stack([out[0].double(), out[1].double(),
+                                               out[2].double()]).tolist()[0]
+                        return toi
+
+                    def chunk(seed_toi, nar=nar, pairs=pairs, count=count):
+                        return nar.solve_pairs(pairs, 0, count, seed_toi, batch)
+
+                    def chunk_read(nar=nar, pairs=pairs, count=count):
+                        out = nar.solve_pairs(pairs, 0, count, one, batch)
+                        return torch.stack([out[0].double(), out[1].double(),
+                                            out[2].double()]).tolist()[0]
+
+                    label = f"chunk solve {prec} frame {frame} {'vf' if is_vf else 'ee'} chunk {k}"
+                    a, b = per_batch(one), chunk(one)
+                    torch.cuda.synchronize()
+                    check(float(a[0]) == float(b[0]) and bool(a[1]) == bool(b[1]),
+                          f"{label}: toi {float(b[0])!r} overflow {bool(b[1])} against the "
+                          f"per-batch {float(a[0])!r} {bool(a[1])}")
+                    # seeded with the answer, no query lowers the running TOI:
+                    # the checks are each query's own, whatever the launches' order
+                    final = a[0].clone()
+                    a2, b2 = per_batch(final), chunk(final)
+                    torch.cuda.synchronize()
+                    check(float(a2[0]) == float(b2[0]) and int(a2[2]) == int(b2[2]),
+                          f"{label} seeded: checks {int(b2[2])} against the per-batch "
+                          f"{int(a2[2])}")
+                    reps = 3 if frame == 0 else 1
+                    row = dict(
+                        precision=prec, frame=frame, pairing="vf" if is_vf else "ee", chunk=k,
+                        candidates=count, batches=-(-count // batch), toi=float(b[0]),
+                        overflow=bool(b[1]), checks=int(b[2]), per_batch_checks=int(a[2]),
+                        seeded_checks=int(b2[2]),
+                        per_batch_ms=device_ms(lambda: per_batch(one), reps),
+                        one_launch_ms=device_ms(lambda: chunk(one), reps))
+                    if frame == 0:
+                        row["per_batch_wall_ms"] = wall_ms(per_batch_read, 3)[0]
+                        row["one_launch_wall_ms"] = wall_ms(chunk_read, 3)[0]
+                    if frame == 0 and last:
+                        # the plain twin, seeded with the chunk's TOI (its
+                        # least checks); rows as the kernel's batches hold them
+                        def plain(nar=nar, pairs=pairs, count=count, toi=final):
+                            c = 0
+                            for s in range(0, count, batch):
+                                t = min(s + batch, count)
+                                cols = gather_pack_reference(pairs, s, t, nar.vcat, nar.table,
+                                                             is_vf, ms, tol, nar.compensated)
+                                toi, _, ck = solver.solve_packed_reference(
+                                    cols.t(), torch.ones((t - s,), dtype=torch.bool,
+                                                         device=dev),
+                                    is_vf, toi, tol, True, max_iterations=cap,
+                                    widened=nar.compensated)
+                                c += int(ck)
+                            return toi, c
+
+                        tp, cp = plain()
+                        err = abs(float(tp) - float(b2[0]))
+                        check(err == 0.0 and cp == int(b2[2]),
+                              f"{label}: plain twin toi {float(tp)!r}, {cp} checks against "
+                              f"{float(b2[0])!r}, {int(b2[2])}")
+                        kms = device_ms(lambda: chunk(final), 3)
+                        pms = cuda_ms(plain, 1)
+                        kr = kernel_rows[prec]
+                        kr.update(add_bounds(kr, pairs_bound(
+                            torch, pairs[:count], is_vf, int(b2[2]),
+                            nar.vcat.element_size(), nar.row_dtype == torch.float64)))
+                        kr["ms"] += kms
+                        kr["plain_ms"] += pms
+                        kr["max_abs_err"] = max(kr["max_abs_err"], err)
+                        row.update(plain_checks=cp, kernel_seeded_ms=kms, plain_ms=pms)
+                    rows.append(row)
+                    emit(phase="chunk_solve_chunk", **row)
+            del chunks
+    log = _build.build_library("solver").with_suffix(".log").read_text()
+    totals = {f"{p}_frame{fr}_{key}": sum(r[key] for r in rows
+                                          if r["frame"] == fr and r["precision"] == p)
+              for p in CHUNK_PRECISIONS for fr in frames
+              for key in ("per_batch_ms", "one_launch_ms", "batches")}
+    for p in CHUNK_PRECISIONS:
+        for key in ("per_batch_wall_ms", "one_launch_wall_ms"):
+            totals[f"{p}_frame0_{key}"] = sum(r[key] for r in rows
+                                              if r["frame"] == 0 and r["precision"] == p)
+    emit(phase="chunk_solve", frames_from=source, seed=seed, chunks=len(rows), equal=True,
+         **totals, seconds=time.perf_counter() - t_phase,
+         ptxas={k: v for k, v in ptxas_by_instantiation(log).items() if "one_thread" in k})
+    return {p: {**kr, "frame0_one_launch_ms": totals[f"{p}_frame0_one_launch_ms"],
+                "frame0_per_batch_ms": totals[f"{p}_frame0_per_batch_ms"]}
+            for p, kr in kernel_rows.items()}
 
 
 # ---- 16. the multi-device path ------------------------------------------------------
@@ -2776,4 +3029,4 @@ def phase_multi_device(torch, dev, bench_scene, grid600_scene, mid_scene, smi):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(chunk_solve_only=sys.argv[1:] == ["--chunk-solve"]))

@@ -100,6 +100,7 @@ class CCDConfig:
 
     #: TOI warm-start batch per broad chunk: "auto" (below 2^20 boxes per
     #: phase, as in the JAX package), True or False; off under collisions
+    #: and for a chunk of a global bounded solve, which is one launch
     presample: object = "auto"
 
     #: the JAX package's choice between its own sweeps; the port has one

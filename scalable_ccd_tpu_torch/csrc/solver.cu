@@ -45,7 +45,18 @@
 //    - the search loop is flat: an iteration runs one round of every busy
 //      lane's search, then the idle lanes refill, so no lane waits at the
 //      end of another's search.  A lane keeps its query's row in registers
-//      (the staged slot is refilled while the query runs).
+//      (the staged slot is refilled while the query runs);
+//    - a row source fills the staged slots (template Source): the columns
+//      source copies kernel C's packed columns; the pairs source
+//      (sccd_solve_pairs, global bounded mode) reads the query's element-id
+//      pair and computes its row in the lane with kernel C's own pack_row
+//      (csrc/pack_row.cuh), bit for bit kernel C's row.  With no column
+//      buffer, whose size grows with the rows it holds, one launch can
+//      solve a whole broad chunk of ccd() (pipeline/ccd.py: 0.36-2 M
+//      candidates, 45-260 MB of columns) where columns allowed one 2^17-row
+//      batch at a time, each with its own launch and host read.  The gather
+//      (about 400 operations and two table rows from L2 a row) is paid once
+//      a query, against a search of ten and more evaluations.
 //    Each query's search is the form's as before: the same order, round
 //    count, cap and guard, and its unfin byte and checks are written by
 //    query index.  Eight lanes per query measured 10-40% slower in these
@@ -183,6 +194,8 @@
 #include <cmath>
 #include <cstdint>
 
+#include "pack_row.cuh"
+
 namespace {
 
 // stack levels (4-bit nibbles, eight per 32-bit word)
@@ -288,6 +301,54 @@ struct Stage {
   T v[kRowWidth][32];
   T rcp[3][32];
   int flags[32];
+};
+
+// Form 1's row sources: stage<IS_VF>(st, lane, q) writes the 31 fields of
+// query q into slot `lane` of the warp's Stage and returns whether the row
+// is valid.
+//
+// The columns source: a column buffer (kernel C's, or a slice of one) and
+// the caller's valid mask.
+template <typename T>
+struct ColumnRows {
+  const T* cols;  // field k of query q at cols[k * ld + q]
+  long long ld;
+  const unsigned char* valid;
+  template <bool IS_VF>
+  __device__ __forceinline__ bool stage(Stage<T>& st, int lane, long long q) const {
+    const T* src = cols + q;
+#pragma unroll
+    for (int k = 0; k < kRowWidth; ++k) st.v[k][lane] = src[(size_t)k * ld];
+    return valid[q] != 0;
+  }
+};
+
+// pack_row's sink into a staged slot, widened to the rows' type T
+template <typename T>
+struct StageSink {
+  Stage<T>& st;
+  int lane;
+  template <typename C>
+  __device__ __forceinline__ void operator()(int k, C v) const {
+    st.v[k][lane] = (T)v;
+  }
+};
+
+// The pairs source: query q is the element-id pair pairs[start + q], its
+// row computed here by kernel C's pack_row (csrc/pack_row.cuh) in the
+// compute type C (float for the widened rows of T = double); every row is
+// valid.
+template <typename T, typename C>
+struct PairRows {
+  const int2* pairs;
+  long long start;
+  PackTables<C> tables;
+  template <bool IS_VF>
+  __device__ __forceinline__ bool stage(Stage<T>& st, int lane, long long q) const {
+    const int2 ab = __ldg(pairs + start + q);
+    pack_row<C, IS_VF>(ab.x, ab.y, tables, StageSink<T>{st, lane});
+    return true;
+  }
 };
 
 // A query's 24 point coordinates, field 3k + d, read from the block's rows
@@ -815,12 +876,11 @@ __global__ void __launch_bounds__(kShareThreads)
 }
 
 // Form 1: the bounded and round-limited modes, one lane per query on a
-// persistent grid (the design note above).  `cursor` is zero at launch.
-template <typename T, bool IS_VF, bool PER_QUERY>
+// persistent grid (the design note above), its rows from `src` (a row
+// source above).  `cursor` is zero at launch.
+template <typename T, bool IS_VF, bool PER_QUERY, typename Source>
 __global__ void __launch_bounds__(kLaneThreads)
-    solve_lane_kernel(const T* __restrict__ cols, long long ld,
-                      const T* __restrict__ skip_seed,
-                      const unsigned char* __restrict__ valid, int Q, T co_tol,
+    solve_lane_kernel(Source src, const T* __restrict__ skip_seed, int Q, T co_tol,
                       T uv_limit, unsigned dim_cap, bool allow_zero,
                       long long max_iterations, long long round_limit,
                       long long max_steps, T* toi, T* __restrict__ pq_out,
@@ -884,14 +944,12 @@ __global__ void __launch_bounds__(kLaneThreads)
         staged = min(32, Q - (int)b);
         next = 0;
         if (lane < staged) {
-          const T* src = cols + sbase + lane;
-#pragma unroll
-          for (int k = 0; k < kRowWidth; ++k) st.v[k][lane] = src[(size_t)k * ld];
+          const bool ok = src.template stage<IS_VF>(st, lane, sbase + lane);
           T r[3];
           const bool exact = reciprocals(st.v[24][lane], st.v[25][lane], st.v[26][lane], r);
 #pragma unroll
           for (int d = 0; d < 3; ++d) st.rcp[d][lane] = r[d];
-          st.flags[lane] = (exact ? 1 : 0) | (valid[sbase + lane] ? 2 : 0);
+          st.flags[lane] = (exact ? 1 : 0) | (ok ? 2 : 0);
         }
         __syncwarp();
       }
@@ -1071,29 +1129,29 @@ int launch_shared(const Args& a) {
 
 // form 1's blocks for Q queries: as many as stay resident on the device, and
 // no more than give every warp 32 queries; 0 if none fits
-template <typename T, bool IS_VF, bool PER_QUERY>
+template <typename T, bool IS_VF, bool PER_QUERY, typename Source = ColumnRows<T>>
 int lane_grid(int Q, int* per_sm_out) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, solve_lane_kernel<T, IS_VF, PER_QUERY>, kLaneThreads, 0);
+      &per_sm, solve_lane_kernel<T, IS_VF, PER_QUERY, Source>, kLaneThreads, 0);
   if (per_sm_out != nullptr) *per_sm_out = per_sm;
   const long long full = (long long)sms * per_sm;
   const long long need = ((long long)Q + kLaneThreads - 1) / kLaneThreads;
   return (int)(need < full ? need : full);
 }
 
-template <typename T, bool IS_VF, bool PER_QUERY>
-int launch_lanes(const Args& a) {
-  const int blocks = lane_grid<T, IS_VF, PER_QUERY>(a.Q, nullptr);
+template <typename T, bool IS_VF, bool PER_QUERY, typename Source>
+int launch_lanes(const Args& a, const Source& src) {
+  const int blocks = lane_grid<T, IS_VF, PER_QUERY, Source>(a.Q, nullptr);
   if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
   void* cursor = nullptr;
   cudaError_t err = cudaGetSymbolAddress(&cursor, g_cursor);
   if (err == cudaSuccess) err = cudaMemsetAsync(cursor, 0, sizeof(g_cursor), a.stream);
   if (err != cudaSuccess) return (int)err;
-  solve_lane_kernel<T, IS_VF, PER_QUERY><<<blocks, kLaneThreads, 0, a.stream>>>(
-      (const T*)a.cols, a.ld, (const T*)a.skip_seed, (const unsigned char*)a.valid, a.Q,
+  solve_lane_kernel<T, IS_VF, PER_QUERY, Source><<<blocks, kLaneThreads, 0, a.stream>>>(
+      src, (const T*)a.skip_seed, a.Q,
       (T)a.co_tol, (T)a.uv_limit, (unsigned)a.dim_cap, a.allow_zero != 0, a.max_iterations,
       a.round_limit, a.max_steps, (T*)a.toi, (T*)a.pq, (unsigned char*)a.unfin,
       (unsigned long long*)a.checks, (int*)a.ovf, (long long*)a.qchecks,
@@ -1103,7 +1161,9 @@ int launch_lanes(const Args& a) {
 
 template <typename T, bool IS_VF, bool PER_QUERY>
 int launch_form(int share, const Args& a) {
-  return share ? launch_shared<T, IS_VF, PER_QUERY>(a) : launch_lanes<T, IS_VF, PER_QUERY>(a);
+  if (share) return launch_shared<T, IS_VF, PER_QUERY>(a);
+  return launch_lanes<T, IS_VF, PER_QUERY>(
+      a, ColumnRows<T>{(const T*)a.cols, a.ld, (const unsigned char*)a.valid});
 }
 
 template <typename T>
@@ -1111,6 +1171,25 @@ int launch_mode(int is_vf, int per_query, int share, const Args& a) {
   if (is_vf)
     return per_query ? launch_form<T, true, true>(share, a) : launch_form<T, true, false>(share, a);
   return per_query ? launch_form<T, false, true>(share, a) : launch_form<T, false, false>(share, a);
+}
+
+// the pairs source's launch: rows of type T computed in type C, global mode
+template <typename T, typename C>
+int launch_pairs(int is_vf, const Args& a, const void* pairs, long long start,
+                 const PackTables<C>& tables) {
+  const PairRows<T, C> src{(const int2*)pairs, start, tables};
+  return is_vf ? launch_lanes<T, true, false>(a, src) : launch_lanes<T, false, false>(a, src);
+}
+
+// the runaway guard of a launch (the design note): kMaxSteps, raised past a
+// cap's last evaluation and past a round limit
+long long guard_steps(long long max_iterations, long long round_limit) {
+  long long max_steps = kMaxSteps;
+  if (max_iterations >= 0 && max_iterations + 2 * kMaxDepth + 2 > max_steps)
+    max_steps = max_iterations + 2 * kMaxDepth + 2;
+  if (round_limit >= 0 && round_limit + 1 > max_steps)
+    max_steps = round_limit + 1;
+  return max_steps;
 }
 
 }  // namespace
@@ -1146,16 +1225,52 @@ extern "C" int sccd_solve_packed(const void* cols, long long ld,
     return (int)cudaErrorInvalidValue;
   if (dim_cap < 1 || dim_cap > 255 || ld < Q) return (int)cudaErrorInvalidValue;
   const int share = max_iterations < 0 && round_limit < 0;
-  long long max_steps = kMaxSteps;
-  if (max_iterations >= 0 && max_iterations + 2 * kMaxDepth + 2 > max_steps)
-    max_steps = max_iterations + 2 * kMaxDepth + 2;
-  if (round_limit >= 0 && round_limit + 1 > max_steps)
-    max_steps = round_limit + 1;
   const Args a{(cudaStream_t)stream, cols, ld, skip_seed, valid, Q, co_tol, uv_limit,
-               dim_cap, allow_zero_toi, max_iterations, round_limit, max_steps, toi,
-               per_query_toi, unfin, checks, overflow, query_checks};
+               dim_cap, allow_zero_toi, max_iterations, round_limit,
+               guard_steps(max_iterations, round_limit), toi, per_query_toi, unfin, checks,
+               overflow, query_checks};
   return is_f64 ? launch_mode<double>(is_vf, per_query, share, a)
                 : launch_mode<float>(is_vf, per_query, share, a);
+}
+
+// The pairs source (form 1, global bounded mode): query q is the element-id
+// pair pairs[start + q], q < Q, its row computed in the kernel as kernel C
+// computes it (csrc/gather_pack.cu's sccd_gather_pack takes the same pairs,
+// tables, kind, ms, co_tol and k_eps), so that no column buffer exists and
+// one launch can solve a whole broad chunk.  pairs: int32 (N, 2), 8-byte
+// aligned; vcat (nv, 6) and table ((nt, 18) faces when is_vf, (nt, 12)
+// edges) in the compute type, 16-byte aligned.  kind: 0 float rows, 1
+// double rows, 2 widened rows (float compute, double rows and TOI, f32's
+// split cap in dim_cap).  co_tol is the co-domain tolerance in the compute
+// type, for the rows and the solve alike.  max_iterations >= 0.  The rest
+// as for sccd_solve_packed; every row is valid.
+extern "C" int sccd_solve_pairs(const void* pairs, long long start, int Q, const void* vcat,
+                                int nv, const void* table, int nt, int is_vf, int kind,
+                                double ms, double co_tol, double k_eps,
+                                const void* skip_seed, int allow_zero_toi, int dim_cap,
+                                long long max_iterations, double uv_limit, void* toi,
+                                void* checks, void* overflow, void* query_checks,
+                                void* stream) {
+  if (Q < 0 || start < 0 || kind < 0 || kind > 2 || nv < 1 || nt < 1 ||
+      max_iterations < 0 || dim_cap < 1 || dim_cap > 255)
+    return (int)cudaErrorInvalidValue;
+  if (Q == 0) return 0;
+  const Args a{(cudaStream_t)stream, nullptr, 0, skip_seed, nullptr, Q, co_tol, uv_limit,
+               dim_cap, allow_zero_toi, max_iterations, -1, guard_steps(max_iterations, -1),
+               toi, nullptr, nullptr, checks, overflow, query_checks};
+  if (kind == 0) {
+    const PackTables<float> t{(const float*)vcat, nv, (const float*)table, nt, (float)ms,
+                              (float)co_tol, (float)k_eps};
+    return launch_pairs<float, float>(is_vf, a, pairs, start, t);
+  }
+  if (kind == 1) {
+    const PackTables<double> t{(const double*)vcat, nv, (const double*)table, nt, ms, co_tol,
+                               k_eps};
+    return launch_pairs<double, double>(is_vf, a, pairs, start, t);
+  }
+  const PackTables<float> t{(const float*)vcat, nv, (const float*)table, nt, (float)ms,
+                            (float)co_tol, (float)k_eps};
+  return launch_pairs<double, float>(is_vf, a, pairs, start, t);
 }
 
 // The grid form 1 takes for Q queries (for reports): its 128-thread blocks,

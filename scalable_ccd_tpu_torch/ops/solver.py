@@ -40,6 +40,11 @@ ops.gather_pack`, or a slice of a wider column buffer, read in place);
 CUDA tensors and the plain version on CPU tensors; any other device raises.
 Nothing falls back.  ``skip_if_done`` is the narrow loop's exit on the
 device: a launch seeded with a running TOI of 0 or less does nothing.
+
+:func:`solve_pairs` takes no rows at all: the candidate pairs and the
+phase's tables, each row computed inside kernel B as kernel C computes it
+(its pairs source), for a global bounded solve of a whole broad chunk in one
+launch with no column buffer.
 """
 
 from __future__ import annotations
@@ -69,6 +74,7 @@ __all__ = [
     "solve_escalated",
     "solve_escalated_cols",
     "solve_unfinished_cols",
+    "solve_pairs",
     "normalize_round_limits",
     "LAUNCHES_BY_MODE",
     "MAX_STEPS",
@@ -76,12 +82,18 @@ __all__ = [
     "ROW_WIDTH",
 ]
 
-#: kernel launches made by :func:`solve_packed` in this process, by mode:
-#: "global" (neither per-query, bounded nor round-limited), "per_query",
-#: "bounded" and "round_limit"; a per-query bounded launch counts in both;
-#: by scalar type as
+#: kernel launches made by :func:`solve_packed` and :func:`solve_pairs` in
+#: this process, by mode: "global" (neither per-query, bounded nor
+#: round-limited), "per_query", "bounded", "round_limit" and "pairs" (the
+#: pairs source, :func:`solve_pairs`, whose launches are bounded too); a
+#: launch counts in each of its modes; by scalar type as
 #: :func:`scalable_ccd_tpu_torch.ops._build.launch_counts` lays out
-LAUNCHES_BY_MODE = launch_counts("solver", "global", "per_query", "bounded", "round_limit")
+LAUNCHES_BY_MODE = launch_counts("solver", "global", "per_query", "bounded", "round_limit",
+                                 "pairs")
+
+#: rows per batch of :func:`solve_pairs`'s plain twin (``MemoryConfig.
+#: query_buckets[-1]``, ``ccd()``'s narrow batch), which bounds its memory
+PAIRS_BATCH = 1 << 17
 
 #: rows per pool block of the escalation glue (the JAX package's solver
 #: block, ``SOLVER_BLOCK_SUB * 128``)
@@ -138,6 +150,19 @@ def _bind(lib):
     fn.restype = ctypes.c_int
     lib.sccd_solver_error_string.argtypes = [ctypes.c_int]
     lib.sccd_solver_error_string.restype = ctypes.c_char_p
+    return fn
+
+
+def _bind_pairs(lib):
+    fn = lib.sccd_solve_pairs
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_double, ctypes.c_double, ctypes.c_double,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_double,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
     return fn
 
 
@@ -352,6 +377,98 @@ def _launch(cols, valid, is_vf, toi_init, tolerance, allow_zero_toi, per_query,
     elif unfin is not None:
         out += (unfin,)
     return out, plane
+
+
+def solve_pairs(pairs, start: int, stop: int, vcat, table, is_vf: bool, toi_init, ms,
+                tolerance, allow_zero_toi: bool = True, max_iterations: int = 1_000_000,
+                compensated: bool = False, skip_if_done: bool = False,
+                batch: int = PAIRS_BATCH):
+    """Global bounded solve of the candidate pairs ``pairs[start:stop]``
+    with no packed rows: returns 0-d ``(toi, overflow, checks)`` as
+    :func:`solve_packed` does, ``toi`` in the rows' dtype
+    (:func:`scalable_ccd_tpu_torch.ops.gather_pack.row_dtype`).
+
+    ``pairs``, ``vcat``, ``table``, ``is_vf``, ``ms``, ``tolerance`` and
+    ``compensated`` are :func:`scalable_ccd_tpu_torch.ops.gather_pack.
+    gather_pack`'s; ``toi_init``, ``allow_zero_toi``, ``max_iterations``
+    (``>= 0``) and ``skip_if_done`` are :func:`solve_cols`'s.  On CUDA it is
+    one launch of kernel B's one-thread form whose lanes compute each row
+    from its pair as kernel C does, bit for bit, so that no column buffer
+    exists and a broad chunk of any size is one launch.  Its plain twin, on
+    CPU tensors, packs and solves batches of at most ``batch`` rows in turn
+    (:func:`~scalable_ccd_tpu_torch.ops.gather_pack.gather_pack_reference`
+    and :func:`solve_packed_reference`), each seeded with the TOI before it,
+    so that its memory stays bounded: the global TOI is a minimum over the
+    queries, and how they are split into launches changes only the checks
+    (where a cap binds, the result depends on the order, module
+    docstring)."""
+    if max_iterations < 0:
+        raise ValueError("solve_pairs: a bounded solve (max_iterations >= 0)")
+    start, stop = int(start), int(stop)
+    if pairs.device.type == "cpu":
+        from scalable_ccd_tpu_torch.ops.gather_pack import gather_pack_reference
+
+        toi = torch.as_tensor(toi_init, dtype=torch.float64 if compensated else vcat.dtype)
+        toi = toi.reshape(()).clone()
+        ovf = torch.zeros((), dtype=torch.bool)
+        checks = torch.zeros((), dtype=torch.int64)
+        for s in range(start, stop, int(batch)):
+            e = min(s + int(batch), stop)
+            cols = gather_pack_reference(pairs, s, e, vcat, table, is_vf, ms, tolerance,
+                                         compensated)
+            toi, o, c = solve_packed_reference(
+                cols.t(), torch.ones((e - s,), dtype=torch.bool), is_vf, toi, tolerance,
+                allow_zero_toi, max_iterations=max_iterations, widened=compensated,
+                skip_if_done=skip_if_done)
+            ovf, checks = ovf | o, checks + c
+        return toi, ovf, checks
+    return _launch_pairs(pairs, start, stop, vcat, table, is_vf, toi_init, ms, tolerance,
+                         allow_zero_toi, max_iterations, compensated, skip_if_done)
+
+
+def _launch_pairs(pairs, start, stop, vcat, table, is_vf, toi_init, ms, tolerance,
+                  allow_zero_toi, max_iterations, compensated, skip_if_done):
+    """Kernel B's pairs source on CUDA tensors (:func:`solve_pairs`)."""
+    from scalable_ccd_tpu_torch.ops import gather_pack as gp
+
+    dev = pairs.device
+    dt = gp._tables("solve_pairs", dev, vcat, table, is_vf, compensated)
+    if pairs.dtype != torch.int32 or pairs.dim() != 2 or pairs.shape[1] != 2:
+        raise ValueError(f"solve_pairs: pairs int32 (N, 2) expected, got {pairs.dtype} "
+                         f"{tuple(pairs.shape)}")
+    if not pairs.is_contiguous() or pairs.data_ptr() % 8:
+        raise ValueError("solve_pairs: pairs must be contiguous and 8-byte aligned")
+    if not 0 <= start <= stop <= pairs.shape[0]:
+        raise ValueError(f"solve_pairs: rows [{start}, {stop}) outside the {pairs.shape[0]} "
+                         "pairs")
+    Q = stop - start
+    if Q >= 2**31:
+        raise ValueError(f"solve_pairs: {Q} rows exceed the kernel's index range")
+    rdt = gp.row_dtype(dt, compensated)
+    f64 = rdt == torch.float64
+    caps = search_caps(rdt, compensated)
+    # the running TOI before this launch; + 0.0 turns a -0.0 seed into +0.0
+    seed = torch.as_tensor(toi_init, dtype=rdt, device=dev).reshape(1)
+    toi = seed + 0.0
+    checks = torch.zeros((1,), dtype=torch.int64, device=dev)
+    ovf = torch.zeros((1,), dtype=torch.int32, device=dev)
+    if Q > 0:
+        kind, ms_t, co_tol, k_eps = gp._scalars(dt, is_vf, ms, tolerance, compensated)
+        lib = load_library("solver")
+        _bind(lib)  # the error strings' types
+        fn = _bind_pairs(lib)
+        with torch.cuda.device(dev):
+            rc = fn(pairs.data_ptr(), start, Q, vcat.data_ptr(), vcat.shape[0],
+                    table.data_ptr(), table.shape[0], int(bool(is_vf)), kind, ms_t, co_tol,
+                    k_eps, seed.data_ptr() if skip_if_done else None,
+                    int(bool(allow_zero_toi)), caps.dim_cap, int(max_iterations),
+                    caps.uv_limit, toi.data_ptr(), checks.data_ptr(), ovf.data_ptr(), None,
+                    torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            msg = lib.sccd_solver_error_string(rc).decode()
+            raise RuntimeError(f"solver kernel launch failed: {msg}")
+        count_launch(LAUNCHES_BY_MODE, ["bounded", "pairs"], f64)
+    return toi[0], ovf[0] != 0, checks[0]
 
 
 def _solve_query_checks(qrows, valid, is_vf, toi_init, tolerance, allow_zero_toi=True,

@@ -144,6 +144,7 @@ from scalable_ccd_tpu_torch.ops.solver import (
     ROW_WIDTH,
     solve_cols,
     solve_escalated_cols,
+    solve_pairs,
     solve_unfinished_cols,
 )
 from scalable_ccd_tpu_torch.ops.sweep_ap import partner_planes, sweep_pairs
@@ -432,6 +433,18 @@ class NarrowSolver(NamedTuple):
         return self._narrowed(solve_cols(
             cols, valid, self.is_vf, toi, self.tolerance, zero_ok,
             widened=self.compensated, **modes))
+
+    def solve_pairs(self, pairs, start, stop, toi, batch: int):
+        """A global bounded solve of the element-id pairs ``pairs[start:stop]``
+        with the phase's options, seeded with ``toi``, skipped once ``toi``
+        is 0: one kernel B launch whose lanes compute each row themselves,
+        with no columns (:func:`scalable_ccd_tpu_torch.ops.solver.
+        solve_pairs`; its plain twin in batches of ``batch`` rows); the
+        outputs of :func:`solve_cols`."""
+        return self._narrowed(solve_pairs(
+            pairs, start, stop, self.vcat, self.table, self.is_vf, toi, self.ms,
+            self.tolerance, self.allow_zero_toi, self.max_iterations, self.compensated,
+            skip_if_done=True, batch=batch))
 
     def solve(self, pairs, toi, per_query=False, exact=False, skip_if_done=False):
         """:meth:`solve_batch` of ``(P, 2)`` element-id pairs, packed first

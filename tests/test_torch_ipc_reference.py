@@ -125,12 +125,18 @@ def test_the_control_is_found_wrong(touching):
 
 def test_the_separation_dropped_from_the_rows_is_found_wrong(touching_at_256, touching,
                                                              monkeypatch):
-    real = port_fused.gather_pack
+    # the program's rows: kernel C's (the re-solves) and those kernel B's
+    # pairs source computes (the chunks' bounded solves)
+    pack, solve = port_fused.gather_pack, port_fused.solve_pairs
 
-    def without_ms(pairs, start, stop, vcat, table, is_vf, ms, *args, **kw):
-        return real(pairs, start, stop, vcat, table, is_vf, 0.0, *args, **kw)
+    def pack_without_ms(pairs, start, stop, vcat, table, is_vf, ms, *args, **kw):
+        return pack(pairs, start, stop, vcat, table, is_vf, 0.0, *args, **kw)
 
-    monkeypatch.setattr(port_fused, "gather_pack", without_ms)
+    def solve_without_ms(pairs, start, stop, vcat, table, is_vf, toi, ms, *args, **kw):
+        return solve(pairs, start, stop, vcat, table, is_vf, toi, 0.0, *args, **kw)
+
+    monkeypatch.setattr(port_fused, "gather_pack", pack_without_ms)
+    monkeypatch.setattr(port_fused, "solve_pairs", solve_without_ms)
     got = _program(touching, 256)
     assert not _correct([got], [touching_at_256[1]])
 

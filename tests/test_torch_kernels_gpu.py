@@ -1030,14 +1030,15 @@ def _same_bits(a, b):
 def test_gather_pack_kernel_equals_plain_bitwise(cuda, is_vf, kind):
     """Every 16,384-row batch of the bench scene's candidates, read from the
     whole buffer at its offset, bitwise the plain version's columns; the
-    first batch also with a minimum separation."""
+    first batch also with a minimum separation; and the whole buffer in one
+    launch with it (kernel C's rows through the row function it shares with
+    kernel B's pairs source, ``csrc/pack_row.cuh``)."""
     dtype, comp = _C_KINDS[kind]
     pairs, n, vcat, table = _bench_candidates(cuda, dtype, is_vf)
     assert n > 16384
     before = dict(gp.LAUNCHES_BY_MODE)
     batches = 0
-    for start in range(0, n, 16384):
-        stop = min(start + 16384, n)
+    for start, stop in [(s, min(s + 16384, n)) for s in range(0, n, 16384)] + [(0, n)]:
         for ms in ((0.0, 1e-3) if start == 0 else (0.0,)):
             k = gp.gather_pack(pairs, start, stop, vcat, table, is_vf, ms, TOL, comp)
             torch.cuda.synchronize()
@@ -1049,6 +1050,80 @@ def test_gather_pack_kernel_equals_plain_bitwise(cuda, is_vf, kind):
     assert gp.LAUNCHES_BY_MODE[mode] == before[mode] + batches
     assert gp.LAUNCHES_BY_MODE["f64" if f64 else "f32"] == before["f64" if f64 else "f32"] + batches
     assert gp.LAUNCHES_BY_MODE["compensated"] == before["compensated"] + comp * batches
+
+
+# ---- kernel B's pairs source: each row computed in its lane ------------------
+
+def _pairs_equal_columns(pairs, start, stop, vcat, table, is_vf, ms, comp, seed, cap,
+                         checks=True):
+    """One pairs-source launch over ``pairs[start:stop]`` against kernel C's
+    columns of the same pairs through the columns source, both seeded with
+    ``seed`` and capped at ``cap``: the TOI and the overflow flag bit for
+    bit, and the checks where ``checks``.  Returns the pairs launch's
+    outputs."""
+    cols = gp.gather_pack(pairs, start, stop, vcat, table, is_vf, ms, TOL, comp)
+    valid = torch.ones((stop - start,), dtype=torch.bool, device=pairs.device)
+    k = solver.solve_pairs(pairs, start, stop, vcat, table, is_vf, seed, ms, TOL,
+                           max_iterations=cap, compensated=comp)
+    c = solver.solve_cols(cols, valid, is_vf, seed, TOL, max_iterations=cap, widened=comp)
+    torch.cuda.synchronize()
+    assert _same_bits(k[0].reshape(1), c[0].reshape(1)), (start, stop, cap, k[0], c[0])
+    assert bool(k[1]) == bool(c[1]), (start, stop, cap)
+    if checks:
+        assert int(k[2]) == int(c[2]) > 0, (start, stop, cap)
+    return k
+
+
+@pytest.mark.parametrize("ms", [0.0, 1e-3])
+@pytest.mark.parametrize("kind", sorted(_C_KINDS))
+@pytest.mark.parametrize("is_vf", [True, False])
+def test_solver_pairs_source_equals_columns_bitwise(cuda, is_vf, kind, ms):
+    """The bench scene's candidates in one pairs-source launch equal kernel
+    C plus the columns source: seeded with the unbounded TOI, which no query
+    then lowers, at caps 10, 100 and 10^6 (TOI, overflow and checks bit for
+    bit, whatever the order the lanes run in); seeded with 1 at the cap of
+    10^6, which these queries stay under, the same TOI and overflow.  Each
+    launch counts as bounded and pairs; a seed of 0 under ``skip_if_done``
+    evaluates nothing."""
+    dtype, comp = _C_KINDS[kind]
+    pairs, n, vcat, table = _bench_candidates(cuda, dtype, is_vf)
+    cols = gp.gather_pack(pairs, 0, n, vcat, table, is_vf, ms, TOL, comp)
+    final = solver.solve_cols(cols, torch.ones((n,), dtype=torch.bool, device=cuda), is_vf,
+                              1.0, TOL, widened=comp)[0]
+    before = dict(solver.LAUNCHES_BY_MODE)
+    for cap in (10, 100, 10**6):
+        _pairs_equal_columns(pairs, 0, n, vcat, table, is_vf, ms, comp, final, cap)
+    k = _pairs_equal_columns(pairs, 0, n, vcat, table, is_vf, ms, comp, 1.0, 10**6,
+                             checks=False)
+    # the unbounded TOI, unless a conservative accept moved it
+    assert bool(k[1]) or _same_bits(k[0].reshape(1), final.reshape(1))
+    f64 = dtype == torch.float64 or comp
+    assert solver.LAUNCHES_BY_MODE["pairs"] == before["pairs"] + 4
+    assert solver.LAUNCHES_BY_MODE["pairs_f64"] == before["pairs_f64"] + 4 * f64
+    z = solver.solve_pairs(pairs, 0, n, vcat, table, is_vf, 0.0, ms, TOL, compensated=comp,
+                           skip_if_done=True)
+    assert float(z[0]) == 0.0 and not bool(z[1]) and int(z[2]) == 0
+
+
+@pytest.mark.parametrize("q", [1, 31, 33, 4097])
+def test_solver_pairs_source_ragged_ranges(cuda, q):
+    """Pair ranges that start inside the buffer and fill no whole warp (or
+    leave a warp one query), and 4,097 rows: the columns source's TOI,
+    overflow and checks, seeded with the range's unbounded TOI at a cap of
+    10 and with 1 at 10^6; an empty range launches nothing."""
+    pairs, n, vcat, table = _bench_candidates(cuda, torch.float32, False)
+    start = 1000
+    cols = gp.gather_pack(pairs, start, start + q, vcat, table, False, 0.0, TOL)
+    final = solver.solve_cols(cols, torch.ones((q,), dtype=torch.bool, device=cuda), False,
+                              1.0, TOL)[0]
+    _pairs_equal_columns(pairs, start, start + q, vcat, table, False, 0.0, False, final, 10)
+    _pairs_equal_columns(pairs, start, start + q, vcat, table, False, 0.0, False, 1.0, 10**6,
+                         checks=False)
+    before = solver.LAUNCHES_BY_MODE.total
+    e = solver.solve_pairs(pairs, 7, 7, vcat, table, False, 0.5, 0.0, TOL)
+    assert float(e[0]) == 0.5 and int(e[2]) == 0 and solver.LAUNCHES_BY_MODE.total == before
+    with pytest.raises(ValueError, match="outside"):
+        solver.solve_pairs(pairs, n, pairs.shape[0] + 1, vcat, table, False, 1.0, 0.0, TOL)
 
 
 @pytest.mark.parametrize("is_vf", [True, False])

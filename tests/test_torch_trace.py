@@ -186,7 +186,7 @@ CCD_PARENTS = {
     "sccd.phase.vf": "sccd.ccd", "sccd.phase.ee": "sccd.ccd",
     "sccd.sweep": ("sccd.phase.vf", "sccd.phase.ee"),
     "sccd.narrow": ("sccd.phase.vf", "sccd.phase.ee"),
-    "sccd.presample": "sccd.narrow", "sccd.ipc_refine": "sccd.narrow",
+    "sccd.presample": ("sccd.narrow", "sccd.ipc_refine"), "sccd.ipc_refine": "sccd.narrow",
 }
 
 
@@ -207,18 +207,25 @@ def _touching_rig():
 def test_ipc_ccd_strategy_leaves_one_ccd_record(cloth, monkeypatch, scene):
     """A profiled ``ipc_ccd_strategy`` call (the chunked path) leaves one
     record of ``ccd()``, whose root opens before the upload and every other
-    span; its ``batches`` counter is the batches solved and its
-    ``ipc_refinements`` the call's own count: on the touching rig, and on
-    the cloth in batches of 64 candidates, where chunks of more than 256
-    start with a warm-start batch."""
+    span; its ``chunk_solves`` counter is the chunks solved in one launch
+    (one a ``sccd.narrow`` span), its ``batches`` counter the other solves
+    (the re-solve's batches) and its ``ipc_refinements`` the call's own
+    count: on the touching rig, and on the cloth in batches of 64
+    candidates, where a chunk solved in one launch takes no warm-start
+    batch (only a re-solved chunk of more than 256 does)."""
     solved = []
-    real = port_fused.NarrowSolver.solve
 
-    def counted(self, pairs, *a, **kw):
-        solved.append(pairs.shape[0])
-        return real(self, pairs, *a, **kw)
+    def counting(name):
+        real = getattr(port_fused.NarrowSolver, name)
 
-    monkeypatch.setattr(port_fused.NarrowSolver, "solve", counted)
+        def counted(self, pairs, *a, **kw):
+            solved.append(pairs.shape[0])
+            return real(self, pairs, *a, **kw)
+
+        monkeypatch.setattr(port_fused.NarrowSolver, name, counted)
+
+    counting("solve")
+    counting("solve_pairs")
     stats = CCDStats()
     if scene == "rig":
         args, kw = _touching_rig(), dict(min_distance=0.05)
@@ -235,13 +242,16 @@ def test_ipc_ccd_strategy_leaves_one_ccd_record(cloth, monkeypatch, scene):
     for s in rec.spans:
         want = CCD_PARENTS[s.name]
         assert s.parent in (want if isinstance(want, tuple) else (want,)), s
-    assert rec.counters["batches"] == len(solved) > 0
+    assert rec.counters.get("batches", 0) + rec.counters["chunk_solves"] == len(solved) > 0
+    assert rec.counters["chunk_solves"] == names.count("sccd.narrow")
     assert rec.counters.get("ipc_refinements", 0) == stats.ipc_refinements
     assert names.count("sccd.ipc_refine") == stats.ipc_refinements
     if scene == "rig":
         assert stats.ipc_refinements == 1 and toi == pytest.approx(0.8 / 3.0, rel=1e-3)
     else:
-        assert names.count("sccd.sweep") >= 4 and "sccd.presample" in names
+        assert names.count("sccd.sweep") >= 4 and rec.counters["chunk_solves"] >= 4
+        assert all(s.parent == "sccd.ipc_refine" for s in rec.spans
+                   if s.name == "sccd.presample")
 
 
 def test_profile_tree_of_fused_ccd(cloth):
