@@ -1407,11 +1407,14 @@ def phase_escalation(torch, dev, bench_rows, solver):
                 toi = torch.minimum(toi, fn(b, v, is_vf, toi, TOL)[0])
             return toi
 
-        ladder = float(cold(lambda *a: solver.solve_escalated(*a, round_limit=limit)))
+        def ladder_of(rows, *a):
+            return solver.solve_escalated_cols(rows.t().contiguous(), *a, round_limit=limit)
+
+        ladder = float(cold(ladder_of))
         check(ladder == final, f"round_limit {ph}: ladder toi {ladder} vs unbounded {final}")
         esc_ms, one_ms = alternate(
             lambda: cold(solver.solve_packed),
-            lambda: cold(lambda *a: solver.solve_escalated(*a, round_limit=limit)), 1)
+            lambda: cold(ladder_of), 1)
         kms_sum, pms_sum = kms_sum + kms, pms_sum + pms
         n_q = sum(b.shape[0] for b in batches)
         bnd = add_bounds(bnd, solve_bound(n_q, checks, n_q))
@@ -1568,7 +1571,7 @@ def phase_congested_main(torch, dev, grid600, bench_args, cloth_on_sphere, bench
     against the plain ordering without escalation and against escalation
     at 128 rounds, with the launch counters; records on both."""
     from scalable_ccd_tpu_torch import fused_ccd
-    from scalable_ccd_tpu_torch.pipeline.fused import Knobs, resolve_knobs
+    from scalable_ccd_tpu_torch.pipeline.policy import Knobs, resolve_knobs
 
     def same(a, b, label):
         err = abs(float(a.toi) - float(b.toi))
@@ -1760,7 +1763,7 @@ def phase_narrow_loop(torch, dev, bench_scene, grid600_scene):
     from scalable_ccd_tpu_torch.narrow_phase import types
     from scalable_ccd_tpu_torch.ops import gather_pack as gp
     from scalable_ccd_tpu_torch.ops import sweep_ap, sweep_records
-    from scalable_ccd_tpu_torch.pipeline.fused import sorted_phases
+    from scalable_ccd_tpu_torch.pipeline.policy import sorted_phases
     from scalable_ccd_tpu_torch.tools import stages
 
     t_phase = time.perf_counter()
@@ -2620,7 +2623,8 @@ def phase_chunk_solve(torch, dev):
     from scalable_ccd_tpu_torch.ops import _build, solver
     from scalable_ccd_tpu_torch.ops.gather_pack import gather_pack_reference
     from scalable_ccd_tpu_torch.pipeline.ccd import sweep_chunks
-    from scalable_ccd_tpu_torch.pipeline.fused import NarrowSolver, mesh_tensors
+    from scalable_ccd_tpu_torch.pipeline.narrow import NarrowSolver
+    from scalable_ccd_tpu_torch.pipeline.policy import mesh_tensors
 
     t_phase = time.perf_counter()
     seed = 2718281828

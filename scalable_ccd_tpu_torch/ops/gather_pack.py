@@ -28,7 +28,7 @@ as XLA code and not as a Pallas kernel.  The port gives it a kernel of its
 own, launched once per chunk of a phase's candidates: the narrow loop packs
 a phase in chunks of whole batches of at most :data:`CHUNK_ROWS` rows
 (:func:`chunk_rows`), and kernel B reads each batch as a column slice of its
-chunk (``pipeline/fused.py``, ``PairStream`` and ``RecordStream``).
+chunk (``pipeline/narrow.py``, ``PairStream`` and ``RecordStream``).
 
 Rows are f32 or f64 in the tables' dtype; ``compensated`` (f32 tables)
 packs the compensated error filter in f32 and writes the rows as f64, the

@@ -17,7 +17,7 @@ acceptance, cull and cap rules of
   rounds of its search and, if still mid-search, is reported in an
   ``unfin`` plane instead of being accepted.
 
-:func:`solve_escalated` is the staged escalation built on the last mode
+:func:`solve_escalated_cols` is the staged escalation built on the last mode
 (JAX ``_normalize_round_limits`` and ``_escalate_ladder``,
 ``pallas_solver.py:724-811``): one bounded pass, then the unfinished rows,
 pooled in their original order, solved again from scratch and pruned by the
@@ -71,7 +71,6 @@ __all__ = [
     "solve_cols",
     "solve_packed",
     "solve_packed_reference",
-    "solve_escalated",
     "solve_escalated_cols",
     "solve_unfinished_cols",
     "solve_pairs",
@@ -682,15 +681,6 @@ def _frontier(qrows, valid, is_vf, toi, tpq, co_tol, caps, allow_zero_toi, per_q
     if n_rows:
         toi = torch.minimum(toi, tpq.amin())
     return toi, ovf, checks, tpq
-
-
-def solve_escalated(qrows, valid, is_vf: bool, toi_init, tolerance,
-                    allow_zero_toi: bool = True, round_limit=-1,
-                    widened: bool = False):
-    """:func:`solve_escalated_cols` of ``(Q, 31)`` rows."""
-    _check_rows(qrows, widened)
-    return solve_escalated_cols(_columns(qrows), valid, is_vf, toi_init, tolerance,
-                                allow_zero_toi, round_limit, widened)
 
 
 def solve_escalated_cols(cols, valid, is_vf: bool, toi_init, tolerance,

@@ -9,7 +9,8 @@ unless the caller names one).
 
 - The mesh is replicated: every rank builds and sorts the boxes
   identically, with the same knobs as :func:`scalable_ccd_tpu_torch.
-  pipeline.fused.fused_ccd` (the congestion ordering from 2^20 VF boxes).
+  fused_ccd` (:mod:`scalable_ccd_tpu_torch.pipeline.policy`: the congestion
+  ordering from 2^20 VF boxes).
 - The sweep is range-sharded: rank ``s`` of ``S`` sweeps its share of the
   sorted order, ``ceil(rows / S)`` a-rows of 128 boxes, with kernel A's
   ``box_range`` (``sweep_impl="pairs"``) or kernel A''s ``row_range``
@@ -61,13 +62,16 @@ from scalable_ccd_tpu_torch.ops.sweep_records import (
     records_pair_prefix,
     sweep_records,
 )
-from scalable_ccd_tpu_torch.pipeline.fused import (
+from scalable_ccd_tpu_torch.pipeline.fused import FusedCCDResult
+from scalable_ccd_tpu_torch.pipeline.narrow import (
     IPC_BACKOFF,
     IPC_MIN_TOI,
-    FusedCCDResult,
     NarrowSolver,
     PairStream,
-    _key_order,
+    key_order,
+    solve_per_query,
+)
+from scalable_ccd_tpu_torch.pipeline.policy import (
     mesh_tensors,
     resolve_dtype,
     resolve_knobs,
@@ -319,7 +323,7 @@ def _balance(comm: _Comm, pairs, by_key: bool):
         for s in range(S):
             lengths[s] += max(0, -(-(c - s) // S))
         if by_key:
-            rows = rows[_key_order(rows)]
+            rows = rows[key_order(rows)]
         parts.append(rows[comm.rank::S])
     return torch.cat(parts), max(lengths)
 
@@ -371,24 +375,13 @@ def _collect_stripes(comm, stripes, batch, nar: NarrowSolver, toi):
     (JAX ``fused.py:1090-1167``): ``(toi, checks, capped, hits, hit_toi)``,
     the hits of every rank in ``(a << 32) | b`` order; ``toi`` is this
     rank's own (reduced by the caller)."""
-    dev = toi.device
-    checks = torch.zeros((), dtype=torch.int64, device=dev)
-    capped = torch.zeros((), dtype=torch.bool, device=dev)
-    hit_pairs = [stripes[:0]]
-    hit_tois = [torch.zeros((0,), dtype=toi.dtype, device=dev)]
-    for start in range(0, stripes.shape[0], batch):
-        chunk = stripes[start:start + batch]
-        toi_b, cap, ck, pq = nar.solve(chunk, toi, per_query=True)
-        toi = torch.minimum(toi, toi_b)
-        checks, capped = checks + ck, capped | cap
-        hit = pq < 1
-        hit_pairs.append(chunk[hit])
-        hit_tois.append(pq[hit].to(toi.dtype))
-    pairs, tois = torch.cat(hit_pairs), torch.cat(hit_tois)
+    batches = (stripes[s:s + batch] for s in range(0, stripes.shape[0], batch))
+    toi, capped, checks, pairs, tois = solve_per_query(
+        nar, ((nar.pack(b), b) for b in batches), toi)
     counts = comm.counts(pairs.shape[0])
     pairs = torch.cat(comm.gather_rows(pairs, counts, _SENTINEL))
     tois = torch.cat(comm.gather_rows(tois, counts, float("inf")))
-    order = _key_order(pairs)
+    order = key_order(pairs)
     return toi, checks, capped, pairs[order], tois[order]
 
 

@@ -90,12 +90,11 @@ from scalable_ccd_tpu_torch.ops import gather_pack, solver
 from scalable_ccd_tpu_torch.ops.sweep_ap import ROW, partner_planes, sweep_pairs
 from scalable_ccd_tpu_torch.ops.sweep_records import records_pair_prefix, sweep_records
 from scalable_ccd_tpu_torch.pipeline.ccd import ccd
-from scalable_ccd_tpu_torch.pipeline.fused import (
-    _NARROW_BATCH,
-    NarrowSolver,
-    _pow2ceil,
-    fused_ccd,
+from scalable_ccd_tpu_torch.pipeline.fused import fused_ccd
+from scalable_ccd_tpu_torch.pipeline.narrow import NARROW_BATCH, NarrowSolver
+from scalable_ccd_tpu_torch.pipeline.policy import (
     mesh_tensors,
+    pow2ceil,
     resolve_device,
     resolve_dtype,
     resolve_knobs,
@@ -172,14 +171,14 @@ def run_stages(grid: int = 128, subdiv: int = 4, drop: float = 0.25,
         total = int(stage("sweep_count_only", phase,
                           lambda: sweep_pairs(sb, is_vf, count_only=True, **kw),
                           pairs=int))
-        budget = _pow2ceil(total)
+        budget = pow2ceil(total)
         pairs = stage("sweep_pairs", phase, lambda: sweep_pairs(sb, is_vf, budget, **kw),
                       pairs=lambda r: int(r[2]), budget=budget)[0][:total]
         rec = stage("sweep_records", phase, lambda: sweep_records(sb, is_vf, budget, **kw),
                     pairs=lambda r: int(r[2]), records=lambda r: int(r[1]), budget=budget)
 
         nar = NarrowSolver.for_phase(is_vf, v0, v1, e, f, 0.0, 1e-6, True, -1, -1, dtype)
-        chunk = gather_pack.chunk_rows(_NARROW_BATCH)
+        chunk = gather_pack.chunk_rows(NARROW_BATCH)
         chunks = [(c, min(c + chunk, total)) for c in range(0, total, chunk)]
         packed = stage("gather_pack", phase,
                        lambda: [nar.pack(pairs, a, b) for a, b in chunks],
@@ -196,8 +195,8 @@ def run_stages(grid: int = 128, subdiv: int = 4, drop: float = 0.25,
         stage("records_pack", phase, records_packed,
               queries=lambda r: sum(c.shape[1] for c in r), records=n_records,
               launches=len(chunks))
-        rows = [p[:, s:s + _NARROW_BATCH] for p in packed
-                for s in range(0, p.shape[1], _NARROW_BATCH)]
+        rows = [p[:, s:s + NARROW_BATCH] for p in packed
+                for s in range(0, p.shape[1], NARROW_BATCH)]
         valids = [torch.ones((r.shape[1],), dtype=torch.bool, device=device) for r in rows]
 
         def solve(toi=toi):
@@ -364,7 +363,7 @@ def _solve_calls(fn, calls, rows=False):
                c["round_limit"], c["widened"]) for c in calls]
 
 
-def _batched(calls, batch=_NARROW_BATCH):
+def _batched(calls, batch=NARROW_BATCH):
     """The recorded launches cut into launches of at most ``batch`` rows
     (column slices, read in place)."""
     return [{**c, "cols": c["cols"][:, s:s + batch], "valid": c["valid"][s:s + batch]}
@@ -513,7 +512,7 @@ def run_kernel_a(device=None, reps=5, emit=print) -> list:
                 major, bucket = sort_boxes(boxes), sort_boxes(boxes, bucket_minor=True)
                 planes = partner_planes(bucket)
                 total = int(sweep_pairs(major, two, count_only=True))
-                budget = _pow2ceil(total)
+                budget = pow2ceil(total)
                 ranges = [(b, min(b + chunk, major.n)) for b in range(0, major.n, chunk)]
                 modes = {
                     "whole": lambda: [sweep_pairs(major, two, budget)],
@@ -745,7 +744,7 @@ def run_frames(device=None, reps=5, emit=print) -> list:
             out(frame="fused_ccd", scene=name, variant=label, **result(res), ms=wall,
                 **launches)
         if name in ("bench", "grid600"):
-            for batch in (_NARROW_BATCH, _NARROW_BATCH >> 2):
+            for batch in (NARROW_BATCH, NARROW_BATCH >> 2):
                 frame(narrow_batch=batch)
                 res, n, sites = count_syncs(lambda: frame(narrow_batch=batch))
                 out(frame="syncs", scene=name, narrow_batch=batch, syncs=n, sites=sites,

@@ -1,17 +1,23 @@
-"""``ccd()``'s global bounded solve on the CPU: each broad chunk solved on
-the device with one kernel B launch over its pairs (``pipeline/ccd.py``,
-``ops/solver.py:solve_pairs``), held to the per-batch path it replaces.
+"""``ccd()``'s global solves on the CPU: each broad chunk solved on the
+device with one host read (``pipeline/ccd.py``), held to the per-batch
+paths they replace.
 
+A bounded solve is one kernel B launch over the chunk's pairs
+(``ops/solver.py:solve_pairs``); an unbounded one, and the IPC rule's
+re-solve, its warm-start batch and batches seeded from the device TOI.
 The per-batch path here (:func:`_per_batch`) is the loop ``ccd()`` ran
 before, less the warm-start batch of a bounded solve, which the one launch
 drops: per broad chunk batches of ``query_buckets[-1]`` candidates, each
 packed by kernel C's plain twin and solved from the TOI read on the host
-after the batch before, and the IPC rule's re-solve the same way with its
-warm-start batch.  On the CPU ``solve_pairs`` solves its pairs in batches
-of that size too, so the TOI and the checks are equal bit for bit; the
-counters ``chunk_solves``, ``batches`` and ``ipc_refinements`` follow the
-loop's arithmetic.
+after the batch before, stopping at a TOI of 0, and the IPC rule's re-solve
+the same way with its warm-start batch.  On the CPU ``solve_pairs`` solves
+its pairs in batches of that size too, so the TOI and the checks are equal
+bit for bit; the counters ``chunk_solves``, ``batches`` and
+``ipc_refinements`` follow the loop's arithmetic, except that a batch after
+the TOI reached 0 inside a chunk is now launched and skips on the device.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -19,19 +25,18 @@ import torch
 
 from scalable_ccd_tpu_torch import CCDConfig, CCDStats, MemoryConfig, ccd, ipc_ccd_strategy
 from scalable_ccd_tpu_torch.broad_phase import merge_two_lists, sort_boxes
-from scalable_ccd_tpu_torch.geometry import aabb
+from scalable_ccd_tpu_torch.geometry import aabb, edges_from_faces, read_ply
 from scalable_ccd_tpu_torch.geometry.scenes import cloth_on_sphere
 from scalable_ccd_tpu_torch.narrow_phase import types
 from scalable_ccd_tpu_torch.ops import gather_pack as gp
 from scalable_ccd_tpu_torch.ops import solver
 from scalable_ccd_tpu_torch.ops.sweep_ap import sweep_pairs
 from scalable_ccd_tpu_torch.pipeline.ccd import sweep_chunks
-from scalable_ccd_tpu_torch.pipeline.fused import (
+from scalable_ccd_tpu_torch.pipeline.narrow import IPC_BACKOFF, IPC_MIN_TOI, NarrowSolver
+from scalable_ccd_tpu_torch.pipeline.policy import (
     CONGESTION_MIN_BOXES,
-    IPC_BACKOFF,
-    IPC_MIN_TOI,
-    NarrowSolver,
     mesh_tensors,
+    resolve_auto_escalation,
 )
 from scalable_ccd_tpu_torch.utils.profiler import profiler
 
@@ -43,6 +48,7 @@ TOL = 1e-6
 MEMORY = MemoryConfig(box_chunk_size=256, query_buckets=(64,))
 PRECISIONS = {"f32": dict(), "f64": dict(dtype="float64"),
               "compensated": dict(precision="compensated")}
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 
 
 @pytest.fixture(scope="module")
@@ -57,9 +63,20 @@ def touching():
     return v0 + 0.99 * toi * (v1 - v0), v1, s.edges, s.faces
 
 
+@pytest.fixture(scope="module")
+def dense():
+    """The ``dense-cluster`` golden frames: in f32 the TOI reaches 0 inside
+    the one EE chunk, with batches of that chunk still to come."""
+    frame = [read_ply(os.path.join(GOLDEN, "dense-cluster", "frames", f"f{k}.ply"))
+             for k in (0, 1)]
+    (v0, f), (v1, _) = frame
+    return v0, v1, edges_from_faces(f), f
+
+
 def _per_batch(args, min_distance, max_iterations, config, ipc_refine):
     """The per-batch path on the CPU: ``(toi, counts)``, counts the checks,
-    the non-empty chunks, the re-solve's batches (its warm-start batch
+    the capped batches, the candidates, the non-empty chunks, the batches
+    (the re-solve's alone for a bounded solve, its warm-start batch
     included), and the refinements."""
     v0, v1, e, f = mesh_tensors(*args, torch.device("cpu"), False)
     vb = aabb.build_vertex_boxes(v0, v1, inflation_radius=min_distance,
@@ -68,19 +85,25 @@ def _per_batch(args, min_distance, max_iterations, config, ipc_refine):
               (False, sort_boxes(aabb.build_edge_boxes(vb, e))))
     mem = config.memory
     max_b = mem.query_buckets[-1]
-    counts = dict(checks=0, chunks=0, batches=0, refinements=0)
+    compensated = config.precision == "compensated"
+    round_limit = resolve_auto_escalation(
+        config.escalate_rounds, max_iterations,
+        plain_f32=config.dtype == "float32" and not compensated)
+    counts = dict(checks=0, capped=0, vf=0, ee=0, chunks=0, batches=0, refinements=0)
     toi = 1.0
     for is_vf, sb in phases:
         if toi <= 0:
             break
         nar = NarrowSolver.for_phase(is_vf, v0, v1, e, f, min_distance, TOL, True,
-                                     max_iterations, -1, config.torch_dtype,
-                                     config.precision == "compensated")
-        presample = sb.n < CONGESTION_MIN_BOXES
+                                     max_iterations, round_limit, config.torch_dtype,
+                                     compensated)
+        presample = (sb.n < CONGESTION_MIN_BOXES if config.presample == "auto"
+                     else config.presample)
 
         def chunk(pairs, count, toi, exact):
             batches = [pairs[s:min(s + max_b, count)] for s in range(0, count, max_b)]
-            if presample and exact and count > 4 * max_b:
+            warm = exact or max_iterations < 0
+            if presample and warm and count > 4 * max_b:
                 idx = np.minimum(np.arange(max_b) * count // max_b, count - 1)
                 toi = solve(pairs[torch.as_tensor(idx)], toi, exact)
             for b in batches:
@@ -90,15 +113,17 @@ def _per_batch(args, min_distance, max_iterations, config, ipc_refine):
             return toi
 
         def solve(batch, toi, exact):
-            counts["batches"] += exact
+            counts["batches"] += exact or max_iterations < 0
             out = nar.solve(batch, toi, exact=exact)
             counts["checks"] += int(out[2])
+            counts["capped"] += int(out[1])
             return float(out[0])
 
         for pairs, count in sweep_chunks(sb, is_vf, mem.box_chunk_size, mem.pair_chunk_size):
             if count == 0:
                 continue
             counts["chunks"] += 1
+            counts["vf" if is_vf else "ee"] += count
             before = toi
             toi = chunk(pairs, count, toi, False)
             if ipc_refine and toi < IPC_MIN_TOI:
@@ -177,6 +202,33 @@ def test_chunk_solve_with_a_binding_cap_equals_the_per_batch_path(touching, cap)
     got = ccd(*touching, max_iterations=cap, config=config, stats=stats, device="cpu")
     want, counts = _per_batch(touching, 0.0, cap, config, False)
     assert got == want and stats.narrow_checks == counts["checks"] > 0
+
+
+@pytest.mark.parametrize("presample", [True, False])
+@pytest.mark.parametrize("rounds", [-2, -1, (2, 8)], ids=["auto", "off", "ladder"])
+@pytest.mark.parametrize("scene", ["touching", "dense"])
+def test_unbounded_chunk_equals_the_per_batch_path(request, scene, rounds, presample):
+    """An unbounded global solve (no cap; escalation at the auto 128 rounds,
+    off, or a ladder), with and without the warm-start batch: the TOI, the
+    candidates, the checks and the capped batches of the per-batch path
+    bit for bit, and no chunk solved in one launch.  Where the TOI stays
+    above 0 the ``batches`` counter is the loop's; on ``dense-cluster`` it
+    reaches 0 inside a chunk, and the chunk's later batches are launched
+    and skipped on the device, adding launches and no checks."""
+    args = request.getfixturevalue(scene)
+    config = CCDConfig(memory=MEMORY, escalate_rounds=rounds, presample=presample)
+    stats = CCDStats()
+    got, counters = _profiled(lambda: ccd(*args, config=config, stats=stats, device="cpu"))
+    want, counts = _per_batch(args, 0.0, -1, config, False)
+    assert got == want
+    assert (stats.vf_candidates, stats.ee_candidates) == (counts["vf"], counts["ee"])
+    assert stats.narrow_checks == counts["checks"] > 0
+    assert stats.overflow_queries == counts["capped"]
+    assert "chunk_solves" not in counters
+    if scene == "touching":
+        assert got > 0.0 and counters["batches"] == counts["batches"]
+    else:
+        assert got == 0.0 and counters["batches"] > counts["batches"]
 
 
 def _phase_pairs(args, is_vf, dtype, compensated):

@@ -29,6 +29,7 @@ from scalable_ccd_tpu_torch.config import normalize_round_limits
 from scalable_ccd_tpu_torch.ops import gather_pack as gp
 from scalable_ccd_tpu_torch.ops import solver
 from scalable_ccd_tpu_torch.pipeline import fused as port_fused
+from scalable_ccd_tpu_torch.pipeline import narrow as port_narrow
 
 torch.set_num_threads(2)
 
@@ -75,7 +76,7 @@ def _recorded(mp, calls):
         return out
 
     mp.setattr(solver, "solve_cols", recorded)
-    mp.setattr(port_fused, "solve_cols", recorded)
+    mp.setattr(port_narrow, "solve_cols", recorded)
 
 
 def _frame(scene, mp, pool, rounds, batch=BATCH, per_batch=False):
@@ -86,7 +87,7 @@ def _frame(scene, mp, pool, rounds, batch=BATCH, per_batch=False):
     _recorded(mp, calls)
     if per_batch:
         mp.setattr(port_fused, "_frame_pool_loop", _frame_pool_per_batch)
-        mp.setattr(port_fused.NarrowSolver, "solve_chunk", _solve_chunk_per_batch)
+        mp.setattr(port_narrow.NarrowSolver, "solve_chunk", _solve_chunk_per_batch)
     res = fused_ccd(*scene, escalate_pool=pool, escalate_rounds=rounds, narrow_batch=batch,
                     presample=False, **CPU)
     return res, calls

@@ -23,6 +23,7 @@ from scalable_ccd_tpu_torch.broad_phase import sort_boxes
 from scalable_ccd_tpu_torch.interop import from_numpy_boxes
 from scalable_ccd_tpu_torch.ops import sweep_ap, sweep_records
 from scalable_ccd_tpu_torch.pipeline import fused as port_fused
+from scalable_ccd_tpu_torch.pipeline import policy as port_policy
 
 torch.set_num_threads(2)
 
@@ -211,37 +212,37 @@ def test_auto_policies_follow_box_counts():
     (``fused.py:1880-1947``): congestion ordering and the batch ladder from
     2^20 VF boxes, the frame pool and presample below; escalation at 128
     rounds on the global path only."""
-    thr = port_fused.CONGESTION_MIN_BOXES
+    thr = port_policy.CONGESTION_MIN_BOXES
     assert thr == 1 << 20
-    bench = port_fused.resolve_knobs(56_324, 56_321)
-    assert bench == port_fused.Knobs(False, 128, "frame", True, True, "pairs")
-    grid600 = port_fused.resolve_knobs(1_085_284, 1_085_281)
-    assert grid600 == port_fused.Knobs(True, 128, "batch", False, False, "pairs")
+    bench = port_policy.resolve_knobs(56_324, 56_321)
+    assert bench == port_policy.Knobs(False, 128, "frame", True, True, "pairs")
+    grid600 = port_policy.resolve_knobs(1_085_284, 1_085_281)
+    assert grid600 == port_policy.Knobs(True, 128, "batch", False, False, "pairs")
     # presample per phase: an edge-heavy scene can straddle the threshold
-    assert port_fused.resolve_knobs(thr - 1, thr)[3:5] == (True, False)
-    assert port_fused.resolve_knobs(thr, 10).bucket_minor
+    assert port_policy.resolve_knobs(thr - 1, thr)[3:5] == (True, False)
+    assert port_policy.resolve_knobs(thr, 10).bucket_minor
     # escalation off with a cap; per-query and IPC modes take the ladder
-    capped = port_fused.resolve_knobs(10, 10, max_iterations=100)
+    capped = port_policy.resolve_knobs(10, 10, max_iterations=100)
     assert capped.escalate_rounds == -1 and capped.escalate_pool == "batch"
-    assert port_fused.resolve_knobs(10, 10, collisions=True).escalate_pool == "batch"
-    assert port_fused.resolve_knobs(10, 10, ipc_refine=True).escalate_pool == "batch"
-    assert port_fused.resolve_knobs(10, 10, escalate_rounds=(4, 16)).escalate_pool == "batch"
+    assert port_policy.resolve_knobs(10, 10, collisions=True).escalate_pool == "batch"
+    assert port_policy.resolve_knobs(10, 10, ipc_refine=True).escalate_pool == "batch"
+    assert port_policy.resolve_knobs(10, 10, escalate_rounds=(4, 16)).escalate_pool == "batch"
     # explicit values pass through
-    forced = port_fused.resolve_knobs(10, 10, bucket_minor=True, escalate_rounds=-1,
+    forced = port_policy.resolve_knobs(10, 10, bucket_minor=True, escalate_rounds=-1,
                                       escalate_pool="batch", sweep_impl="records")
-    assert forced == port_fused.Knobs(True, -1, "batch", True, True, "records")
+    assert forced == port_policy.Knobs(True, -1, "batch", True, True, "records")
     for auto in (None, -2):
-        assert port_fused.resolve_auto_escalation(auto, -1) == 128
-        assert port_fused.resolve_auto_escalation(auto, 10) == -1
+        assert port_policy.resolve_auto_escalation(auto, -1) == 128
+        assert port_policy.resolve_auto_escalation(auto, 10) == -1
     with pytest.raises(ValueError):
-        port_fused.resolve_knobs(10, 10, sweep_impl="mxu16")
+        port_policy.resolve_knobs(10, 10, sweep_impl="mxu16")
     with pytest.raises(ValueError):
-        port_fused.resolve_knobs(10, 10, escalate_rounds=(8, 2))
+        port_policy.resolve_knobs(10, 10, escalate_rounds=(8, 2))
     # the frame pool takes one limit on the global path; asked for elsewhere it raises
     for kw in (dict(escalate_rounds=(4, 16)), dict(escalate_rounds=-1), dict(collisions=True),
                dict(ipc_refine=True), dict(max_iterations=100)):
         with pytest.raises(ValueError, match="frame"):
-            port_fused.resolve_knobs(10, 10, escalate_pool="frame", **kw)
+            port_policy.resolve_knobs(10, 10, escalate_pool="frame", **kw)
 
 
 def test_auto_escalation_follows_the_device():
@@ -252,34 +253,34 @@ def test_auto_escalation_follows_the_device():
     rounds runs at 128 rounds on CUDA too, where the frame pool does not
     raise; where it cannot run it still raises."""
     for n in ((56_324, 56_321), (1_085_284, 1_085_281)):
-        cpu = port_fused.resolve_knobs(*n)
-        cuda = port_fused.resolve_knobs(*n, cuda=True)
+        cpu = port_policy.resolve_knobs(*n)
+        cuda = port_policy.resolve_knobs(*n, cuda=True)
         assert cpu.escalate_rounds == 128
         assert (cuda.escalate_rounds, cuda.escalate_pool) == (-1, "batch")
         assert cuda._replace(escalate_rounds=128, escalate_pool=cpu.escalate_pool) == cpu
     for auto in (None, -2):
-        assert port_fused.resolve_auto_escalation(auto, -1, cuda=True) == -1
-        assert port_fused.resolve_auto_escalation(auto, -1, cuda=False) == 128
-        assert port_fused.resolve_auto_escalation(auto, 10, cuda=True) == -1
+        assert port_policy.resolve_auto_escalation(auto, -1, cuda=True) == -1
+        assert port_policy.resolve_auto_escalation(auto, -1, cuda=False) == 128
+        assert port_policy.resolve_auto_escalation(auto, 10, cuda=True) == -1
     for rounds, pool, want in ((64, "auto", (64, "frame")), (-1, "auto", (-1, "batch")),
                                ((4, 16), "auto", ((4, 16), "batch")),
                                (8, "batch", (8, "batch")), (8, "frame", (8, "frame")),
                                (None, "frame", (128, "frame")),
                                (None, "batch", (128, "batch"))):
         for dev in (False, True):
-            k = port_fused.resolve_knobs(1000, 1000, escalate_rounds=rounds,
+            k = port_policy.resolve_knobs(1000, 1000, escalate_rounds=rounds,
                                          escalate_pool=pool, cuda=dev)
             assert (k.escalate_rounds, k.escalate_pool) == want, (rounds, pool, dev)
     for kw in (dict(max_iterations=100), dict(collisions=True), dict(plain_f32=False)):
         with pytest.raises(ValueError, match="frame"):
-            port_fused.resolve_knobs(10, 10, escalate_pool="frame", cuda=True, **kw)
+            port_policy.resolve_knobs(10, 10, escalate_pool="frame", cuda=True, **kw)
 
 
 def test_fused_ccd_resolves_its_knobs_for_its_device(monkeypatch):
     """``fused_ccd`` tells ``resolve_knobs`` whether it runs on CUDA: on the
     CPU it does not, so the CPU default stays the JAX package's."""
     seen = []
-    real = port_fused.resolve_knobs
+    real = port_policy.resolve_knobs
 
     def spy(*a, **kw):
         seen.append(kw["cuda"])

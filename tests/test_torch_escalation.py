@@ -105,16 +105,17 @@ def test_escalation_equals_unbounded_bitwise(queries, is_vf, limits):
     valid = _ones(n)
     valid[::5] = False
     ref, _, _ = solver.solve_packed(rows, valid, is_vf, 1.0, TOL)
-    toi, ovf, checks = solver.solve_escalated(rows, valid, is_vf, 1.0, TOL,
-                                              round_limit=limits)
+    toi, ovf, checks = solver.solve_escalated_cols(rows.t().contiguous(), valid, is_vf, 1.0,
+                                                   TOL, round_limit=limits)
     assert float(toi) == float(ref) and not bool(ovf)
     first = solver.solve_packed(rows, valid, is_vf, 1.0, TOL,
                                 round_limit=solver.normalize_round_limits(limits)[0])
     assert int(checks) >= int(first[2]) and int(checks) > 0
     assert not first[3][~valid].any()
     seed = float(ref) * 0.5
-    assert float(solver.solve_escalated(rows, valid, is_vf, seed, TOL,
-                                        round_limit=limits)[0]) == pytest.approx(seed, rel=1e-6)
+    assert float(solver.solve_escalated_cols(rows.t().contiguous(), valid, is_vf, seed, TOL,
+                                             round_limit=limits)[0]) == pytest.approx(seed,
+                                                                                      rel=1e-6)
 
 
 def test_escalation_full_branch(queries):
@@ -124,8 +125,8 @@ def test_escalation_full_branch(queries):
     big = rows.repeat(8, 1)
     assert big.shape[0] > 4 * solver.POOL_BLOCK
     ref, _, _ = solver.solve_packed(big, _ones(big.shape[0]), False, 1.0, TOL)
-    toi, ovf, _ = solver.solve_escalated(big, _ones(big.shape[0]), False, 1.0, TOL,
-                                         round_limit=(0, 4))
+    toi, ovf, _ = solver.solve_escalated_cols(big.t().contiguous(), _ones(big.shape[0]), False,
+                                              1.0, TOL, round_limit=(0, 4))
     assert float(toi) == float(ref) and not bool(ovf)
 
 
@@ -137,7 +138,8 @@ def test_ladder_validation_matches_jax(queries):
         with pytest.raises(ValueError):
             jsolver._normalize_round_limits(bad)
         with pytest.raises(ValueError):
-            solver.solve_escalated(rows, _ones(rows.shape[0]), True, 1.0, TOL, round_limit=bad)
+            solver.solve_escalated_cols(rows.t().contiguous(), _ones(rows.shape[0]), True, 1.0,
+                                        TOL, round_limit=bad)
         with pytest.raises(ValueError):
             ccd(*_args(_scene()), config=CCDConfig(escalate_rounds=bad), **CPU)
     # round_limit is a global-mode option

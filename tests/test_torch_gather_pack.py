@@ -46,7 +46,7 @@ from scalable_ccd_tpu_torch.interop import from_numpy_boxes
 from scalable_ccd_tpu_torch.narrow_phase import types
 from scalable_ccd_tpu_torch.ops import gather_pack as gp
 from scalable_ccd_tpu_torch.ops import sweep_records
-from scalable_ccd_tpu_torch.pipeline.fused import NarrowSolver, PairStream, RecordStream
+from scalable_ccd_tpu_torch.pipeline.narrow import NarrowSolver, PairStream, RecordStream
 
 torch.set_num_threads(2)
 

@@ -30,7 +30,7 @@ import torch
 from ccd_bench import cells, check, generator
 from ccd_bench.reference import ipc_ccd_strategy as reference
 from scalable_ccd_tpu_torch import CCDConfig, CCDStats, MemoryConfig, ipc_ccd_strategy
-from scalable_ccd_tpu_torch.pipeline import fused as port_fused
+from scalable_ccd_tpu_torch.pipeline import narrow as port_narrow
 
 # the submodule, not the function of the same name that the package exports
 port_ccd = importlib.import_module("scalable_ccd_tpu_torch.pipeline.ccd")
@@ -127,7 +127,7 @@ def test_the_separation_dropped_from_the_rows_is_found_wrong(touching_at_256, to
                                                              monkeypatch):
     # the program's rows: kernel C's (the re-solves) and those kernel B's
     # pairs source computes (the chunks' bounded solves)
-    pack, solve = port_fused.gather_pack, port_fused.solve_pairs
+    pack, solve = port_narrow.gather_pack, port_narrow.solve_pairs
 
     def pack_without_ms(pairs, start, stop, vcat, table, is_vf, ms, *args, **kw):
         return pack(pairs, start, stop, vcat, table, is_vf, 0.0, *args, **kw)
@@ -135,8 +135,8 @@ def test_the_separation_dropped_from_the_rows_is_found_wrong(touching_at_256, to
     def solve_without_ms(pairs, start, stop, vcat, table, is_vf, toi, ms, *args, **kw):
         return solve(pairs, start, stop, vcat, table, is_vf, toi, 0.0, *args, **kw)
 
-    monkeypatch.setattr(port_fused, "gather_pack", pack_without_ms)
-    monkeypatch.setattr(port_fused, "solve_pairs", solve_without_ms)
+    monkeypatch.setattr(port_narrow, "gather_pack", pack_without_ms)
+    monkeypatch.setattr(port_narrow, "solve_pairs", solve_without_ms)
     got = _program(touching, 256)
     assert not _correct([got], [touching_at_256[1]])
 

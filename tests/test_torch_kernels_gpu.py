@@ -17,7 +17,7 @@ from scalable_ccd_tpu_torch.interop import from_numpy_scene
 from scalable_ccd_tpu_torch.narrow_phase import types
 from scalable_ccd_tpu_torch.ops import gather_pack as gp
 from scalable_ccd_tpu_torch.ops import solver, sweep_ap, sweep_records
-from scalable_ccd_tpu_torch.pipeline.fused import NarrowSolver, PairStream, RecordStream
+from scalable_ccd_tpu_torch.pipeline.narrow import NarrowSolver, PairStream, RecordStream
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
@@ -279,7 +279,8 @@ def test_solver_kernel_round_limit_equals_plain(cuda, is_vf):
         assert not un_k[~valid].any()
     assert solver.LAUNCHES_BY_MODE["round_limit"] == before + 3
     for limits in (4, (2, 16)):
-        toi, _, _ = solver.solve_escalated(rows, valid, is_vf, 1.0, TOL, round_limit=limits)
+        toi, _, _ = solver.solve_escalated_cols(rows.t().contiguous(), valid, is_vf, 1.0, TOL,
+                                                round_limit=limits)
         assert float(toi) == float(final)
 
 
@@ -446,7 +447,8 @@ def test_solver_kernel_f64_round_limit_equals_plain(cuda, is_vf):
         assert float(toi_k) == float(toi_p) == float(final)
     assert solver.LAUNCHES_BY_MODE["round_limit_f64"] == before + 3
     for limits in (4, (2, 16)):
-        toi, _, _ = solver.solve_escalated(rows, valid, is_vf, 1.0, TOL, round_limit=limits)
+        toi, _, _ = solver.solve_escalated_cols(rows.t().contiguous(), valid, is_vf, 1.0, TOL,
+                                                round_limit=limits)
         assert float(toi) == float(final)
 
 
@@ -545,8 +547,8 @@ def _every_mode_equals_plain(rows, valid, is_vf, widened=False, toi_init=1.0):
                                           **kw)
         assert torch.equal(k[3], p[3]) and int(k[2]) == int(p[2]), limit
         assert float(k[0]) == float(p[0]) == float(final) and not k[3][~valid].any()
-    esc = solver.solve_escalated(rows, valid, is_vf, toi_init, TOL, round_limit=(4, 32),
-                                 widened=widened)
+    esc = solver.solve_escalated_cols(rows.t().contiguous(), valid, is_vf, toi_init, TOL,
+                                      round_limit=(4, 32), widened=widened)
     assert float(esc[0]) == float(final) and not bool(esc[1])
     return float(final)
 

@@ -31,6 +31,7 @@ from scalable_ccd_tpu_torch.geometry import edges_from_faces, read_ply
 from scalable_ccd_tpu_torch.ops import gather_pack as gp
 from scalable_ccd_tpu_torch.ops import solver
 from scalable_ccd_tpu_torch.pipeline import fused as port_fused
+from scalable_ccd_tpu_torch.pipeline import narrow as port_narrow
 
 torch.set_num_threads(2)
 
@@ -72,7 +73,7 @@ def launches(monkeypatch):
         return out
 
     monkeypatch.setattr(solver, "solve_cols", recorded)
-    monkeypatch.setattr(port_fused, "solve_cols", recorded)
+    monkeypatch.setattr(port_narrow, "solve_cols", recorded)
     return calls
 
 
@@ -224,8 +225,8 @@ def packs(monkeypatch):
             return out
         return pack
 
-    monkeypatch.setattr(port_fused, "gather_pack", counted("pairs", gp.gather_pack))
-    monkeypatch.setattr(port_fused, "gather_pack_records",
+    monkeypatch.setattr(port_narrow, "gather_pack", counted("pairs", gp.gather_pack))
+    monkeypatch.setattr(port_narrow, "gather_pack_records",
                         counted("records", gp.gather_pack_records))
     return calls
 
@@ -333,7 +334,7 @@ def test_unbounded_chunk_is_one_launch(scene, reference, launches, packs, monkey
         mine = [c for c in calls if c["is_vf"] == is_vf]
         assert [c["q"] for c in mine] == chunks == [q for _, vf, q in packs if vf == is_vf]
         assert all(c["skip"] and c["round_limit"] < 0 and c["valid"] == c["q"] for c in mine)
-    monkeypatch.setattr(port_fused.NarrowSolver, "solve_chunk", _solve_chunk_per_batch)
+    monkeypatch.setattr(port_narrow.NarrowSolver, "solve_chunk", _solve_chunk_per_batch)
     loop = fused_ccd(*scene, **kw)
     assert [c["q"] for c in launches[len(calls):] if not c["is_vf"]] == [
         min(1024, int(res.ee_total) - s) for s in range(0, int(res.ee_total), 1024)]
@@ -365,6 +366,6 @@ def test_unbounded_chunks_after_toi_reaches_zero_add_no_checks(launches, monkeyp
     assert not calls[zero]["is_vf"] and len(later) >= 2
     assert all(c["skip"] and c["seed"] == 0 and c["checks"] == 0 for c in later)
     assert sum(c["checks"] for c in calls) == int(res.total_checks)
-    monkeypatch.setattr(port_fused.NarrowSolver, "solve_chunk", _solve_chunk_per_batch)
+    monkeypatch.setattr(port_narrow.NarrowSolver, "solve_chunk", _solve_chunk_per_batch)
     loop = fused_ccd(*args, **kw)
     assert float(loop.toi) == 0.0 and (int(loop.vf_total), int(loop.ee_total)) == (vf, ee)

@@ -59,7 +59,7 @@ from scalable_ccd_tpu_torch.interop import (
 from scalable_ccd_tpu_torch.narrow_phase import ccd_query_oracle, types
 from scalable_ccd_tpu_torch.narrow_phase.root_finder import search_caps
 from scalable_ccd_tpu_torch.ops import solver, sweep_ap, sweep_records
-from scalable_ccd_tpu_torch.pipeline.fused import resolve_knobs
+from scalable_ccd_tpu_torch.pipeline.policy import resolve_knobs
 
 torch.set_num_threads(2)
 

@@ -34,7 +34,7 @@ from scalable_ccd_tpu_torch.geometry.scenes import cloth_on_sphere
 from scalable_ccd_tpu_torch.interop import sharded_kwargs_from_jax
 from scalable_ccd_tpu_torch.parallel import make_sharded_ccd, sharded_ccd, spawn_local
 from scalable_ccd_tpu_torch.parallel import sharded as sh
-from scalable_ccd_tpu_torch.pipeline.fused import resolve_knobs, sorted_phases
+from scalable_ccd_tpu_torch.pipeline.policy import resolve_knobs, sorted_phases
 
 torch.set_num_threads(2)
 

@@ -20,6 +20,7 @@ from scalable_ccd_tpu_torch import CCDConfig, CCDStats, MemoryConfig, ccd, fused
 from scalable_ccd_tpu_torch.geometry.scenes import cloth_on_sphere
 from scalable_ccd_tpu_torch.ops._build import count_launch, launch_counts
 from scalable_ccd_tpu_torch.pipeline import fused as port_fused
+from scalable_ccd_tpu_torch.pipeline import narrow as port_narrow
 from scalable_ccd_tpu_torch.utils import profiler as profiler_mod
 from scalable_ccd_tpu_torch.utils.profiler import Profiler, profiler
 
@@ -216,13 +217,13 @@ def test_ipc_ccd_strategy_leaves_one_ccd_record(cloth, monkeypatch, scene):
     solved = []
 
     def counting(name):
-        real = getattr(port_fused.NarrowSolver, name)
+        real = getattr(port_narrow.NarrowSolver, name)
 
         def counted(self, pairs, *a, **kw):
             solved.append(pairs.shape[0])
             return real(self, pairs, *a, **kw)
 
-        monkeypatch.setattr(port_fused.NarrowSolver, name, counted)
+        monkeypatch.setattr(port_narrow.NarrowSolver, name, counted)
 
     counting("solve")
     counting("solve_pairs")
