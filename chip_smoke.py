@@ -69,14 +69,15 @@ when it fails:
 11. the congested main path: ``fused_ccd(..., device="cuda")`` at its
     defaults on grid-600 (auto must resolve to the congestion ordering, no
     escalation, the batch path and no presample: one unbounded kernel B
-    launch per chunk) with zeroed launch counters, against
+    launch per phase over the pairs source, no kernel C) with zeroed launch
+    counters, against
     ``bucket_minor=False, escalate_rounds=-1`` and against the batch ladder
     at 128 rounds (one round-limited launch per chunk), then timed in turns
     with both; the same with ``sweep_impl="records"``; the bench scene at
     its defaults against the frame pool at 128 rounds, both timed; kernel
-    B's launches of a default frame, which must be one per chunk, none
-    round-limited (grid-600 4; the bench 2, and one more per phase for its
-    presample batch);
+    B's launches of a default frame, which must be one per phase, none
+    round-limited (grid-600 2; the bench 2, and one more per phase for its
+    presample batch, kernel C's only launches);
 12. the f64 kernels against their plain versions on the bench scene built
     in f64: kernel A whole, ranged and ``any_order`` (equal pair sets and
     totals, a subset of the f32 set), kernel A' (equal record multisets,
@@ -145,10 +146,9 @@ when it fails:
     grid-600 with every PyTorch record decode counted (there must be none);
     the synchronizing calls of one frame
     (``torch.cuda.set_sync_debug_mode("warn")``) of the bench scene and
-    grid-600 at their defaults (one kernel B launch per chunk) at
+    grid-600 at their defaults (one kernel B launch per phase) at
     ``narrow_batch`` 16,384 and 4,096, which must be equal, with kernel C
-    launched once per chunk of
-    whole batches and for the presample; the device idle share of one bench
+    launched for the presample alone; the device idle share of one bench
     frame from a ``torch.profiler`` trace;
 18. kernel B's pairs source on the broad chunks of the IPC cell
     (``clothball_ipc.ipc_sim``, frames 0 and 3 of one seed, 2^15-box chunks,
@@ -164,6 +164,16 @@ when it fails:
     pairs source's ``ptxas`` lines.
     ``python3 chip_smoke.py --chunk-solve`` runs the build and this phase
     alone, and names them in its ok line;
+19. kernel B's pairs source in the shared form, the main path's launch over
+    a phase (``fused_ccd``'s defaults on CUDA): on the bench scene's and
+    grid-600's VF and EE candidates, in f32, f64 and compensated rows, one
+    launch of a whole phase (VF from 1, EE seeded with VF's TOI) against the
+    plain twin on the same pairs (kernel C's and B's plain versions over
+    chunks of 2^20 rows, each seeded with the TOI before it): TOI bit for
+    bit and overflow equal, the launch counted as global and pairs, timed
+    and bounded for the ``solve_pairs[global]`` rows.
+    ``python3 chip_smoke.py --phase-solve`` runs the build and this phase
+    alone;
 last, grid-1000 in f32 timed once.
 
 Each kernel row carries its bound: the least time the card could take,
@@ -196,7 +206,7 @@ row repeat its reads, and a scene's tables fit in the card's L2), counted
 from this run's pairs, and does about 400 operations per row; it replaces
 the XLA-fused glue of ``pack_query_rows`` and of the record decode (no
 Pallas kernel), and no single PyTorch call computes it.  Kernel B's pairs
-source computes those rows in its lanes: it reads 8 bytes of ids per row
+source computes those rows in the kernel: it reads 8 bytes of ids per row
 and the table rows kernel C reads, writes and reads no column, and does
 kernel C's operations per row and kernel B's per evaluation.
 
@@ -482,7 +492,7 @@ def pair_keys(pairs, n):
 T_START = time.perf_counter()
 
 
-def main(chunk_solve_only=False):
+def main(only=None):
     import torch
 
     if not torch.cuda.is_available():
@@ -527,11 +537,16 @@ def main(chunk_solve_only=False):
         ptxas += [l.strip() for l in log.read_text().splitlines() if "registers" in l or "spill" in l]
     emit(phase="build", seconds=time.perf_counter() - t0,
          per_library=dict(_build.BUILD_SECONDS), ptxas=ptxas)
-    if chunk_solve_only:
-        phase_chunk_solve(torch, dev)
+    if only is not None:
+        if only == "chunk_solve":
+            phase_chunk_solve(torch, dev)
+        else:
+            phase_phase_solve(torch, dev,
+                              cloth_on_sphere(grid_n=128, sphere_subdiv=4, drop=0.25),
+                              cloth_on_sphere(grid_n=600, sphere_subdiv=4))
         print(smi)
         # a partial run: its ok line names the phases it ran
-        print(json.dumps({"ok": True, "phases": ["build", "chunk_solve"], "device": {
+        print(json.dumps({"ok": True, "phases": ["build", only], "device": {
             "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
         return 0
 
@@ -660,9 +675,11 @@ def main(chunk_solve_only=False):
     main_modes = read_counts(sweep_ap, solver)
     check(all(n > 0 for n in launches.values()), f"main path skipped a kernel: {launches}")
     # the bench scene's defaults: the major sort and one unbounded kernel B
-    # launch per chunk (no escalation on CUDA)
+    # launch per phase over the pairs source (no escalation on CUDA), and
+    # the presample's over kernel C's columns
     check(main_modes["sweep_whole"] > 0 and main_modes["solve_round_limit"] == 0
-          and main_modes["solve_global"] > 0, f"main path took an unexpected kernel mode: "
+          and main_modes["solve_bounded"] == 0 and main_modes["solve_pairs"] == 2
+          and main_modes["solve_global"] >= 2, f"main path took an unexpected kernel mode: "
           f"{main_modes}")
     check(not bool(res.overflowed), "bench: overflowed")
     toi = float(res.toi)
@@ -719,6 +736,7 @@ def main(chunk_solve_only=False):
     multi = phase_multi_device(torch, dev, scene, grid600_scene, mid, smi)
     loop = phase_narrow_loop(torch, dev, scene, grid600_scene)
     pairs_rows = phase_chunk_solve(torch, dev)
+    phase_rows = phase_phase_solve(torch, dev, scene, grid600_scene)
     phase_grid1000(torch, dev, cloth_on_sphere)
 
     launched = lambda run, key: precise[run].get(key, 0)  # noqa: E731
@@ -743,11 +761,19 @@ def main(chunk_solve_only=False):
          "launches": congested["records_bench_counts"]["records_sorted"], **records["sorted"]},
         {"name": "sweep_records[any_order]", **recs,
          "launches": congested["records_counts"]["records_any_order"], **records["any_order"]},
-        # global: each bench phase in one launch (phase 3); ``grid600``: each
-        # phase's first chunk of grid-600 in one launch (phase 10)
-        {"name": "solve_packed[global]", **solve, "launches": main_modes["solve_global"],
+        # global over kernel C's columns: the presample's launches on the
+        # main path; timed over each bench phase in one launch (phase 3);
+        # ``grid600``: each phase's first chunk of grid-600 in one launch
+        # (phase 10)
+        {"name": "solve_packed[global]", **solve,
+         "launches": main_modes["solve_global"] - main_modes["solve_pairs"],
          "max_abs_err": b_err, "ms": b_ms, "plain_ms": b_plain_ms, **b_bound,
          "grid600": grid_b["global"]},
+        # the pairs source in the shared form, the main path's launch over a
+        # phase (phase 4's launches); ms, plain ms and bound over the bench
+        # scene's and grid-600's phases (phase 19)
+        {"name": "solve_pairs[global]", **solve, "launches": main_modes["solve_pairs"],
+         **phase_rows["float32"]},
         {"name": "solve_packed[per_query]", **solve, "launches": ipc["solve_per_query"],
          **exact["per_query"]},
         {"name": "solve_packed[bounded]", **solve,
@@ -780,7 +806,13 @@ def main(chunk_solve_only=False):
          "launches": launched("fused_f64_records", "records_sorted_f64"),
          **f64_rows["records"]},
         {"name": "solve_packed[global,f64]", **solve,
-         "launches": launched("fused_f64", "solve_global_f64"), **f64_rows["global"]},
+         "launches": launched("fused_f64", "solve_global_f64")
+         - launched("fused_f64", "solve_pairs_f64"), **f64_rows["global"]},
+        {"name": "solve_pairs[global,f64]", **solve,
+         "launches": launched("fused_f64", "solve_pairs_f64"), **phase_rows["float64"]},
+        {"name": "solve_pairs[global,compensated]", **solve,
+         "launches": launched("fused_compensated", "solve_pairs_f64"),
+         **phase_rows["compensated"]},
         {"name": "solve_packed[per_query,f64]", **solve,
          "launches": launched("fused_f64_collisions", "solve_per_query_f64"),
          **f64_rows["per_query"]},
@@ -1584,8 +1616,8 @@ def phase_congested_main(torch, dev, grid600, bench_args, cloth_on_sphere, bench
     from scalable_ccd_tpu_torch.ops.gather_pack import chunk_rows
 
     def chunks(res):
-        """The chunks of a frame's candidates: one kernel B launch each at
-        the defaults, one round-limited pass each under escalation."""
+        """The chunks of a frame's candidates: one round-limited pass each
+        under escalation (at the defaults a phase is one launch)."""
         return sum(-(-int(n) // chunk_rows(BATCH)) for n in (res.vf_total, res.ee_total))
 
     n_vf = grid600[0].shape[0] + grid600[3].shape[0]
@@ -1602,8 +1634,9 @@ def phase_congested_main(torch, dev, grid600, bench_args, cloth_on_sphere, bench
     torch.cuda.synchronize()
     counts = read_counts()
     check(counts["sweep_any_order"] > 0 and counts["solve_round_limit"] == 0
-          and counts["solve_global"] == chunks(res),
-          f"grid-600: {counts} launches, {chunks(res)} chunks: one global launch each")
+          and counts["solve_global"] == counts["solve_pairs"] == 2
+          and counts["gather_f32"] == 0,
+          f"grid-600: {counts} launches: one global pairs launch a phase, no kernel C")
     ref = run(grid600, bucket_minor=False, escalate_rounds=-1)
     err = same(res, ref, "grid-600 defaults vs plain ordering unbounded")
     zero_counts()
@@ -1641,7 +1674,7 @@ def phase_congested_main(torch, dev, grid600, bench_args, cloth_on_sphere, bench
          ms_per_frame_median=rms, ms_per_frame=rtimes)
 
     # the bench scene at its defaults against the frame pool at 128 rounds:
-    # one kernel B launch per chunk, and one more per phase for the
+    # one kernel B launch per phase, and one more per phase for the
     # presample's batch; escalated, one round-limited pass per chunk and
     # one more per phase for the presample's batch, which is escalated on
     # its own as in the JAX package
@@ -1656,8 +1689,10 @@ def phase_congested_main(torch, dev, grid600, bench_args, cloth_on_sphere, bench
         torch.cuda.synchronize()
         bench_counts[label] = read_counts()
     presampled = int(kb.presample_vf) + int(kb.presample_ee)
-    for label, mode, want in (("defaults", "solve_f32", chunks(bench_res) + presampled),
-                              ("presample_off", "solve_f32", chunks(bench_res)),
+    for label, mode, want in (("defaults", "solve_f32", 2 + presampled),
+                              ("presample_off", "solve_f32", 2),
+                              ("defaults", "gather_f32", presampled),
+                              ("presample_off", "gather_f32", 0),
                               ("defaults", "solve_round_limit", 0),
                               ("frame_pool", "solve_round_limit", chunks(bench_res) + presampled),
                               ("frame_pool_presample_off", "solve_round_limit",
@@ -1762,7 +1797,7 @@ def phase_narrow_loop(torch, dev, bench_scene, grid600_scene):
     from scalable_ccd_tpu_torch import fused_ccd
     from scalable_ccd_tpu_torch.narrow_phase import types
     from scalable_ccd_tpu_torch.ops import gather_pack as gp
-    from scalable_ccd_tpu_torch.ops import sweep_ap, sweep_records
+    from scalable_ccd_tpu_torch.ops import solver, sweep_ap, sweep_records
     from scalable_ccd_tpu_torch.pipeline.policy import sorted_phases
     from scalable_ccd_tpu_torch.tools import stages
 
@@ -1891,9 +1926,9 @@ def phase_narrow_loop(torch, dev, bench_scene, grid600_scene):
         for m in holders:
             m.decode_records_range = real_decode
 
-    # host syncs per frame at the defaults (one kernel B launch per chunk)
-    # on the bench scene and grid-600 at two batch sizes; kernel C launched
-    # once per chunk of whole batches (and for the presample)
+    # host syncs per frame at the defaults (one kernel B launch per phase,
+    # its rows computed from the pairs) on the bench scene and grid-600 at
+    # two batch sizes; kernel C launched for the presample alone
     syncs = {}
     for name, args in (("bench", bench), ("grid600", grid600)):
         for batch in (BATCH, BATCH >> 2):
@@ -1906,12 +1941,15 @@ def phase_narrow_loop(torch, dev, bench_scene, grid600_scene):
             packs = gp.LAUNCHES_BY_MODE.total
             chunk = gp.chunk_rows(batch)
             need = -(-int(res.vf_total) // chunk) - (-int(res.ee_total) // chunk)
-            check(need <= packs <= need + 2, f"{name} narrow_batch={batch}: {packs} kernel C "
-                  f"launches for {need} chunks")
+            phase_launches = solver.LAUNCHES_BY_MODE["pairs"]
+            check(packs <= 2 and phase_launches == 2,
+                  f"{name} narrow_batch={batch}: {packs} kernel C launches (the presample's "
+                  f"alone), {phase_launches} pairs launches for 2 phases")
             check(not bool(res.overflowed), f"{name} narrow_batch={batch}: overflowed")
             syncs[name, batch] = (n, float(res.toi).hex())
             emit(phase="narrow_loop_syncs", scene=name, narrow_batch=batch, syncs=n,
                  sites=sites, kernel_c_launches=packs, chunks=need,
+                 phase_launches=phase_launches,
                  toi_hex=float(res.toi).hex(), vf_total=int(res.vf_total),
                  ee_total=int(res.ee_total))
         check(syncs[name, BATCH] == syncs[name, BATCH >> 2],
@@ -2414,8 +2452,14 @@ def phase_precision_path(torch, dev, bench_scene, mid_scene, grid600_scene, f32_
                        ("fused_f64_records", "records_sorted_f64"),
                        ("fused_f64_round_limit", "solve_round_limit_f64"),
                        ("ipc_f64", "solve_bounded_f64"), ("ipc_f64", "solve_pairs_f64"),
-                       ("ipc_compensated", "solve_pairs_f64")):
+                       ("ipc_compensated", "solve_pairs_f64"), ("fused_f64", "solve_pairs_f64"),
+                       ("fused_compensated", "solve_pairs_f64")):
         check(counts[label].get(key, 0) > 0, f"{label} launched no {key}: {counts[label]}")
+    # the fused runs' pairs launches are the shared form's, one a phase
+    for label in ("fused_f64", "fused_compensated"):
+        check(counts[label].get("solve_bounded_f64", 0) == 0
+              and counts[label].get("solve_pairs_f64", 0) == 2,
+              f"{label}: {counts[label]}, not one global pairs launch a phase")
     r64, rcomp = results["fused_f64"], results["fused_compensated"]
     t32 = float(f32_res.toi)
     for label, r in (("fused_f64", r64), ("fused_compensated", rcomp),
@@ -2761,6 +2805,102 @@ def phase_chunk_solve(torch, dev):
             for p, kr in kernel_rows.items()}
 
 
+# ---- 19. kernel B's pairs source in the shared form ---------------------------------
+
+def phase_phase_solve(torch, dev, bench_scene, grid600_scene):
+    """Phase 19 (module docstring): one shared-form launch of kernel B over
+    a whole phase's pairs, ``fused_ccd``'s launch at its defaults on CUDA,
+    against the plain twin on the same pairs, on the bench scene and
+    grid-600 in f32, f64 and compensated rows: TOI bit for bit, overflow
+    equal.  Returns the kernels rows' fields of ``solve_pairs[global]`` per
+    row type: device ms (behind a GPU sleep, mean of 3), plain ms, and the
+    bound from the least checks (the plain version seeded with the TOI)."""
+    from scalable_ccd_tpu_torch.broad_phase import merge_two_lists, sort_boxes
+    from scalable_ccd_tpu_torch.geometry import (
+        build_edge_boxes,
+        build_face_boxes,
+        build_vertex_boxes,
+    )
+    from scalable_ccd_tpu_torch.narrow_phase import types
+    from scalable_ccd_tpu_torch.ops import solver, sweep_ap
+    from scalable_ccd_tpu_torch.ops import gather_pack as gp
+
+    t_phase = time.perf_counter()
+    out = {p: {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0, **bound(0, 0)}
+           for p in CHUNK_PRECISIONS}
+    for name, sc in (("bench", bench_scene), ("grid600", grid600_scene)):
+        v0, v1, e, f = scene_on(torch, dev, sc)
+        vb = build_vertex_boxes(v0, v1)
+        cands = {}
+        # every row type solves the f32 boxes' candidates, in the main sweep's order
+        for ph, is_vf, boxes in (("vf", True, merge_two_lists(vb, build_face_boxes(vb, f))),
+                                 ("ee", False, build_edge_boxes(vb, e))):
+            sb = sort_boxes(boxes)
+            total = int(sweep_ap.sweep_pairs(sb, is_vf, count_only=True))
+            pairs, n, _, _ = sweep_ap.sweep_pairs(sb, is_vf, total)
+            cands[ph] = (is_vf, pairs, int(n))
+        del vb
+        for prec, (dt, comp) in CHUNK_PRECISIONS.items():
+            dtype = getattr(torch, dt)
+            vcat = types.concat_frames(v0, v1, dtype)
+            seed = torch.ones((), dtype=gp.row_dtype(dtype, comp), device=dev)
+            for ph, (is_vf, pairs, n) in cands.items():
+                table = (types.pack_face_table(vcat, f) if is_vf
+                         else types.pack_edge_table(vcat, e))
+
+                def launch(seed=seed, is_vf=is_vf, pairs=pairs, n=n, table=table):
+                    return solver.solve_pairs(pairs, 0, n, vcat, table, is_vf, seed, 0.0, TOL,
+                                              max_iterations=-1, compensated=comp,
+                                              skip_if_done=True)
+
+                def plain(toi, least=False, is_vf=is_vf, pairs=pairs, n=n, table=table):
+                    # the plain twin, chunk by chunk, each seeded with the
+                    # TOI before it; ``least`` counts its checks instead
+                    ovf, checks = False, 0
+                    for s in range(0, n, gp.CHUNK_ROWS):
+                        t = min(s + gp.CHUNK_ROWS, n)
+                        rows = gp.gather_pack_reference(pairs, s, t, vcat, table, is_vf, 0.0,
+                                                        TOL, comp).t()
+                        valid = torch.ones((t - s,), dtype=torch.bool, device=dev)
+                        if least:
+                            checks += solver._least_checks(rows, valid, is_vf, toi, TOL,
+                                                           widened=comp)
+                            continue
+                        toi, o, _ = solver.solve_packed_reference(rows, valid, is_vf, toi, TOL,
+                                                                  widened=comp)
+                        ovf = ovf or bool(o)
+                    return checks if least else (toi, ovf)
+
+                label = f"phase solve {name} {prec} {ph}"
+                before = dict(solver.LAUNCHES_BY_MODE)
+                k = launch()
+                torch.cuda.synchronize()
+                check(all(solver.LAUNCHES_BY_MODE[m] == before[m] + 1 for m in ("global", "pairs"))
+                      and solver.LAUNCHES_BY_MODE["bounded"] == before["bounded"],
+                      f"{label}: not one global pairs launch")
+                (tp, op_), pms = timed_once(lambda: plain(seed))
+                check(same_bits(k[0].reshape(1), tp.reshape(1)) and bool(k[1]) == op_,
+                      f"{label}: toi {float(k[0])!r} overflow {bool(k[1])} against the plain "
+                      f"twin's {float(tp)!r} {op_}")
+                least = plain(tp, least=True)
+                kms = device_ms(launch, 3)
+                o = out[prec]
+                o.update(add_bounds(o, pairs_bound(torch, pairs[:n], is_vf, least,
+                                                   vcat.element_size(), dtype == torch.float64
+                                                   or comp)))
+                o["ms"] += kms
+                o["plain_ms"] += pms
+                emit(phase="phase_solve", scene=name, precision=prec, which=ph, rows=n,
+                     seed=float(seed), toi=float(k[0]), plain_toi=float(tp), bitwise=True,
+                     overflow=bool(k[1]), checks=int(k[2]), least_checks=least, ms=kms,
+                     plain_ms=pms)
+                seed = torch.minimum(seed, k[0])
+        del cands
+        torch.cuda.empty_cache()
+    emit(phase="phase_solve_seconds", seconds=time.perf_counter() - t_phase)
+    return out
+
+
 # ---- 16. the multi-device path ------------------------------------------------------
 
 def phase_row_range(torch, dev, bench_scene, grid600_scene):
@@ -3033,4 +3173,5 @@ def phase_multi_device(torch, dev, bench_scene, grid600_scene, mid_scene, smi):
 
 
 if __name__ == "__main__":
-    sys.exit(main(chunk_solve_only=sys.argv[1:] == ["--chunk-solve"]))
+    sys.exit(main(only={"--chunk-solve": "chunk_solve", "--phase-solve": "phase_solve"}.get(
+        " ".join(sys.argv[1:]))))

@@ -13,7 +13,9 @@
 //
 // The narrow loop packs a phase's candidates in chunks of up to 2^20 rows,
 // one launch per chunk, and kernel B reads each narrow batch as a column
-// slice of its chunk (pipeline/narrow.py, the streams).  Two modes:
+// slice of its chunk (pipeline/narrow.py, the streams); on CUDA at the
+// defaults kernel B's pairs source computes a phase of pairs' rows itself
+// and this kernel is not launched for them.  Two modes:
 // - pairs: row i packs the element-id pair pairs[start + i] (kernel A's
 //   buffer);
 // - records: row i packs pair p = start + i of kernel A''s record stream:

@@ -46,10 +46,10 @@
 //      lane's search, then the idle lanes refill, so no lane waits at the
 //      end of another's search.  A lane keeps its query's row in registers
 //      (the staged slot is refilled while the query runs);
-//    - a row source fills the staged slots (template Source): the columns
-//      source copies kernel C's packed columns; the pairs source
-//      (sccd_solve_pairs, global bounded mode) reads the query's element-id
-//      pair and computes its row in the lane with kernel C's own pack_row
+//    - a row source fills the staged slots (template Source, below): the
+//      columns source copies kernel C's packed columns; the pairs source
+//      (sccd_solve_pairs, global mode) reads the query's element-id pair and
+//      computes its row in the lane with kernel C's own pack_row
 //      (csrc/pack_row.cuh), bit for bit kernel C's row.  With no column
 //      buffer, whose size grows with the rows it holds, one launch can
 //      solve a whole broad chunk of ccd() (pipeline/ccd.py: 0.36-2 M
@@ -74,10 +74,19 @@
 //    - Queries per block (shared_grid): the most of 128, 64 and 32 whose
 //      blocks still fill every SM's resident slots
 //      (cudaOccupancyMaxActiveBlocksPerMultiprocessor times the SMs), else
-//      32: a large launch (a whole chunk of up to 2^20 rows, the narrow
-//      loop's default on CUDA, pipeline/fused.py) packs its many shallow
-//      queries densely, and a small one (a batch of 16,384 rows or fewer)
-//      keeps one query per group and its blocks on every SM.
+//      32: a large launch (a whole phase, or a chunk of up to 2^20 rows)
+//      packs its many shallow queries densely, and a small one (a batch of
+//      16,384 rows or fewer) keeps one query per group and its blocks on
+//      every SM.
+//    - Rows: a row source (template Source, as form 1's) fills the block's
+//      rows when the block starts.  The columns source copies them
+//      coalesced from kernel C's columns.  The pairs source (sccd_solve_pairs
+//      with no cap) computes them, one thread a row, with pack_row, bit for
+//      bit kernel C's rows.  With no column buffer (124 bytes a float row)
+//      one launch solves a whole phase of fused_ccd's default path on CUDA
+//      (tens of millions of rows): it launches no kernel C, drains its
+//      deepest query once, and a contact found in any block prunes every
+//      other block's search.
 //    - Eight lanes per query: lane (it, iu, iv) computes F at one corner of
 //      the domain with the expression and association of domain_corners
 //      (narrow_phase/types.py), and the per-dimension min and max are
@@ -303,9 +312,11 @@ struct Stage {
   int flags[32];
 };
 
-// Form 1's row sources: stage<IS_VF>(st, lane, q) writes the 31 fields of
+// Row sources.  Form 1: stage<IS_VF>(st, lane, q) writes the 31 fields of
 // query q into slot `lane` of the warp's Stage and returns whether the row
-// is valid.
+// is valid.  Form 2: fill<IS_VF>(rows, q0, nq), which every thread of the
+// block calls, writes queries q0 + [0, nq) into slots [0, nq) of the
+// block's Rows, and valid(q) says whether query q is solved.
 //
 // The columns source: a column buffer (kernel C's, or a slice of one) and
 // the caller's valid mask.
@@ -321,23 +332,34 @@ struct ColumnRows {
     for (int k = 0; k < kRowWidth; ++k) st.v[k][lane] = src[(size_t)k * ld];
     return valid[q] != 0;
   }
+  // coalesced: neighbouring threads copy neighbouring words of a column,
+  // through the read-only path
+  template <bool IS_VF>
+  __device__ __forceinline__ void fill(Rows<T>& rows, long long q0, int nq) const {
+    for (int i = threadIdx.x; i < kRowWidth * nq; i += kShareThreads) {
+      const int k = i / nq, s = i % nq;
+      rows.v[k][s] = __ldg(cols + (size_t)k * ld + q0 + s);
+    }
+  }
+  __device__ __forceinline__ bool valid_row(long long q) const { return __ldg(valid + q) != 0; }
 };
 
-// pack_row's sink into a staged slot, widened to the rows' type T
-template <typename T>
-struct StageSink {
-  Stage<T>& st;
-  int lane;
+// pack_row's sink into slot `slot` of N staged rows (a Stage's or a
+// block's Rows), widened to the rows' type T
+template <typename T, int N>
+struct SlotSink {
+  T (&v)[kRowWidth][N];
+  int slot;
   template <typename C>
-  __device__ __forceinline__ void operator()(int k, C v) const {
-    st.v[k][lane] = (T)v;
+  __device__ __forceinline__ void operator()(int k, C x) const {
+    v[k][slot] = (T)x;
   }
 };
 
 // The pairs source: query q is the element-id pair pairs[start + q], its
 // row computed here by kernel C's pack_row (csrc/pack_row.cuh) in the
 // compute type C (float for the widened rows of T = double); every row is
-// valid.
+// valid.  Form 2 computes a block's rows one thread a row.
 template <typename T, typename C>
 struct PairRows {
   const int2* pairs;
@@ -346,9 +368,17 @@ struct PairRows {
   template <bool IS_VF>
   __device__ __forceinline__ bool stage(Stage<T>& st, int lane, long long q) const {
     const int2 ab = __ldg(pairs + start + q);
-    pack_row<C, IS_VF>(ab.x, ab.y, tables, StageSink<T>{st, lane});
+    pack_row<C, IS_VF>(ab.x, ab.y, tables, SlotSink<T, 32>{st.v, lane});
     return true;
   }
+  template <bool IS_VF>
+  __device__ __forceinline__ void fill(Rows<T>& rows, long long q0, int nq) const {
+    for (int s = threadIdx.x; s < nq; s += kShareThreads) {
+      const int2 ab = __ldg(pairs + start + q0 + s);
+      pack_row<C, IS_VF>(ab.x, ab.y, tables, SlotSink<T, kBlockQueries>{rows.v, s});
+    }
+  }
+  __device__ __forceinline__ bool valid_row(long long) const { return true; }
 };
 
 // A query's 24 point coordinates, field 3k + d, read from the block's rows
@@ -590,12 +620,11 @@ __device__ __forceinline__ int take(BlockQueue<T>& sh) {
   return -1;
 }
 
-// Form 2: the unbounded global and per-query modes.
-template <typename T, bool IS_VF, bool PER_QUERY>
+// Form 2: the unbounded global and per-query modes, its rows from `src` (a
+// row source above).
+template <typename T, bool IS_VF, bool PER_QUERY, typename Source = ColumnRows<T>>
 __global__ void __launch_bounds__(kShareThreads)
-    solve_kernel(const T* __restrict__ cols, long long ld,
-                 const T* __restrict__ skip_seed,
-                 const unsigned char* __restrict__ valid, int Q, int bq, T co_tol,
+    solve_kernel(Source src, const T* __restrict__ skip_seed, int Q, int bq, T co_tol,
                  T uv_limit, unsigned dim_cap, bool allow_zero, long long max_steps, T* toi,
                  T* __restrict__ pq_out, unsigned long long* __restrict__ checks_out,
                  int* __restrict__ ovf_out, long long* __restrict__ qchecks_out) {
@@ -615,10 +644,7 @@ __global__ void __launch_bounds__(kShareThreads)
 
   __shared__ Rows<T> rows;
   __shared__ BlockQueue<T> sh;
-  for (int i = threadIdx.x; i < kRowWidth * nq; i += kShareThreads) {
-    const int k = i / nq, s = i % nq;
-    rows.v[k][s] = cols[(size_t)k * ld + q0 + s];
-  }
+  src.template fill<IS_VF>(rows, q0, nq);
   __syncthreads();
   for (int s = threadIdx.x; s < nq; s += kShareThreads) {
     T r[3];
@@ -657,7 +683,7 @@ __global__ void __launch_bounds__(kShareThreads)
       if (head) {
         atomicAdd(&sh.work, 1);
         int s = atomicAdd(&sh.next, 1);
-        while (s < nq && !valid[q0 + s]) s = atomicAdd(&sh.next, 1);
+        while (s < nq && !src.valid_row(q0 + s)) s = atomicAdd(&sh.next, 1);
         if (s < nq) {
           got = s;
         } else {
@@ -1101,13 +1127,13 @@ struct Args {
 // form 2's queries per block for Q queries: the most of kBlockQueries, half
 // and a quarter of it whose blocks fill every SM's resident slots, else
 // kGroups (one query per lane group)
-template <typename T, bool IS_VF, bool PER_QUERY>
+template <typename T, bool IS_VF, bool PER_QUERY, typename Source = ColumnRows<T>>
 int shared_grid(int Q, int* per_sm_out) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, solve_kernel<T, IS_VF, PER_QUERY>, kShareThreads, 0);
+      &per_sm, solve_kernel<T, IS_VF, PER_QUERY, Source>, kShareThreads, 0);
   if (per_sm_out != nullptr) *per_sm_out = per_sm;
   const long long full = (long long)sms * per_sm;
   int bq = kBlockQueries;
@@ -1115,15 +1141,15 @@ int shared_grid(int Q, int* per_sm_out) {
   return bq;
 }
 
-template <typename T, bool IS_VF, bool PER_QUERY>
-int launch_shared(const Args& a) {
-  const int bq = shared_grid<T, IS_VF, PER_QUERY>(a.Q, nullptr);
-  solve_kernel<T, IS_VF, PER_QUERY>
-      <<<(a.Q + bq - 1) / bq, kShareThreads, 0, a.stream>>>(
-          (const T*)a.cols, a.ld, (const T*)a.skip_seed, (const unsigned char*)a.valid, a.Q, bq,
-          (T)a.co_tol, (T)a.uv_limit, (unsigned)a.dim_cap, a.allow_zero != 0, a.max_steps,
-          (T*)a.toi, (T*)a.pq, (unsigned long long*)a.checks, (int*)a.ovf,
-          (long long*)a.qchecks);
+template <typename T, bool IS_VF, bool PER_QUERY, typename Source>
+int launch_shared(const Args& a, const Source& src) {
+  const int bq = shared_grid<T, IS_VF, PER_QUERY, Source>(a.Q, nullptr);
+  // in 64 bits: a launch may take up to 2^31 - 1 rows
+  const unsigned blocks = (unsigned)(((long long)a.Q + bq - 1) / bq);
+  solve_kernel<T, IS_VF, PER_QUERY, Source><<<blocks, kShareThreads, 0, a.stream>>>(
+      src, (const T*)a.skip_seed, a.Q, bq, (T)a.co_tol, (T)a.uv_limit, (unsigned)a.dim_cap,
+      a.allow_zero != 0, a.max_steps, (T*)a.toi, (T*)a.pq, (unsigned long long*)a.checks,
+      (int*)a.ovf, (long long*)a.qchecks);
   return (int)cudaGetLastError();
 }
 
@@ -1161,9 +1187,9 @@ int launch_lanes(const Args& a, const Source& src) {
 
 template <typename T, bool IS_VF, bool PER_QUERY>
 int launch_form(int share, const Args& a) {
-  if (share) return launch_shared<T, IS_VF, PER_QUERY>(a);
-  return launch_lanes<T, IS_VF, PER_QUERY>(
-      a, ColumnRows<T>{(const T*)a.cols, a.ld, (const unsigned char*)a.valid});
+  const ColumnRows<T> src{(const T*)a.cols, a.ld, (const unsigned char*)a.valid};
+  if (share) return launch_shared<T, IS_VF, PER_QUERY>(a, src);
+  return launch_lanes<T, IS_VF, PER_QUERY>(a, src);
 }
 
 template <typename T>
@@ -1173,11 +1199,14 @@ int launch_mode(int is_vf, int per_query, int share, const Args& a) {
   return per_query ? launch_form<T, false, true>(share, a) : launch_form<T, false, false>(share, a);
 }
 
-// the pairs source's launch: rows of type T computed in type C, global mode
+// the pairs source's launch: rows of type T computed in type C, global
+// mode, the form from the mode (share: unbounded)
 template <typename T, typename C>
-int launch_pairs(int is_vf, const Args& a, const void* pairs, long long start,
+int launch_pairs(int is_vf, int share, const Args& a, const void* pairs, long long start,
                  const PackTables<C>& tables) {
   const PairRows<T, C> src{(const int2*)pairs, start, tables};
+  if (share)
+    return is_vf ? launch_shared<T, true, false>(a, src) : launch_shared<T, false, false>(a, src);
   return is_vf ? launch_lanes<T, true, false>(a, src) : launch_lanes<T, false, false>(a, src);
 }
 
@@ -1233,17 +1262,18 @@ extern "C" int sccd_solve_packed(const void* cols, long long ld,
                 : launch_mode<float>(is_vf, per_query, share, a);
 }
 
-// The pairs source (form 1, global bounded mode): query q is the element-id
-// pair pairs[start + q], q < Q, its row computed in the kernel as kernel C
+// The pairs source (global mode): query q is the element-id pair
+// pairs[start + q], q < Q, its row computed in the kernel as kernel C
 // computes it (csrc/gather_pack.cu's sccd_gather_pack takes the same pairs,
 // tables, kind, ms, co_tol and k_eps), so that no column buffer exists and
-// one launch can solve a whole broad chunk.  pairs: int32 (N, 2), 8-byte
-// aligned; vcat (nv, 6) and table ((nt, 18) faces when is_vf, (nt, 12)
-// edges) in the compute type, 16-byte aligned.  kind: 0 float rows, 1
-// double rows, 2 widened rows (float compute, double rows and TOI, f32's
-// split cap in dim_cap).  co_tol is the co-domain tolerance in the compute
-// type, for the rows and the solve alike.  max_iterations >= 0.  The rest
-// as for sccd_solve_packed; every row is valid.
+// one launch can solve a whole broad chunk or phase.  Bounded
+// (max_iterations >= 0) in form 1, unbounded (max_iterations < 0) in form
+// 2.  pairs: int32 (N, 2), 8-byte aligned; vcat (nv, 6) and table ((nt,
+// 18) faces when is_vf, (nt, 12) edges) in the compute type, 16-byte
+// aligned.  kind: 0 float rows, 1 double rows, 2 widened rows (float
+// compute, double rows and TOI, f32's split cap in dim_cap).  co_tol is the
+// co-domain tolerance in the compute type, for the rows and the solve
+// alike.  The rest as for sccd_solve_packed; every row is valid.
 extern "C" int sccd_solve_pairs(const void* pairs, long long start, int Q, const void* vcat,
                                 int nv, const void* table, int nt, int is_vf, int kind,
                                 double ms, double co_tol, double k_eps,
@@ -1251,26 +1281,27 @@ extern "C" int sccd_solve_pairs(const void* pairs, long long start, int Q, const
                                 long long max_iterations, double uv_limit, void* toi,
                                 void* checks, void* overflow, void* query_checks,
                                 void* stream) {
-  if (Q < 0 || start < 0 || kind < 0 || kind > 2 || nv < 1 || nt < 1 ||
-      max_iterations < 0 || dim_cap < 1 || dim_cap > 255)
+  if (Q < 0 || start < 0 || kind < 0 || kind > 2 || nv < 1 || nt < 1 || dim_cap < 1 ||
+      dim_cap > 255)
     return (int)cudaErrorInvalidValue;
   if (Q == 0) return 0;
+  const int share = max_iterations < 0;
   const Args a{(cudaStream_t)stream, nullptr, 0, skip_seed, nullptr, Q, co_tol, uv_limit,
                dim_cap, allow_zero_toi, max_iterations, -1, guard_steps(max_iterations, -1),
                toi, nullptr, nullptr, checks, overflow, query_checks};
   if (kind == 0) {
     const PackTables<float> t{(const float*)vcat, nv, (const float*)table, nt, (float)ms,
                               (float)co_tol, (float)k_eps};
-    return launch_pairs<float, float>(is_vf, a, pairs, start, t);
+    return launch_pairs<float, float>(is_vf, share, a, pairs, start, t);
   }
   if (kind == 1) {
     const PackTables<double> t{(const double*)vcat, nv, (const double*)table, nt, ms, co_tol,
                                k_eps};
-    return launch_pairs<double, double>(is_vf, a, pairs, start, t);
+    return launch_pairs<double, double>(is_vf, share, a, pairs, start, t);
   }
   const PackTables<float> t{(const float*)vcat, nv, (const float*)table, nt, (float)ms,
                             (float)co_tol, (float)k_eps};
-  return launch_pairs<double, float>(is_vf, a, pairs, start, t);
+  return launch_pairs<double, float>(is_vf, share, a, pairs, start, t);
 }
 
 // The grid form 1 takes for Q queries (for reports): its 128-thread blocks,

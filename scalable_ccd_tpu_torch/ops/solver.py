@@ -43,8 +43,8 @@ device: a launch seeded with a running TOI of 0 or less does nothing.
 
 :func:`solve_pairs` takes no rows at all: the candidate pairs and the
 phase's tables, each row computed inside kernel B as kernel C computes it
-(its pairs source), for a global bounded solve of a whole broad chunk in one
-launch with no column buffer.
+(its pairs source), for a global solve, bounded or not, of a whole broad
+chunk or phase in one launch with no column buffer.
 """
 
 from __future__ import annotations
@@ -84,8 +84,8 @@ __all__ = [
 #: kernel launches made by :func:`solve_packed` and :func:`solve_pairs` in
 #: this process, by mode: "global" (neither per-query, bounded nor
 #: round-limited), "per_query", "bounded", "round_limit" and "pairs" (the
-#: pairs source, :func:`solve_pairs`, whose launches are bounded too); a
-#: launch counts in each of its modes; by scalar type as
+#: pairs source, :func:`solve_pairs`, global or bounded); a launch counts
+#: in each of its modes; by scalar type as
 #: :func:`scalable_ccd_tpu_torch.ops._build.launch_counts` lays out
 LAUNCHES_BY_MODE = launch_counts("solver", "global", "per_query", "bounded", "round_limit",
                                  "pairs")
@@ -93,6 +93,10 @@ LAUNCHES_BY_MODE = launch_counts("solver", "global", "per_query", "bounded", "ro
 #: rows per batch of :func:`solve_pairs`'s plain twin (``MemoryConfig.
 #: query_buckets[-1]``, ``ccd()``'s narrow batch), which bounds its memory
 PAIRS_BATCH = 1 << 17
+
+#: the most rows of one :func:`solve_pairs` launch (the kernel's ``int``
+#: row count); a longer range is solved in launches of at most this many
+LAUNCH_ROWS = 2**31 - 1
 
 #: rows per pool block of the escalation glue (the JAX package's solver
 #: block, ``SOLVER_BLOCK_SUB * 128``)
@@ -382,18 +386,20 @@ def solve_pairs(pairs, start: int, stop: int, vcat, table, is_vf: bool, toi_init
                 tolerance, allow_zero_toi: bool = True, max_iterations: int = 1_000_000,
                 compensated: bool = False, skip_if_done: bool = False,
                 batch: int = PAIRS_BATCH):
-    """Global bounded solve of the candidate pairs ``pairs[start:stop]``
-    with no packed rows: returns 0-d ``(toi, overflow, checks)`` as
+    """Global solve of the candidate pairs ``pairs[start:stop]`` with no
+    packed rows: returns 0-d ``(toi, overflow, checks)`` as
     :func:`solve_packed` does, ``toi`` in the rows' dtype
     (:func:`scalable_ccd_tpu_torch.ops.gather_pack.row_dtype`).
 
     ``pairs``, ``vcat``, ``table``, ``is_vf``, ``ms``, ``tolerance`` and
     ``compensated`` are :func:`scalable_ccd_tpu_torch.ops.gather_pack.
     gather_pack`'s; ``toi_init``, ``allow_zero_toi``, ``max_iterations``
-    (``>= 0``) and ``skip_if_done`` are :func:`solve_cols`'s.  On CUDA it is
-    one launch of kernel B's one-thread form whose lanes compute each row
-    from its pair as kernel C does, bit for bit, so that no column buffer
-    exists and a broad chunk of any size is one launch.  Its plain twin, on
+    (``< 0``: unbounded) and ``skip_if_done`` are :func:`solve_cols`'s.  On
+    CUDA it is one launch of kernel B (the one-thread form when bounded,
+    the shared form when unbounded) whose threads compute each row from its
+    pair as kernel C does, bit for bit, so that no column buffer exists and
+    a broad chunk or a whole phase is one launch (a range past
+    :data:`LAUNCH_ROWS` rows, one launch per that many).  Its plain twin, on
     CPU tensors, packs and solves batches of at most ``batch`` rows in turn
     (:func:`~scalable_ccd_tpu_torch.ops.gather_pack.gather_pack_reference`
     and :func:`solve_packed_reference`), each seeded with the TOI before it,
@@ -401,8 +407,6 @@ def solve_pairs(pairs, start: int, stop: int, vcat, table, is_vf: bool, toi_init
     queries, and how they are split into launches changes only the checks
     (where a cap binds, the result depends on the order, module
     docstring)."""
-    if max_iterations < 0:
-        raise ValueError("solve_pairs: a bounded solve (max_iterations >= 0)")
     start, stop = int(start), int(stop)
     if pairs.device.type == "cpu":
         from scalable_ccd_tpu_torch.ops.gather_pack import gather_pack_reference
@@ -440,33 +444,35 @@ def _launch_pairs(pairs, start, stop, vcat, table, is_vf, toi_init, ms, toleranc
     if not 0 <= start <= stop <= pairs.shape[0]:
         raise ValueError(f"solve_pairs: rows [{start}, {stop}) outside the {pairs.shape[0]} "
                          "pairs")
-    Q = stop - start
-    if Q >= 2**31:
-        raise ValueError(f"solve_pairs: {Q} rows exceed the kernel's index range")
     rdt = gp.row_dtype(dt, compensated)
     f64 = rdt == torch.float64
     caps = search_caps(rdt, compensated)
-    # the running TOI before this launch; + 0.0 turns a -0.0 seed into +0.0
+    # the running TOI before the first launch; + 0.0 turns a -0.0 seed into
+    # +0.0 (the atomicMin compares integer bits)
     seed = torch.as_tensor(toi_init, dtype=rdt, device=dev).reshape(1)
     toi = seed + 0.0
     checks = torch.zeros((1,), dtype=torch.int64, device=dev)
     ovf = torch.zeros((1,), dtype=torch.int32, device=dev)
-    if Q > 0:
+    if stop > start:
         kind, ms_t, co_tol, k_eps = gp._scalars(dt, is_vf, ms, tolerance, compensated)
         lib = load_library("solver")
         _bind(lib)  # the error strings' types
         fn = _bind_pairs(lib)
-        with torch.cuda.device(dev):
-            rc = fn(pairs.data_ptr(), start, Q, vcat.data_ptr(), vcat.shape[0],
-                    table.data_ptr(), table.shape[0], int(bool(is_vf)), kind, ms_t, co_tol,
-                    k_eps, seed.data_ptr() if skip_if_done else None,
-                    int(bool(allow_zero_toi)), caps.dim_cap, int(max_iterations),
-                    caps.uv_limit, toi.data_ptr(), checks.data_ptr(), ovf.data_ptr(), None,
-                    torch.cuda.current_stream(dev).cuda_stream)
-        if rc != 0:
-            msg = lib.sccd_solver_error_string(rc).decode()
-            raise RuntimeError(f"solver kernel launch failed: {msg}")
-        count_launch(LAUNCHES_BY_MODE, ["bounded", "pairs"], f64)
+        modes = ["global" if max_iterations < 0 else "bounded", "pairs"]
+        for s in range(start, stop, LAUNCH_ROWS):
+            # a later launch's skip seed is the TOI the launches before it left
+            skip = (seed if s == start else toi.clone()) if skip_if_done else None
+            with torch.cuda.device(dev):
+                rc = fn(pairs.data_ptr(), s, min(LAUNCH_ROWS, stop - s), vcat.data_ptr(),
+                        vcat.shape[0], table.data_ptr(), table.shape[0], int(bool(is_vf)),
+                        kind, ms_t, co_tol, k_eps, skip.data_ptr() if skip is not None else None,
+                        int(bool(allow_zero_toi)), caps.dim_cap, int(max_iterations),
+                        caps.uv_limit, toi.data_ptr(), checks.data_ptr(), ovf.data_ptr(), None,
+                        torch.cuda.current_stream(dev).cuda_stream)
+            if rc != 0:
+                msg = lib.sccd_solver_error_string(rc).decode()
+                raise RuntimeError(f"solver kernel launch failed: {msg}")
+            count_launch(LAUNCHES_BY_MODE, modes, f64)
     return toi[0], ovf[0] != 0, checks[0]
 
 

@@ -20,8 +20,10 @@ Counterpart of ``scalable_ccd_tpu/pipeline/fused.py:fused_ccd``.  In order:
    (:mod:`scalable_ccd_tpu_torch.ops.solver`), both driven by the narrow
    layer every entry point shares (:mod:`scalable_ccd_tpu_torch.pipeline.
    narrow`): a global solve with no cap
-   and no escalation is one unbounded launch per chunk, every other solve
-   one or more launches per batch, a column slice of its chunk.  VF runs
+   and no escalation is one unbounded launch per chunk, and on CUDA over a
+   stream of pairs one launch per phase whose threads compute the rows from
+   the pairs (kernel C is not launched), every other solve one or more
+   launches per batch, a column slice of its chunk.  VF runs
    before EE and one running TOI is threaded through both; below 2^20
    boxes (or as ``presample`` says) a phase starts with one warm-start
    batch spread over its candidates, and it stops early once the TOI
@@ -29,7 +31,8 @@ Counterpart of ``scalable_ccd_tpu/pipeline/fused.py:fused_ccd``.  In order:
 5. staged escalation (``escalate_rounds``): off by default on CUDA, where
    kernel B's unbounded form shares a deep query's domains between the lane
    groups of its block (escalation splits shallow queries from deep ones
-   for the TPU kernel's lockstep lanes), so each chunk is one launch; 128
+   for the TPU kernel's lockstep lanes), so each chunk, or phase of pairs,
+   is one launch; 128
    rounds on the global path elsewhere, as in the JAX package, and where
    ``escalate_rounds`` or ``escalate_pool`` asks for it: below 2^20 VF
    boxes the frame straggler pool (every batch's unfinished rows after one
@@ -81,12 +84,13 @@ the narrow loop's decisions on the device as the JAX package keeps them:
 a phase's candidates are packed in a few kernel C launches (gather and pack,
 :mod:`scalable_ccd_tpu_torch.ops.gather_pack`, one per chunk of at most
 2^20 rows, sized from the pair count the host already holds).  At the
-defaults on CUDA each chunk is then one unbounded kernel B launch over its
-columns, so the host iterates no batch; with escalation the round-limited
-first pass is one launch over the chunk and every batch kernel B launches
-on its slice of the chunk.  The ``toi > 0`` exit is kernel B's
-``skip_if_done`` (a chunk or batch after the TOI reached 0 does nothing);
-the frame pool's pool/solve-now choice and the batch ladder's skip/small/
+defaults on CUDA a phase of pairs is one unbounded kernel B launch that
+computes its rows itself, with no column buffer (records: one launch per
+chunk over its columns), so the host iterates no batch; with escalation the
+round-limited first pass is one launch over the chunk and every batch
+kernel B launches on its slice of the chunk.  The ``toi > 0`` exit is
+kernel B's ``skip_if_done`` (a phase, chunk or batch after the TOI reached
+0 does nothing); the frame pool's pool/solve-now choice and the batch ladder's skip/small/
 full choice are predicates on device scalars.  The host reads a fixed
 number of scalars per phase, whatever the number of batches:
 
@@ -108,11 +112,12 @@ call), ``sccd.upload`` (checks, validation, upload, knobs and budgets),
 with ``sccd.tables``, ``sccd.sweep`` (step 3 with its totals read and
 retry) and ``sccd.narrow`` (steps 4-5), and inside it ``sccd.presample``,
 ``sccd.pack`` (a chunk's kernel C launch), ``sccd.first_pass`` (a chunk's
-round-limited pass), ``sccd.batches`` (a chunk's per-batch loop, or its one
-unbounded launch) and ``sccd.pool`` (the frame pool's cursor read and dense
-pass); and the counters ``batches`` (the narrow batches the host iterates:
-the presample's and those of the per-batch paths), ``chunk_solves`` (chunks
-solved with one unbounded launch) and ``budget_retries``, beside the
+round-limited pass), ``sccd.batches`` (a chunk's per-batch loop, or a
+chunk's or phase's one unbounded launch) and ``sccd.pool`` (the frame pool's
+cursor read and dense pass); and the counters ``batches`` (the narrow
+batches the host iterates: the presample's and those of the per-batch
+paths), ``chunk_solves`` (chunks, or on CUDA phases of pairs, solved with
+one unbounded launch) and ``budget_retries``, beside the
 kernels' ``launch.<kernel>.<mode>``.  None of them reads the device.
 """
 
@@ -324,8 +329,13 @@ def _narrow_phase(stream, budget, presample, nar: NarrowSolver, toi, collisions,
         return toi, checks, capped, refinements
     if not ipc_refine:
         # the reference chunk loop's `remaining_queries && toi > 0`: a
-        # chunk's launch, or each batch's first one, skips on the device
-        # once the TOI is 0 (skip_if_done)
+        # phase's or chunk's launch, or each batch's first one, skips on the
+        # device once the TOI is 0 (skip_if_done)
+        if nar.whole_phase(stream):
+            if n_pairs > 0:
+                toi, cap, ck = nar.solve_phase(stream, toi)
+                checks, capped = checks + ck, capped | cap
+            return toi, checks, capped, refinements
         for c0 in range(0, n_pairs, stream.chunk):
             toi, cap, ck = nar.solve_chunk(stream.cols(c0, min(c0 + stream.chunk, n_pairs)),
                                            toi, batch)

@@ -26,6 +26,7 @@ from scalable_ccd_tpu_torch.ops.gather_pack import (
     row_dtype,
 )
 from scalable_ccd_tpu_torch.ops.solver import (
+    LAUNCH_ROWS,
     ROW_WIDTH,
     solve_cols,
     solve_escalated_cols,
@@ -116,16 +117,38 @@ class NarrowSolver(NamedTuple):
             widened=self.compensated, **modes))
 
     def solve_pairs(self, pairs, start, stop, toi, batch: int):
-        """A global bounded solve of the element-id pairs ``pairs[start:stop]``
-        with the phase's options, seeded with ``toi``, skipped once ``toi``
-        is 0: one kernel B launch whose lanes compute each row themselves,
-        with no columns (:func:`scalable_ccd_tpu_torch.ops.solver.
-        solve_pairs`; its plain twin in batches of ``batch`` rows); the
-        outputs of :func:`solve_cols`."""
+        """A global solve of the element-id pairs ``pairs[start:stop]`` with
+        the phase's options (bounded or not, as its ``max_iterations``),
+        seeded with ``toi``, skipped once ``toi`` is 0: one kernel B launch
+        whose threads compute each row themselves, with no columns
+        (:func:`scalable_ccd_tpu_torch.ops.solver.solve_pairs`; its plain
+        twin in batches of ``batch`` rows); the outputs of
+        :func:`solve_cols`."""
         return self._narrowed(solve_pairs(
             pairs, start, stop, self.vcat, self.table, self.is_vf, toi, self.ms,
             self.tolerance, self.allow_zero_toi, self.max_iterations, self.compensated,
             skip_if_done=True, batch=batch))
+
+    def whole_phase(self, stream) -> bool:
+        """Whether a global solve of ``stream`` is :meth:`solve_phase`, one
+        unbounded kernel B launch over its pairs: a :class:`PairStream` on
+        CUDA, and neither a cap nor escalation.  Elsewhere its chunks are
+        packed and solved one by one (:meth:`solve_chunk`)."""
+        return (isinstance(stream, PairStream) and stream.pairs.device.type == "cuda"
+                and self.max_iterations < 0 and not normalize_round_limits(self.round_limit))
+
+    def solve_phase(self, stream, toi):
+        """Solve every candidate of a :class:`PairStream` from the running
+        TOI ``toi`` (skipped once it is 0) in one unbounded launch whose
+        threads compute the rows from the pairs (:meth:`solve_pairs`): no
+        column buffer and no kernel C launch.  The global TOI is a minimum
+        over the queries, so solving a phase in one launch rather than one
+        per chunk changes only the checks.  Returns ``(toi, overflow,
+        checks)``; counts its launches in ``chunk_solves``."""
+        prof = profiler()
+        prof.count("chunk_solves", -(-stream.n // LAUNCH_ROWS))
+        with prof.span("sccd.batches"):
+            return self.solve_pairs(stream.pairs, 0, stream.n, toi, stream.batch)
 
     def solve(self, pairs, toi, exact=False, skip_if_done=False):
         """A global :meth:`solve_batch` of ``(P, 2)`` element-id pairs, packed

@@ -38,7 +38,10 @@ dtype, the device and the stage's counts.  ``device`` is as for the entry
 points: CUDA unless the caller asks for the CPU.
 
 ``--kernel-b [--plain]`` measures kernel B alone on the rows the main path
-gives it (:func:`run_kernel_b`), on a CUDA device::
+gives it (:func:`run_kernel_b`), and then one launch over a whole phase's
+pairs against the per-chunk launches over kernel C's columns it replaces on
+frames of a million-triangle cloth (:func:`run_phase_launches`), on a CUDA
+device::
 
     python -m scalable_ccd_tpu_torch.tools.stages --kernel-b --plain
 
@@ -100,8 +103,9 @@ from scalable_ccd_tpu_torch.pipeline.policy import (
     resolve_knobs,
 )
 
-__all__ = ["run_stages", "kernel_b_sets", "run_kernel_b", "run_kernel_a", "run_frames",
-           "run_escalation", "count_syncs", "idle_share", "main"]
+__all__ = ["run_stages", "kernel_b_sets", "run_kernel_b", "run_phase_launches",
+           "sliding_frame", "run_kernel_a", "run_frames", "run_escalation", "count_syncs",
+           "idle_share", "main"]
 
 
 def _timed(fn, reps: int, device: torch.device):
@@ -237,8 +241,10 @@ def _recorded_launches(calls, keep=lambda kw: True):
     solve_cols`'s keywords plus ``cols``, contiguous ``(31, Q)`` columns,
     and ``valid``), those that ``keep`` accepts; launches with no valid
     row, and launches that ``skip_if_done`` stops, do no work and are left
-    out."""
-    launch = solver._launch
+    out.  A launch over pairs (:func:`scalable_ccd_tpu_torch.ops.solver.
+    solve_pairs`) is recorded with kernel C's columns of its pairs, the
+    rows it computes, and keeps its inputs under ``"pairs"``."""
+    launch, launch_pairs = solver._launch, solver._launch_pairs
 
     def record(cols, valid, is_vf, toi_init, tolerance, allow_zero_toi, per_query,
                max_iterations, round_limit, widened, query_checks=False, skip_if_done=False):
@@ -254,11 +260,30 @@ def _recorded_launches(calls, keep=lambda kw: True):
         return launch(cols, valid, is_vf, toi_init, tolerance, allow_zero_toi, per_query,
                       max_iterations, round_limit, widened, query_checks, skip_if_done)
 
-    solver._launch = record
+    def record_pairs(pairs, start, stop, vcat, table, is_vf, toi_init, ms, tolerance,
+                     allow_zero_toi, max_iterations, compensated, skip_if_done):
+        kw = {"is_vf": bool(is_vf), "tolerance": tolerance,
+              "allow_zero_toi": bool(allow_zero_toi), "per_query": False,
+              "max_iterations": int(max_iterations), "round_limit": -1,
+              "widened": bool(compensated)}
+        idle = stop <= start or (skip_if_done and float(toi_init) <= 0)
+        if keep(kw) and not idle:
+            ids = pairs[start:stop].clone()
+            calls.append({"cols": gather_pack.gather_pack(ids, 0, stop - start, vcat, table,
+                                                          is_vf, ms, tolerance, compensated),
+                          "valid": torch.ones((stop - start,), dtype=torch.bool,
+                                              device=pairs.device),
+                          "toi_init": torch.as_tensor(toi_init).clone(),
+                          "pairs": {"pairs": ids, "vcat": vcat, "table": table, "ms": ms,
+                                    "compensated": bool(compensated)}, **kw})
+        return launch_pairs(pairs, start, stop, vcat, table, is_vf, toi_init, ms, tolerance,
+                            allow_zero_toi, max_iterations, compensated, skip_if_done)
+
+    solver._launch, solver._launch_pairs = record, record_pairs
     try:
         yield calls
     finally:
-        solver._launch = launch
+        solver._launch, solver._launch_pairs = launch, launch_pairs
 
 
 def _mode(call):
@@ -278,8 +303,8 @@ def kernel_b_sets(device=None) -> list:
       ``round_limit`` pass per chunk, here each phase's candidates, then
       the pool's blocks of at most 2,048 rows, ``global``);
     - ``bench_unbounded``: the same frame with ``escalate_rounds=-1``, the
-      defaults on CUDA (the presample's batch and each chunk one ``global``
-      pass);
+      defaults on CUDA (the presample's batch and each phase one ``global``
+      pass, its rows here packed by kernel C);
     - ``grid600``: ``fused_ccd`` of ``cloth_on_sphere(600, 4)`` with
       escalation at 128 rounds (the batch ladder): each phase's first
       ``round_limit`` pass, over its first chunk of up to 2^20 rows, and the
@@ -427,6 +452,96 @@ def _against_plain(calls, mode, outs):
                                  c["allow_zero_toi"], c["widened"])
             for c, p in zip(calls, ref))
     return out
+
+
+#: the frames of :func:`run_phase_launches`: ``(grid_n, lift)`` of
+#: :func:`sliding_frame` at the ``million`` cell's size (506,662 vertices):
+#: raised clear of the sphere (TOI 1), and moving into it
+_PHASE_FRAMES = {"million_clear": (710, 0.9), "million_contact": (710, 0.0)}
+
+
+def sliding_frame(grid_n: int, lift: float = 0.0):
+    """``cloth_on_sphere(grid_n, 4, drop=0.25)`` whose cloth also slides
+    (2.5, 1.5) grid spacings sideways in the step and is raised by ``lift``
+    at t=0 and t=1, the motion of the benchmark's cloth cells: a sliding
+    cloth's boxes overlap those of the cells it passes, about 14 VF
+    candidates a VF box and 35 EE candidates an edge.  Numpy ``(v0, v1,
+    edges, faces)``."""
+    s = cloth_on_sphere(grid_n=grid_n, sphere_subdiv=4, drop=0.25)
+    v0, v1 = s.vertices_t0.copy(), s.vertices_t1.copy()
+    cloth = grid_n * grid_n
+    spacing = 2.4 / (grid_n - 1)
+    v0[:cloth, 1] += lift
+    v1[:cloth, 1] += lift
+    v1[:cloth, 0] += 2.5 * spacing
+    v1[:cloth, 2] += 1.5 * spacing
+    return v0, v1, s.edges, s.faces
+
+
+def run_phase_launches(device=None, reps=3, emit=print) -> list:
+    """Kernel B's unbounded shared form on whole phases of
+    :data:`_PHASE_FRAMES`: one JSON line per frame and phase.  ``fused_ccd``
+    at its defaults solves each phase in one launch over its pairs, the
+    rows computed in the kernel; that launch is recorded and timed
+    (``phase_ms``) against what it replaces, one launch over the columns of
+    each chunk of at most 2^20 rows (kernel C's, packed beforehand), each
+    seeded with the TOI the chunks before it leave: each such launch alone
+    (``chunk_ms``, against ``chunk_rows``) and all in turn (``chunks_ms``).
+    ``straggler_ms``, ``(sum(chunk_ms) - phase_ms) / (chunks - 1)``, is what
+    each launch past the first adds: the part of a launch that does not
+    grow with its rows (the deepest query's chain, a straggler), and on a
+    frame in contact also the pruning that one launch shares across the
+    phase (null for a phase of one chunk).  Device ms behind a GPU
+    sleep, the mean of ``reps``; ``equal``: the two paths' TOIs bit for bit
+    and their overflow flags equal."""
+    device = resolve_device(device)
+    if device.type != "cuda":
+        raise RuntimeError("run_phase_launches times kernel B launches: it needs a CUDA device")
+    lines = []
+    for name, (grid_n, lift) in _PHASE_FRAMES.items():
+        v0, v1, e, f = mesh_tensors(*sliding_frame(grid_n, lift), device, pca=False)
+        with _recorded_launches([]) as calls:
+            fused_ccd(v0, v1, e, f, device=device, validate=False)
+        for c in (c for c in calls if "pairs" in c):
+            lines.append(_phase_line(name, c, reps))
+            emit(json.dumps(lines[-1]))
+        del calls
+        torch.cuda.empty_cache()
+    return lines
+
+
+def _phase_line(frame, c, reps):
+    """One line of :func:`run_phase_launches` for the recorded phase
+    launch ``c``."""
+    p = c["pairs"]
+    ids, n, is_vf, comp = p["pairs"], c["cols"].shape[1], c["is_vf"], p["compensated"]
+    chunk = gather_pack.CHUNK_ROWS
+    spans = [(s, min(s + chunk, n)) for s in range(0, n, chunk)]
+
+    def phase():
+        return solver.solve_pairs(ids, 0, n, p["vcat"], p["table"], is_vf, c["toi_init"],
+                                  p["ms"], c["tolerance"], c["allow_zero_toi"], -1, comp)
+
+    def one_chunk(a, b, seed):
+        return solver.solve_cols(c["cols"][:, a:b], c["valid"][a:b], is_vf, seed,
+                                 c["tolerance"], c["allow_zero_toi"], widened=comp)
+
+    seeds, toi, ovf = [], c["toi_init"], False
+    for a, b in spans:
+        seeds.append(toi)
+        out = one_chunk(a, b, toi)
+        toi, ovf = torch.minimum(toi, out[0].to(toi.dtype)), ovf or bool(out[1])
+    whole = phase()
+    chunk_ms = [_events_ms(lambda: one_chunk(a, b, t), reps) for (a, b), t in zip(spans, seeds)]
+    phase_ms = _events_ms(phase, reps)
+    chunks_ms = _events_ms(lambda: [one_chunk(a, b, t) for (a, b), t in zip(spans, seeds)], reps)
+    k = len(spans)
+    return {"set": "phase_launch", "frame": frame, "phase": "vf" if is_vf else "ee",
+            "rows": n, "chunks": k, "phase_ms": phase_ms, "chunks_ms": chunks_ms,
+            "chunk_rows": [b - a for a, b in spans], "chunk_ms": chunk_ms,
+            "straggler_ms": (sum(chunk_ms) - phase_ms) / (k - 1) if k > 1 else None,
+            "toi": float(whole[0]), "overflow": bool(whole[1]) or ovf,
+            "equal": float(whole[0]) == float(toi) and bool(whole[1]) == ovf}
 
 
 # ---- kernel A alone, and the frames that use it ------------------------------------
@@ -782,7 +897,7 @@ def run_escalation(device=None, reps=5, emit=print) -> list:
     JSON line per scene of ``_ESCALATION_SCENES`` and variant: ``fused_ccd``
     with ``escalate_rounds=128`` (the bench scene's frame pool, grid-600's
     batch ladder) and with ``escalate_rounds=-1`` (the defaults on CUDA:
-    one launch per chunk), timed in turns (escalated, unbounded, unbounded,
+    one launch per phase), timed in turns (escalated, unbounded, unbounded,
     escalated; each turn the median host ms of ``reps`` frames after a
     warm-up), with the TOI's ``float.hex``, the
     totals, kernel B's launches per frame by mode and one traced frame
@@ -859,6 +974,7 @@ def main(argv=None) -> int:
         return 0 if not any(o.get("overflowed") for o in lines) else 1
     if a.kernel_b:
         lines = run_kernel_b(a.device, a.reps, a.plain)
+        lines += run_phase_launches(a.device, a.reps)
         return 0 if all(o.get("equal", True) and not o["overflow"] for o in lines) else 1
     run_stages(a.grid, a.subdiv, a.drop, a.dtype, a.device, a.reps)
     return 0

@@ -282,7 +282,3 @@ def test_solve_pairs_equals_pack_and_solve(touching, is_vf, kind, ms):
     assert skipped[0].item() == 0.0 and int(skipped[2]) == 0
 
 
-def test_solve_pairs_takes_only_a_bounded_solve(touching):
-    pairs, n, vcat, table = _phase_pairs(touching, True, torch.float32, False)
-    with pytest.raises(ValueError, match="bounded"):
-        solver.solve_pairs(pairs, 0, n, vcat, table, True, 1.0, 0.0, TOL, max_iterations=-1)

@@ -1128,6 +1128,84 @@ def test_solver_pairs_source_ragged_ranges(cuda, q):
         solver.solve_pairs(pairs, n, pairs.shape[0] + 1, vcat, table, False, 1.0, 0.0, TOL)
 
 
+#: the shared form's scenes: ``cloth_on_sphere`` arguments
+_SHARED_SCENES = {"bench": (128, 4, 0.25), "grid600": (600, 4, 0.25)}
+_SCENE_CANDIDATES = {}
+
+
+def _scene_candidates(device, scene, dtype, is_vf):
+    """``(pairs buffer, n, vcat, table)`` of a scene of
+    :data:`_SHARED_SCENES` in ``dtype``, as :func:`_bench_candidates`."""
+    if scene == "bench":
+        return _bench_candidates(device, dtype, is_vf)
+    key = (scene, dtype, is_vf)
+    if key not in _SCENE_CANDIDATES:
+        _SCENE_CANDIDATES.clear()  # one scene's candidates held at a time
+        s = from_numpy_scene(scenes.cloth_on_sphere(*_SHARED_SCENES[scene]), device)
+        vb = aabb.build_vertex_boxes(s.vertices_t0, s.vertices_t1, dtype=dtype)
+        boxes = (merge_two_lists(vb, aabb.build_face_boxes(vb, s.faces)) if is_vf
+                 else aabb.build_edge_boxes(vb, s.edges))
+        total = int(sweep_ap.sweep_pairs(sort_boxes(boxes), is_vf, count_only=True))
+        pairs, n, _, _ = sweep_ap.sweep_pairs(sort_boxes(boxes), is_vf, total)
+        vcat = types.concat_frames(s.vertices_t0, s.vertices_t1, dtype)
+        table = (types.pack_face_table(vcat, s.faces) if is_vf
+                 else types.pack_edge_table(vcat, s.edges))
+        _SCENE_CANDIDATES[key] = (pairs, int(n), vcat, table)
+    return _SCENE_CANDIDATES[key]
+
+
+@pytest.mark.parametrize("kind", sorted(_C_KINDS))
+@pytest.mark.parametrize("is_vf", [True, False])
+@pytest.mark.parametrize("scene", sorted(_SHARED_SCENES))
+def test_solver_shared_form_pairs_source_equals_columns_bitwise(cuda, scene, is_vf, kind):
+    """Kernel B's shared form (no cap) over a phase's pairs in one launch,
+    its rows computed in the block from the pairs, against the same form
+    over kernel C's columns of the same pairs, both from a TOI of 1: the
+    TOI bit for bit and the overflow flag equal, on the bench scene and on
+    grid-600 (past 2^20 EE candidates); the launch counts as global and
+    pairs; seeded with 0 under ``skip_if_done`` it evaluates nothing."""
+    dtype, comp = _C_KINDS[kind]
+    pairs, n, vcat, table = _scene_candidates(cuda, scene, dtype, is_vf)
+    before = dict(solver.LAUNCHES_BY_MODE)
+    k = solver.solve_pairs(pairs, 0, n, vcat, table, is_vf, 1.0, 0.0, TOL, max_iterations=-1,
+                           compensated=comp)
+    torch.cuda.synchronize()
+    f64 = dtype == torch.float64 or comp
+    assert solver.LAUNCHES_BY_MODE["global"] == before["global"] + 1
+    assert solver.LAUNCHES_BY_MODE["pairs"] == before["pairs"] + 1
+    assert solver.LAUNCHES_BY_MODE["pairs_f64"] == before["pairs_f64"] + f64
+    assert solver.LAUNCHES_BY_MODE["bounded"] == before["bounded"]
+    cols = gp.gather_pack(pairs, 0, n, vcat, table, is_vf, 0.0, TOL, comp)
+    c = solver.solve_cols(cols, torch.ones((n,), dtype=torch.bool, device=cuda), is_vf, 1.0,
+                          TOL, widened=comp)
+    del cols
+    assert bool(k[1]) == bool(c[1]), (scene, is_vf, kind)
+    assert bool(k[1]) or _same_bits(k[0].reshape(1), c[0].reshape(1)), (k[0], c[0])
+    assert int(k[2]) > 0 and float(k[0]) < 1.0
+    z = solver.solve_pairs(pairs, 0, n, vcat, table, is_vf, 0.0, 0.0, TOL, max_iterations=-1,
+                           compensated=comp, skip_if_done=True)
+    assert float(z[0]) == 0.0 and not bool(z[1]) and int(z[2]) == 0
+
+
+@pytest.mark.parametrize("cap", [-1, 10**6])
+def test_solver_pairs_source_splits_past_the_launch_rows(cuda, monkeypatch, cap):
+    """A range past the most rows of one launch (here 4,097) is solved in
+    launches of at most that many, each seeded with the TOI the ones
+    before it left: the TOI and overflow of one launch, one launch counted
+    per part; seeded with 0, no part evaluates anything."""
+    pairs, n, vcat, table = _bench_candidates(cuda, torch.float32, False)
+    one = solver.solve_pairs(pairs, 3, n, vcat, table, False, 1.0, 0.0, TOL, max_iterations=cap)
+    monkeypatch.setattr(solver, "LAUNCH_ROWS", 4097)
+    before = solver.LAUNCHES_BY_MODE["pairs"]
+    split = solver.solve_pairs(pairs, 3, n, vcat, table, False, 1.0, 0.0, TOL,
+                               max_iterations=cap, skip_if_done=True)
+    assert solver.LAUNCHES_BY_MODE["pairs"] == before + -(-(n - 3) // 4097)
+    assert _same_bits(split[0].reshape(1), one[0].reshape(1)) and bool(split[1]) == bool(one[1])
+    z = solver.solve_pairs(pairs, 3, n, vcat, table, False, 0.0, 0.0, TOL, max_iterations=cap,
+                           skip_if_done=True)
+    assert float(z[0]) == 0.0 and int(z[2]) == 0
+
+
 @pytest.mark.parametrize("is_vf", [True, False])
 def test_gather_pack_kernel_clamps_ids_and_rejects_bad_inputs(cuda, is_vf):
     _, _, vcat, table = _bench_candidates(cuda, torch.float32, is_vf)
@@ -1180,17 +1258,20 @@ def test_solver_kernel_reads_column_slices_and_skips_when_done(cuda, kind):
 
 @pytest.mark.parametrize("sweep_impl", ["pairs", "records"])
 def test_fused_launches_gather_pack_every_batch(cuda, sweep_impl, monkeypatch):
-    """Every narrow batch of ``fused_ccd`` packs through kernel C, one
-    launch per chunk of whole batches of each phase: with the chunk cap at
-    three batches of 128, ``ceil(total / 384)`` launches a phase, in the
-    records mode for ``sweep_impl="records"``; TOI and totals as on the
-    CPU."""
+    """Every narrow batch of ``fused_ccd`` that kernel B reads as columns
+    (records at the defaults; pairs under escalation, since at the defaults
+    a phase of pairs is one launch that packs its own rows) packs through
+    kernel C, one launch per chunk of whole batches of each phase: with the
+    chunk cap at three batches of 128, ``ceil(total / 384)`` launches a
+    phase, in the records mode for ``sweep_impl="records"``; TOI and totals
+    as on the CPU."""
     monkeypatch.setattr(gp, "CHUNK_ROWS", 3 * 128 + 100)
     s = _scene()
     args = (s.vertices_t0, s.vertices_t1, s.edges, s.faces)
     before = dict(gp.LAUNCHES_BY_MODE)
     res = fused_ccd(*args, device=cuda, narrow_batch=128, presample=False,
-                    sweep_impl=sweep_impl)
+                    sweep_impl=sweep_impl,
+                    escalate_rounds=128 if sweep_impl == "pairs" else None)
     torch.cuda.synchronize()
     launches = 0
     for mode, total in (("vf", res.vf_total), ("ee", res.ee_total)):
@@ -1204,9 +1285,9 @@ def test_fused_launches_gather_pack_every_batch(cuda, sweep_impl, monkeypatch):
     assert (int(res.vf_total), int(res.ee_total)) == (int(ref.vf_total), int(ref.ee_total))
 
 
-def _counted_call(fn):
-    """``(fn(), counters)``: one call of ``fused_ccd`` under a CPU profile,
-    with the counters of the program's record of it."""
+def _record_of(fn):
+    """``(fn(), record)``: the program's record of the one call of an entry
+    point that ``fn`` makes, under a CPU profile (its spans and counters)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from scalable_ccd_tpu_torch.utils.profiler import profiler
@@ -1218,6 +1299,13 @@ def _counted_call(fn):
             torch.cuda.synchronize()
     (rec,) = profiler().records()
     profiler().clear()
+    return res, rec
+
+
+def _counted_call(fn):
+    """``(fn(), counters)``: one call of ``fused_ccd`` under a CPU profile,
+    with the counters of the program's record of it."""
+    res, rec = _record_of(fn)
     return res, rec.counters
 
 
@@ -1228,23 +1316,25 @@ def _launches(counters, kernel):
 def test_fused_defaults_solve_each_chunk_in_one_launch(cuda, monkeypatch):
     """``fused_ccd`` at its defaults on CUDA, on the bench scene (41,480 VF
     and 136,473 EE candidates) with the chunk cap at two batches of 16,384,
-    so each phase has more than one chunk: auto escalation is off, and
-    kernel B launches once per kernel C launch (the presample's batch and
-    each chunk), none of them round-limited; ``chunk_solves`` counts the
-    chunks and ``batches`` the presample's two.  The TOI is bit for bit that
-    of the frame pool at 128 rounds, asked for as ``escalate_rounds=128``
-    or as ``escalate_pool="frame"`` with auto rounds, and of the plain
-    versions on the CPU; totals and flags equal."""
+    so each phase has more than one chunk: auto escalation is off, and every
+    chunk of a phase is solved in the phase's one launch over its pairs
+    (``launch.solver.global+pairs``, counted in ``chunk_solves``), beside
+    the presample's batch, the one launch a phase of kernel C; none of them
+    round-limited; ``batches`` counts the presample's two.  The TOI is bit
+    for bit that of the frame pool at 128 rounds, asked for as
+    ``escalate_rounds=128`` or as ``escalate_pool="frame"`` with auto
+    rounds, of the records path (kernel C's chunks and one launch each),
+    and of the plain versions on the CPU; totals and flags equal."""
     monkeypatch.setattr(gp, "CHUNK_ROWS", 2 * 16384 + 5)
     s = scenes.cloth_on_sphere(grid_n=128, sphere_subdiv=4, drop=0.25)
     args = (s.vertices_t0, s.vertices_t1, s.edges, s.faces)
     before = dict(solver.LAUNCHES_BY_MODE)
     res, counters = _counted_call(lambda: fused_ccd(*args, device=cuda))
     assert solver.LAUNCHES_BY_MODE["round_limit"] == before["round_limit"]
-    chunks = sum(-(-int(n) // 32768) for n in (res.vf_total, res.ee_total))
     assert int(res.vf_total) > 32768 and int(res.ee_total) > 32768
-    assert _launches(counters, "solver") == _launches(counters, "gather_pack") == chunks + 2
-    assert counters["chunk_solves"] == chunks and counters["batches"] == 2
+    assert counters["launch.solver.global+pairs"] == counters["chunk_solves"] == 2
+    assert _launches(counters, "solver") == 4 and _launches(counters, "gather_pack") == 2
+    assert counters["batches"] == 2
     want = (float(res.toi).hex(), int(res.vf_total), int(res.ee_total), bool(res.overflowed),
             bool(res.solver_capped))
     escalated = {}
@@ -1256,9 +1346,74 @@ def test_fused_defaults_solve_each_chunk_in_one_launch(cuda, monkeypatch):
         assert (float(esc.toi).hex(), int(esc.vf_total), int(esc.ee_total),
                 bool(esc.overflowed), bool(esc.solver_capped)) == want, label
     assert escalated["rounds"]["batches"] == escalated["pool"]["batches"] > 2
+    rec, rec_counters = _counted_call(lambda: fused_ccd(*args, device=cuda, sweep_impl="records"))
+    chunks = sum(-(-int(n) // 32768) for n in (res.vf_total, res.ee_total))
+    assert rec_counters["chunk_solves"] == chunks and "launch.solver.global+pairs" not in rec_counters
+    assert (float(rec.toi).hex(), int(rec.vf_total), int(rec.ee_total), bool(rec.overflowed),
+            bool(rec.solver_capped)) == want
     ref = fused_ccd(*args, device="cpu")
     assert (float(ref.toi).hex(), int(ref.vf_total), int(ref.ee_total), bool(ref.overflowed),
             bool(ref.solver_capped)) == want
+
+
+def _sliding_cloth(grid_n=210):
+    """``cloth_on_sphere(grid_n, 4)`` whose cloth also slides (2.5, 1.5)
+    grid spacings sideways in the step, as the benchmark's cloth cells move
+    it, so that its boxes overlap those of the cells it passes: past 2^20
+    candidates in each phase at grid 210."""
+    s = scenes.cloth_on_sphere(grid_n=grid_n, sphere_subdiv=4, drop=0.25)
+    v1 = np.array(s.vertices_t1)
+    spacing = 2.4 / (grid_n - 1)
+    v1[:grid_n * grid_n, 0] += 2.5 * spacing
+    v1[:grid_n * grid_n, 2] += 1.5 * spacing
+    return s.vertices_t0, v1, s.edges, s.faces
+
+
+def test_fused_defaults_solve_each_phase_in_one_pairs_launch(cuda):
+    """``fused_ccd`` at its defaults on a scene past 2^20 candidates in each
+    phase (more than one kernel C chunk a phase before): exactly one
+    ``launch.solver.global+pairs`` a phase, ``chunk_solves`` 2, kernel C
+    launched for the presample's batches alone and no ``sccd.pack`` span;
+    the TOI, totals and flags bit for bit those of the records path, which
+    packs and solves the same candidates chunk by chunk."""
+    args = _sliding_cloth()
+    res, rec = _record_of(lambda: fused_ccd(*args, device=cuda))
+    assert int(res.vf_total) > 1 << 20 and int(res.ee_total) > 1 << 20
+    counters = rec.counters
+    assert counters["launch.solver.global+pairs"] == counters["chunk_solves"] == 2
+    presampled = sum(1 for sp in rec.spans if sp.name == "sccd.presample")
+    assert _launches(counters, "gather_pack") == presampled
+    assert _launches(counters, "solver") == 2 + presampled
+    assert not any(sp.name == "sccd.pack" for sp in rec.spans)
+    got = (float(res.toi).hex(), int(res.vf_total), int(res.ee_total), bool(res.overflowed),
+           bool(res.solver_capped))
+    chunked, crec = _record_of(lambda: fused_ccd(*args, device=cuda, sweep_impl="records"))
+    assert crec.counters["chunk_solves"] > 2 and "launch.solver.global+pairs" not in crec.counters
+    assert (float(chunked.toi).hex(), int(chunked.vf_total), int(chunked.ee_total),
+            bool(chunked.overflowed), bool(chunked.solver_capped)) == got
+    assert not got[3] and 0.0 <= float(res.toi) < 1.0
+
+
+def test_ipc_path_keeps_its_launches(cuda):
+    """``ipc_ccd_strategy`` on the chunked path keeps its launches: each
+    broad chunk's bounded solve one ``launch.solver.bounded+pairs``
+    (``chunk_solves``), the IPC rule's re-solves kernel C and the shared
+    form over columns per batch; it makes no unbounded pairs launch."""
+    s = scenes.cloth_on_sphere(grid_n=20, sphere_subdiv=2, drop=0.3, seed=1)
+    v0, v1 = np.asarray(s.vertices_t0), np.asarray(s.vertices_t1)
+    toi = ccd(v0, v1, s.edges, s.faces, device=cuda)
+    assert 0.0 < toi < 1.0
+    args = (v0 + 0.99 * toi * (v1 - v0), v1, s.edges, s.faces)
+    stats = CCDStats()
+    got, rec = _record_of(lambda: ipc_ccd_strategy(*args, min_distance=1e-3, stats=stats,
+                                                   device=cuda))
+    counters = rec.counters
+    assert stats.ipc_refinements > 0 and 0.0 < got < 1.0
+    assert counters["launch.solver.bounded+pairs"] == counters["chunk_solves"] > 0
+    assert "launch.solver.global+pairs" not in counters
+    assert counters.get("launch.solver.global", 0) > 0 and _launches(counters, "gather_pack") > 0
+    want = ipc_ccd_strategy(*args, min_distance=1e-3, device="cpu")
+    assert got == pytest.approx(want, abs=1e-7)
 
 
 def _bench_stream(device, dtype, comp, is_vf, sweep_impl, batch, with_ids=False):

@@ -11,6 +11,7 @@ and its budgets come from its own ``count_only`` totals.
 import json
 
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -22,6 +23,7 @@ from scalable_ccd_tpu.ops import pallas_sweep_ap as jap
 from scalable_ccd_tpu_torch import fused_ccd
 from scalable_ccd_tpu_torch.broad_phase import merge_two_lists, sort_boxes
 from scalable_ccd_tpu_torch.geometry import aabb
+from scalable_ccd_tpu_torch.geometry.scenes import cloth_on_sphere
 from scalable_ccd_tpu_torch.ops import sweep_ap
 from scalable_ccd_tpu_torch.tools import stages
 from scalable_ccd_tpu_torch.utils import Timer
@@ -159,6 +161,22 @@ def test_kernel_b_rows_need_cuda():
     assert modes == ["round_limit", "global", "per_query", "bounded", "bounded"]
 
 
+def test_phase_launches_need_cuda_and_slide_the_cloth():
+    """``--kernel-b``'s phase launches time CUDA kernels only; their frames
+    move the cloth of ``cloth_on_sphere`` (2.5, 1.5) grid spacings sideways
+    and raise it by ``lift``, and leave the sphere where it is."""
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        stages.run_phase_launches(device="cpu")
+    s = cloth_on_sphere(grid_n=16, sphere_subdiv=4, drop=0.25)
+    v0, v1, e, f = stages.sliding_frame(16, 0.5)
+    cloth = 16 * 16
+    assert np.array_equal(e, s.edges) and np.array_equal(f, s.faces)
+    assert np.array_equal(v0[cloth:], s.vertices_t0[cloth:])
+    assert np.array_equal(v1[cloth:], s.vertices_t1[cloth:])
+    assert np.allclose(v0[:cloth] - s.vertices_t0[:cloth], [0.0, 0.5, 0.0])
+    assert np.allclose(v1[:cloth] - s.vertices_t1[:cloth], [2.5 * 2.4 / 15, 0.5, 1.5 * 2.4 / 15])
+
+
 def test_escalation_frames_need_cuda_and_split_device_time_by_kernel():
     """``--escalation`` times CUDA frames only; its traced device time is
     split by kernel, kernel B by form, from the kernels' names (this tree's
@@ -175,6 +193,8 @@ def test_escalation_frames_need_cuda_and_split_device_time_by_kernel():
         ns + "solve_kernel<double, true, true>(double const*, long long)": "kernel_b_shared",
         ns + "solve_kernel<float, true, false, false>(float const*)": "kernel_b_one_thread",
         ns + "solve_kernel<float, true, false, true>(float const*)": "kernel_b_shared",
+        ns + "solve_kernel<float, false, false, (anonymous namespace)::PairRows<float, float> >"
+        "((anonymous namespace)::PairRows<float, float>, float const*)": "kernel_b_shared",
         ns + "gather_pack_kernel<float, float, true, Pairs>(Pairs, long long)": "kernel_c",
         ns + "sweep_units_kernel<float, true, false>(Planes)": "kernel_a",
         ns + "record_units_kernel<double, false>(Planes)": "kernel_a",
